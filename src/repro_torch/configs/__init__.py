@@ -1,0 +1,20 @@
+"""Architecture registry of the port: ``get_config(name)`` / ``--arch <id>``.
+
+Only the architectures whose block kinds the port implements are listed;
+asking for any other one raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import importlib
+
+from .base import ArchConfig  # noqa: F401
+
+ARCH_IDS = ["qwen3_0_6b"]
+
+
+def get_config(name: str) -> ArchConfig:
+    """``qwen3_0_6b`` or its dashed id ``qwen3-0.6b``."""
+    mod_name = name.replace("-", "_").replace(".", "_")
+    if mod_name not in ARCH_IDS:
+        raise NotImplementedError(f"arch {name!r} is not ported yet")
+    return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG

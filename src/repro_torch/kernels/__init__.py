@@ -1,0 +1,8 @@
+"""Hand-written Hopper kernels of the port, their plain versions and their
+launch counts (``LAUNCHES``)."""
+from .build import LAUNCHES
+from .flash_attention import flash_attention, flash_attention_ref
+from .rmsnorm import rmsnorm, rmsnorm_ref
+
+__all__ = ["LAUNCHES", "flash_attention", "flash_attention_ref", "rmsnorm",
+           "rmsnorm_ref"]

@@ -1,0 +1,6 @@
+"""Model functions of the port (decoder-only ATTN stacks: qwen3)."""
+from .model import (decode_step, embed_tokens, forward_hidden, init_cache,
+                    init_params, lm_logits, pattern_stages, prefill)
+
+__all__ = ["decode_step", "embed_tokens", "forward_hidden", "init_cache",
+           "init_params", "lm_logits", "pattern_stages", "prefill"]

@@ -1,0 +1,135 @@
+"""Model assembly of the port: stages, init, forward, prefill and decode
+(counterpart of ``repro/models/model.py`` for decoder-only ATTN stacks).
+
+Params keep the JAX package's tree: ``{"embed", "final_norm", "stages":
+[...]}`` with each stage's blocks stacked on a leading layer axis, so
+``repro_torch.convert`` carries weights across without reshaping. Where
+JAX scans a stage, the port loops over its layers. The serving cache is
+``{"stages": [{"kv": (k, v)}]}`` with leaves ``[L, B, S, KV, hd]``: layer
+axis first, batch at dim 1.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from .blocks import (block_decode, block_forward, block_prefill, init_block,
+                     init_block_cache)
+from .common import dtype_of, embed_init, matmul, rms_norm, tree_map
+
+
+def pattern_stages(cfg) -> List[Tuple[str, int]]:
+    """[(kind, count), ...] — runs of equal kind, cut at shared-attn bounds."""
+    stages: List[Tuple[str, int]] = []
+    for i, kind in enumerate(cfg.block_pattern):
+        cut = (cfg.shared_attn_every
+               and i % cfg.shared_attn_every == 0 and i > 0)
+        if stages and stages[-1][0] == kind and not cut:
+            stages[-1] = (kind, stages[-1][1] + 1)
+        else:
+            stages.append((kind, 1))
+    return stages
+
+
+def _check_ported(cfg):
+    if cfg.shared_attn_every or cfg.enc_dec or cfg.frontend != "none":
+        raise NotImplementedError(f"{cfg.name}: shared blocks, encoders and "
+                                  "frontends are not ported yet")
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked stage (views, so in-place updates land in
+    the stack)."""
+    return tree_map(lambda x: x[i], tree)
+
+
+def init_params(cfg, generator: torch.Generator, device="cuda") -> Dict[str, Any]:
+    """Random params with the JAX package's distributions, drawn from
+    ``generator`` on its own device and placed on ``device``."""
+    _check_ported(cfg)
+    dtype = dtype_of(cfg.param_dtype)
+    p: Dict[str, Any] = {
+        "embed": embed_init(generator, cfg.vocab_size, cfg.d_model, dtype,
+                            device)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = embed_init(generator, cfg.vocab_size, cfg.d_model,
+                                  dtype, device)
+    p["final_norm"] = torch.ones(cfg.d_model, dtype=dtype, device=device)
+    p["stages"] = [init_block(kind, generator, cfg, dtype, device,
+                              lead=(count,))
+                   for kind, count in pattern_stages(cfg)]
+    return p
+
+
+def embed_tokens(p, cfg, tokens):
+    return p["embed"][tokens]
+
+
+def lm_logits(p, cfg, h):
+    """bf16 logits, as ``repro/models/model.py:182-185``."""
+    w = p["embed"].T if cfg.tie_embeddings else p["lm_head"].T
+    return matmul(rms_norm(h, p["final_norm"], cfg.norm_eps), w,
+                  out_dtype=torch.bfloat16)
+
+
+def _positions(B: int, T: int, device):
+    return torch.arange(T, device=device)[None].expand(B, T)
+
+
+def forward_hidden(p, cfg, tokens, *, pos=None):
+    """tokens [B, T] -> (hidden [B, T, d], aux)."""
+    _check_ported(cfg)
+    B, T = tokens.shape
+    pos = _positions(B, T, tokens.device) if pos is None else pos
+    h = embed_tokens(p, cfg, tokens)
+    aux = torch.zeros((), device=h.device)
+    for (kind, count), stage in zip(pattern_stages(cfg), p["stages"]):
+        for i in range(count):
+            h, a = block_forward(kind, _layer(stage, i), cfg, h, pos=pos)
+            aux = aux + a
+    return h, aux
+
+
+def init_cache(cfg, batch: int, seq_len: int, dtype=None, device="cuda"):
+    _check_ported(cfg)
+    dtype = dtype or dtype_of(cfg.param_dtype)
+    return {"stages": [init_block_cache(kind, cfg, batch, seq_len, dtype,
+                                        device, lead=(count,))
+                       for kind, count in pattern_stages(cfg)]}
+
+
+def prefill(p, cfg, tokens, *, pad: int = 64):
+    """Process the prompt; returns (last-position logits [B, V], cache).
+
+    ``pad`` — extra KV slots reserved for tokens generated after prefill.
+    """
+    _check_ported(cfg)
+    B, T = tokens.shape
+    pos = _positions(B, T, tokens.device)
+    h = embed_tokens(p, cfg, tokens)
+    caches = []
+    for (kind, count), stage in zip(pattern_stages(cfg), p["stages"]):
+        layer_caches = []
+        for i in range(count):
+            h, c = block_prefill(kind, _layer(stage, i), cfg, h, pos=pos,
+                                 cache_size=T + pad)
+            layer_caches.append(c)
+        caches.append(tree_map(lambda *xs: torch.stack(xs), *layer_caches))
+    logits = lm_logits(p, cfg, h[:, -1:])
+    return logits[:, 0], {"stages": caches}
+
+
+def decode_step(p, cfg, token, cache, cache_len):
+    """One token for every sequence. token: [B]; cache_len: a scalar or a
+    per-row [B] tensor. Updates ``cache`` in place; returns (logits [B, V],
+    cache)."""
+    _check_ported(cfg)
+    h = embed_tokens(p, cfg, token[:, None])
+    for (kind, count), stage, stage_cache in zip(pattern_stages(cfg),
+                                                 p["stages"], cache["stages"]):
+        for i in range(count):
+            h, _ = block_decode(kind, _layer(stage, i), cfg, h,
+                                _layer(stage_cache, i), cache_len=cache_len)
+    logits = lm_logits(p, cfg, h)
+    return logits[:, 0], cache
