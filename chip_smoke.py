@@ -6,18 +6,30 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. Identify the card (nvidia-smi name and power limit, torch and CUDA).
-2. Build the hand-written kernels from ``src/repro_torch/kernels/csrc``.
+2. Build the hand-written kernels from ``src/repro_torch/kernels/csrc``
+   (one nvcc per source, all at once).
 3. Hold each kernel against its plain PyTorch version on the card (fp32
-   tolerance 2e-5, bf16 2e-2, as |got - want| <= tol + tol * |want|), and
-   time kernel, plain version, a one-call PyTorch yardstick and the bound
-   at the serving path's shapes.
-4. Serve: ``ServeEngine`` at full-width qwen3-0.6b (28 layers, bf16 weights
-   drawn from a seeded generator), 4 slots x 2048 positions, 8 requests.
-   Checks every request finished, the kernels' launch counts (28 flash
-   launches per prefill, 113 rmsnorm launches per prefill and per decode
-   step), and teacher-forced logits of one request against the same model
-   run through the plain versions on the card (within twice the bf16 noise
-   floor, measured against an fp32 run). A traced window then gives the
+   tolerance 2e-5, bf16 2e-2, as |got - want| <= tol + tol * |want|, each
+   output at its own dtype's tolerance), on the grids of
+   ``tests/test_kernels.py`` and at the serving paths' shapes, and time
+   kernel, plain version, a one-call PyTorch yardstick where one exists and
+   the bound: flash_attention, rmsnorm, ssd_scan (outputs and final states,
+   with and without an initial state, with the mLSTM normalizer), slstm_scan
+   (outputs and final states).
+4. Serve: ``ServeEngine`` at full width, bf16 weights drawn from a seeded
+   generator, 4 slots, 8 requests (prompt lengths from ``default_rng(0)`` in
+   [100, 1500], 32 new tokens each), for two models in turn:
+   - qwen3-0.6b (28 layers, 2048 positions): 28 flash launches per prefill,
+     113 rmsnorm launches per prefill and per decode step;
+   - xlstm-1.3b (48 blocks, 42 mLSTM + 6 sLSTM): 42 ssd_scan and 6
+     slstm_scan launches per prefill (one ssd_scan launch computes an mLSTM
+     layer's output and normalizer), 55 rmsnorm launches per prefill and
+     per decode step.
+   Each checks every request finished, the exact launch counts (set to 0
+   just before the phase and read just after), and teacher-forced logits of
+   one request against the same model run through the plain versions on the
+   card (bf16 within twice the bf16 noise floor, measured against an fp32
+   run; fp32 weights within the floor). A traced window then gives the
    device's busy share and device time by kernel.
 5. Print the kernels' JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -32,6 +44,7 @@ import math
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -44,7 +57,8 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import (LAUNCHES, build, flash_attention,  # noqa: E402
                                  flash_attention_ref, ops, rmsnorm,
-                                 rmsnorm_ref)
+                                 rmsnorm_ref, slstm_scan, slstm_scan_ref,
+                                 ssd_scan, ssd_scan_ref)
 from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
 from repro_torch.models.common import tree_map  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
@@ -54,8 +68,10 @@ PEAK_BF16 = 989e12          # tensor cores, bf16 FLOP/s
 PEAK_F32 = 67e12            # CUDA cores, fp32 FLOP/s
 HBM = 3.35e12               # bytes/s
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-N_LAYERS = 28
-NORMS_PER_PASS = 4 * N_LAYERS + 1  # ln1, q_norm, k_norm, ln2 per layer + final
+QWEN_LAYERS = 28
+QWEN_NORMS = 4 * QWEN_LAYERS + 1   # ln1, q_norm, k_norm, ln2 per layer + final
+XLSTM_MLSTM, XLSTM_SLSTM = 42, 6
+XLSTM_NORMS = XLSTM_MLSTM + 2 * XLSTM_SLSTM + 1   # ln1s, sLSTM ff_ln, final
 
 
 def log(*a):
@@ -124,8 +140,19 @@ def max_err(got, want, tol):
     return float(err.max()), ok
 
 
-def randn(gen, *shape, dtype):
-    return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+def randn(gen, *shape, dtype=torch.float32, scale=1.0):
+    return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+def compare(kernel: str, name: str, got, want) -> float:
+    """Every output of a kernel against its plain version's, each at its own
+    dtype's tolerance; returns the largest error."""
+    errs = [max_err(g, w, TOL[w.dtype]) for g, w in zip(got, want)]
+    err, ok = max(e for e, _ in errs), all(o for _, o in errs)
+    log(f"{kernel} {name}: max_abs_err={err:.3e} over {len(errs)} outputs "
+        f"{'ok' if ok else 'FAIL'} ({', '.join(f'{e:.2e}' for e, _ in errs)})")
+    require(ok, f"{kernel} disagrees with its plain version: {name}")
+    return err
 
 
 # --------------------------------------------------------------------------
@@ -205,7 +232,7 @@ def check_rmsnorm(gen):
     path = {}
     for dtype in (torch.float32, torch.bfloat16):
         for rows in RMS_ROWS:
-            for d in (128, 1024):
+            for d in (128, 1024, 2048):
                 x = randn(gen, rows, d, dtype=dtype)
                 g = (1 + 0.1 * randn(gen, d, dtype=torch.float32)).to(dtype)
                 got = rmsnorm(x, g, eps=1e-6)
@@ -244,6 +271,137 @@ def time_rmsnorm(x, g, err):
     return row
 
 
+SSD_GRID = [(1, 128, 4, 1, 16, 32), (2, 256, 2, 2, 8, 64),
+            (1, 512, 8, 1, 16, 32)]          # tests/test_kernels.py:124-128
+SSD_PATH = (1, 4, 512, 1024)                 # mLSTM: b, H, N=dqk, P=dv
+SSD_PATH_T = (137, 1000, 1291)
+SLSTM_GRID = [(2, 64, 2, 16), (1, 128, 4, 32),
+              (3, 128, 1, 64)]               # tests/test_kernels.py:197-201
+SLSTM_PATH = (1, 4, 512)                     # sLSTM: B, nh, dh
+SLSTM_PATH_T = (1, 137, 1000)
+
+
+def check_ssd(gen):
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, T, H, G, N, P in SSD_GRID:
+            x = randn(gen, b, T, H, P, dtype=dtype, scale=0.5)
+            a = -randn(gen, b, T, H, scale=0.3).abs()
+            B, C = (randn(gen, b, T, G, N, dtype=dtype, scale=0.5)
+                    .repeat_interleave(H // G, dim=2) for _ in range(2))
+            got = ssd_scan(x, a, B, C)
+            torch.cuda.synchronize()
+            compare("ssd_scan", f"b={b} T={T} H={H} G={G} N={N} P={P} "
+                    f"{str(dtype)[6:]}", got, ssd_scan_ref(x, a, B, C))
+    path = {}
+    b, H, N, P = SSD_PATH
+    for T in SSD_PATH_T:
+        for init in (False, True):
+            x = randn(gen, b, T, H, P, scale=0.5)
+            a = -randn(gen, b, T, H, scale=0.3).abs()
+            B, C = (randn(gen, b, T, H, N, scale=0.5) for _ in range(2))
+            kw = {"norm_weights": torch.exp(randn(gen, b, T, H, scale=0.5) - 2)}
+            if init:
+                kw["initial_state"] = randn(gen, b, H, N, P)
+                kw["initial_norm_state"] = randn(gen, b, H, N)
+            got = ssd_scan(x, a, B, C, **kw)
+            torch.cuda.synchronize()
+            err = compare("ssd_scan", f"b={b} T={T} H={H} N={N} P={P} fp32 "
+                          f"normalizer initial_state={init}", got,
+                          ssd_scan_ref(x, a, B, C, **kw))
+            if T == REPORT_T and not init:
+                path[T] = time_ssd(x, a, B, C, kw["norm_weights"], err)
+    return path
+
+
+def time_ssd(x, a, B, C, w, err):
+    b, T, H, P = x.shape
+    N = B.shape[-1]
+    flops = 4 * b * T * H * N * (P + 1)    # update + output, P columns + n
+    nbytes = 4 * (2 * x.numel() + a.numel() + B.numel() + C.numel()
+                  + 2 * w.numel() + b * H * N * (P + 1))
+    bound = {"operations": flops / PEAK_F32 * 1e3,
+             "bytes": nbytes / HBM * 1e3}
+    kernel = lambda: ssd_scan(x, a, B, C, norm_weights=w)
+    row = {
+        "max_abs_err": err,
+        "ms": device_ms(kernel, 5),
+        "plain_ms": device_ms(lambda: ssd_scan_ref(x, a, B, C,
+                                                   norm_weights=w), 1),
+        "library_ms": None,
+        "bound_by": max(bound, key=bound.get),
+        "bound_ms": max(bound.values()),
+        "shape": f"b={b} T={T} H={H} N={N} P={P} fp32 + normalizer",
+    }
+    log(f"  device time T={T}: kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, no one-call PyTorch equivalent, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}); kernel reaches "
+        f"{flops / row['ms'] / 1e9:.1f} TFLOP/s; one call from Python "
+        f"{host_ms(kernel, 5):.4f} ms")
+    return row
+
+
+def slstm_inputs(gen, B, T, nh, dh, dtype, path):
+    """Grid inputs as tests/test_kernels.py draws them; path inputs as the
+    model's: wx ~ N(0, 1) (rms-normed x through w_in), r ~ N(0, 1/dh) in
+    bf16, b = -2 / 3 / 0 / 0 for the i / f / z / o gates."""
+    if not path:
+        return (randn(gen, B, T, nh, 4 * dh, dtype=dtype, scale=0.5),
+                randn(gen, nh, dh, 4 * dh, scale=0.3),
+                randn(gen, nh, 4 * dh, scale=0.2))
+    gate_b = torch.tensor([-2.0, 3.0, 0.0, 0.0], device="cuda")
+    return (randn(gen, B, T, nh, 4 * dh),
+            randn(gen, nh, dh, 4 * dh, dtype=torch.bfloat16,
+                  scale=1 / math.sqrt(dh)),
+            gate_b.repeat_interleave(dh).expand(nh, 4 * dh).contiguous())
+
+
+def check_slstm(gen):
+    cases = [(B, T, nh, dh, dtype, False) for dtype in (torch.float32,
+                                                        torch.bfloat16)
+             for B, T, nh, dh in SLSTM_GRID]
+    cases += [(*SLSTM_PATH[:1], T, *SLSTM_PATH[1:], torch.float32, True)
+              for T in SLSTM_PATH_T]
+    path = {}
+    for B, T, nh, dh, dtype, on_path in cases:
+        wx, r, b = slstm_inputs(gen, B, T, nh, dh, dtype, on_path)
+        hs, state = slstm_scan(wx, r, b)
+        torch.cuda.synchronize()
+        want_hs, want_state = slstm_scan_ref(wx, r, b)
+        err = compare("slstm_scan", f"B={B} T={T} nh={nh} dh={dh} wx "
+                      f"{str(wx.dtype)[6:]} r {str(r.dtype)[6:]}",
+                      (hs, *state), (want_hs, *want_state))
+        if on_path and T == REPORT_T:
+            path[T] = time_slstm(wx, r, b, err)
+    return path
+
+
+def time_slstm(wx, r, b, err):
+    B, T, nh, gd = wx.shape
+    dh = gd // 4
+    # the recurrence's multiply-adds, plus ~20 gate operations per unit
+    flops = 2 * B * T * nh * dh * gd + 20 * B * T * nh * dh
+    nbytes = (wx.numel() * wx.element_size() + r.numel() * r.element_size()
+              + 4 * b.numel() + 4 * B * T * nh * dh + 4 * 4 * B * nh * dh)
+    bound = {"operations": flops / PEAK_F32 * 1e3,
+             "bytes": nbytes / HBM * 1e3}
+    kernel = lambda: slstm_scan(wx, r, b)
+    row = {
+        "max_abs_err": err,
+        "ms": device_ms(kernel, 3),
+        "plain_ms": device_ms(lambda: slstm_scan_ref(wx, r, b), 1),
+        "library_ms": None,
+        "bound_by": max(bound, key=bound.get),
+        "bound_ms": max(bound.values()),
+        "shape": f"B={B} T={T} nh={nh} dh={dh} wx fp32 r bf16",
+    }
+    log(f"  device time T={T}: kernel {row['ms']:.4f} ms "
+        f"({row['ms'] / T * 1e3:.2f} us per step), plain "
+        f"{row['plain_ms']:.4f} ms, no one-call PyTorch equivalent, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}); one call from Python "
+        f"{host_ms(kernel, 3):.4f} ms")
+    return row
+
+
 # --------------------------------------------------------------------------
 # phase 4: serve
 # --------------------------------------------------------------------------
@@ -251,13 +409,15 @@ def time_rmsnorm(x, g, err):
 def plain_versions():
     """Route the model's kernel calls to the plain versions (reference run
     on the card; the port itself never does this)."""
-    saved = ops.attention, ops.norm
+    saved = ops.attention, ops.norm, ops.ssd, ops.slstm
     ops.attention = lambda q, k, v, **kw: flash_attention_ref(q, k, v, **kw)
     ops.norm = lambda x, gain, **kw: rmsnorm_ref(x, gain, **kw)
+    ops.ssd = lambda x, a, B, C, **kw: ssd_scan_ref(x, a, B, C, **kw)
+    ops.slstm = lambda wx, r, b: slstm_scan_ref(wx, r, b)
     try:
         yield
     finally:
-        ops.attention, ops.norm = saved
+        ops.attention, ops.norm, ops.ssd, ops.slstm = saved
 
 
 def teacher_forced(params, cfg, prompt, forced):
@@ -273,17 +433,21 @@ def teacher_forced(params, cfg, prompt, forced):
     return torch.stack(out).float()
 
 
-def serve():
-    cfg = get_config("qwen3-0.6b")
-    require(cfg.n_layers == N_LAYERS and cfg.param_dtype == "bfloat16")
+def serve(arch: str, n_layers: int, per_prefill: dict, per_step: dict):
+    """Serve 8 requests on ``arch`` at full width; require the launch counts
+    ``per_prefill`` x prefills + ``per_step`` x decode steps exactly."""
+    cfg = get_config(arch)
+    require(cfg.n_layers == n_layers and cfg.param_dtype == "bfloat16")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator("cuda").manual_seed(0),
                          device="cuda")
     eng = ServeEngine(cfg, params, slots=4, max_seq=2048, device="cuda")
     torch.cuda.synchronize()
-    log(f"serve: qwen3-0.6b full width ({cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, vocab {cfg.vocab_size}, attn_impl "
-        f"{cfg.attn_impl}), weights+cache set up in "
+    log(f"serve: {arch} full width ({cfg.n_layers} layers "
+        f"{dict(Counter(cfg.block_pattern))}, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}), weights+cache set up in "
         f"{time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(0)
     lens = rng.integers(100, 1501, size=8)
@@ -301,8 +465,8 @@ def serve():
     require(all(len(done[r].tokens) == 32 for r in rids))
     require(all(0 <= t < cfg.vocab_size for r in rids for t in done[r].tokens))
     st = eng.stats
-    want = {"flash_attention": N_LAYERS * st["prefills"],
-            "rmsnorm": NORMS_PER_PASS * (st["prefills"] + st["decode_steps"])}
+    want = expected_launches(per_prefill, per_step, st["prefills"],
+                             st["decode_steps"])
     log(f"serve: prompt lengths {lens.tolist()}, {st['prefills']} prefills, "
         f"{st['decode_steps']} decode steps, launches {launches} "
         f"(expected {want})")
@@ -316,46 +480,62 @@ def serve():
         "generated_tokens": tokens,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
-    log("serve metrics: " + json.dumps(metrics))
+    log(f"serve metrics {arch}: " + json.dumps(metrics))
 
-    check_teacher_forced(params, cfg, prompts[0], done[rids[0]].tokens[:8])
+    check_teacher_forced(params, cfg, prompts[0], done[rids[0]].tokens[:8],
+                         per_prefill, per_step)
     profile_serving(eng, prompts[:4])
     return launches, metrics
 
 
-def check_teacher_forced(params, cfg, prompt, forced):
-    """The kernel path's logits against the same model through the plain
-    versions on the card (both bf16), and both against an fp32 plain run.
+def expected_launches(per_prefill, per_step, prefills, steps):
+    want = Counter({k: v * prefills for k, v in per_prefill.items()})
+    want.update({k: v * steps for k, v in per_step.items()})
+    return dict(want)
 
-    Tolerance: twice the bf16 noise floor of this run, which is the plain
-    bf16 path's own distance from fp32. The kernel path must be that close
-    to the plain path and to fp32; a wrong mask or a wrong norm moves the
-    logits by far more than bf16 rounding does through 28 layers.
+
+def check_teacher_forced(params, cfg, prompt, forced, per_prefill, per_step):
+    """The kernel path's logits against the same model through the plain
+    versions on the card, in bf16 and in fp32, and both bf16 paths against
+    the fp32 plain run.
+
+    Tolerance: the bf16 noise floor of this run, which is the plain bf16
+    path's own distance from fp32. In bf16 the kernel path must be within
+    twice that of the plain path and of fp32; in fp32, where both paths see
+    the same fp32 activations and differ only in summation order, the
+    kernel path must be within the floor itself of the plain path. A wrong
+    mask, norm or state moves the logits by far more than rounding does.
     """
-    before = dict(LAUNCHES)
+    LAUNCHES.clear()
     got = teacher_forced(params, cfg, prompt, forced)
-    require(LAUNCHES["flash_attention"] == before["flash_attention"] + N_LAYERS)
+    require(dict(LAUNCHES) == expected_launches(per_prefill, per_step, 1,
+                                                len(forced)),
+            f"teacher-forced run launched {dict(LAUNCHES)}")
     mid = dict(LAUNCHES)
+    params32 = tree_map(lambda t: t.float(), params)
     with plain_versions():
         plain = teacher_forced(params, cfg, prompt, forced)
-        params32 = tree_map(lambda t: t.float(), params)
         ref32 = teacher_forced(params32, cfg, prompt, forced)
-        del params32
     require(dict(LAUNCHES) == mid, "the plain reference launched a kernel")
+    got32 = teacher_forced(params32, cfg, prompt, forced)
+    del params32
     require(got.shape == (len(forced) + 1, cfg.vocab_size))
-    require(torch.isfinite(got).all())
+    require(torch.isfinite(got).all() and torch.isfinite(got32).all())
     diff = float((got - plain).abs().max())
     scale = float(plain.abs().max())
     to32 = float((got - ref32).abs().max())
     floor = float((plain - ref32).abs().max())
+    diff32 = float((got32 - ref32).abs().max())
     agree = float((got.argmax(-1) == plain.argmax(-1)).float().mean())
     log(f"teacher-forced logits (prefill + {len(forced)} decode steps, "
         f"prompt {len(prompt)}): kernel vs plain max|diff| {diff:.4e} beside "
         f"max|logit| {scale:.4e} (ratio {diff / scale:.4e}); kernel vs fp32 "
         f"{to32:.4e}; bf16 noise floor (plain vs fp32) {floor:.4e}, tol "
-        f"2x that; argmax agreement {agree:.3f}")
+        f"2x that; argmax agreement {agree:.3f}; fp32 weights: kernel vs "
+        f"plain {diff32:.4e}, tol the floor")
     require(diff <= 2 * floor, "kernel path disagrees with the plain path")
     require(to32 <= 2 * floor, "kernel path further from fp32 than plain")
+    require(diff32 <= floor, "fp32 kernel path disagrees with fp32 plain")
 
 
 def profile_serving(eng, prompts):
@@ -375,12 +555,14 @@ def profile_serving(eng, prompts):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels)
-    groups = {"flash_attention": 0.0, "rmsnorm": 0.0, "matmul": 0.0,
-              "other": 0.0}
+    groups = {"flash_attention": 0.0, "rmsnorm": 0.0, "ssd_scan": 0.0,
+              "slstm_scan": 0.0, "matmul": 0.0, "other": 0.0}
     for e in kernels:
         name = e.key.lower()
         group = ("flash_attention" if "flash_fwd_kernel" in name else
                  "rmsnorm" if "rmsnorm_kernel" in name else
+                 "ssd_scan" if "ssd_scan_kernel" in name else
+                 "slstm_scan" if "slstm_scan_kernel" in name else
                  "matmul" if any(w in name for w in ("gemm", "cutlass",
                                                       "xmma", "sm90_"))
                  else "other")
@@ -418,22 +600,46 @@ def main():
     gen = torch.Generator("cuda").manual_seed(0)             # phase 3
     flash_rows = check_flash(gen)
     rms_rows = check_rmsnorm(gen)
+    ssd_rows = check_ssd(gen)
+    slstm_rows = check_slstm(gen)
 
-    launches, metrics = serve()                              # phase 4
+    qwen, _ = serve("qwen3-0.6b", QWEN_LAYERS,                # phase 4
+                    {"flash_attention": QWEN_LAYERS, "rmsnorm": QWEN_NORMS},
+                    {"rmsnorm": QWEN_NORMS})
+    xlstm, _ = serve("xlstm-1.3b", XLSTM_MLSTM + XLSTM_SLSTM,
+                     {"ssd_scan": XLSTM_MLSTM, "slstm_scan": XLSTM_SLSTM,
+                      "rmsnorm": XLSTM_NORMS},
+                     {"rmsnorm": XLSTM_NORMS})
 
-    kernels = [                                              # phase 5
+    def launches(name):                                      # phase 5
+        by_path = {"qwen3-0.6b": qwen.get(name, 0),
+                   "xlstm-1.3b": xlstm.get(name, 0)}
+        return {"launches": sum(by_path.values()),
+                "launches_by_path": by_path}
+
+    kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:121",
-         "launches": launches["flash_attention"], **flash_rows[REPORT_T]},
+         **launches("flash_attention"), **flash_rows[REPORT_T]},
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:35",
-         "launches": launches["rmsnorm"], **rms_rows[REPORT_RMS]},
+         **launches("rmsnorm"), **rms_rows[REPORT_RMS]},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:82",
+         **launches("ssd_scan"), **ssd_rows[REPORT_T]},
+        {"name": "slstm_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/slstm_scan.cu",
+         "replaces": "src/repro/kernels/slstm_scan.py:94",
+         **launches("slstm_scan"), **slstm_rows[REPORT_T]},
     ]
     for k in kernels:
+        require(k["launches"] > 0, f"{k['name']} never ran on a serving path")
         require(all(math.isfinite(k[f]) for f in ("ms", "plain_ms",
-                                                 "bound_ms", "library_ms")))
+                                                 "bound_ms")))
+        require(k["library_ms"] is None or math.isfinite(k["library_ms"]))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

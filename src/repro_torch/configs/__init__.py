@@ -9,11 +9,11 @@ import importlib
 
 from .base import ArchConfig  # noqa: F401
 
-ARCH_IDS = ["qwen3_0_6b"]
+ARCH_IDS = ["qwen3_0_6b", "xlstm_1_3b"]
 
 
 def get_config(name: str) -> ArchConfig:
-    """``qwen3_0_6b`` or its dashed id ``qwen3-0.6b``."""
+    """An id of ``ARCH_IDS`` (``qwen3_0_6b``) or its dashed form (``qwen3-0.6b``)."""
     mod_name = name.replace("-", "_").replace(".", "_")
     if mod_name not in ARCH_IDS:
         raise NotImplementedError(f"arch {name!r} is not ported yet")

@@ -13,7 +13,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
 
-# Block kinds of the JAX package (the port implements ATTN so far)
+# Block kinds of the JAX package (the port implements ATTN, MLSTM and SLSTM)
 ATTN = "attn"          # full transformer block (attention + MLP)
 MOE = "moe"            # transformer block with MoE MLP
 MAMBA2 = "mamba2"      # Mamba-2 SSD block

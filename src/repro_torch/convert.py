@@ -41,8 +41,9 @@ def _leaf_to_numpy(t: torch.Tensor):
     return t.numpy()
 
 
-def to_torch(tree, device="cpu"):
-    """numpy tree (JAX layout) -> tensor tree on ``device``."""
+def to_torch(tree, device="cuda"):
+    """numpy tree (JAX layout) -> tensor tree on ``device`` (the card unless
+    the caller asks for the CPU)."""
     return tree_map(lambda a: _leaf_to_torch(a, device), tree)
 
 

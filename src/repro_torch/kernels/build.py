@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels and load them with ``ctypes``.
 
-Every ``csrc/*.cu`` goes through one ``nvcc`` call for Hopper (``sm_90a``)
-into one shared library with a plain C interface, under ``build/kernels/``
-at the root of the checkout, the first time a kernel is launched. The
-library's name carries a hash of the sources and flags, so an edited source
-is rebuilt and a stale library is never loaded. Only sources in this
-package go into the build.
+Every ``csrc/*.cu`` is compiled for Hopper (``sm_90a``) by its own ``nvcc``
+process, all started together, and the objects are linked into one shared
+library with a plain C interface, under ``build/kernels/`` at the root of
+the checkout, the first time a kernel is launched. The library's name
+carries a hash of the sources and flags, so an edited source is rebuilt and
+a stale library is never loaded. Only sources in this package go into the
+build.
 
 Each C entry point launches on the stream it is given, allocates nothing
 and returns ``cudaGetLastError()``; :func:`check` turns a non-zero code
@@ -26,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Counter = Counter()
 """Kernel launches by kernel name. A wrapper adds one where it launches its
@@ -61,24 +62,50 @@ def library_path() -> Path:
     return BUILD_DIR / f"libkernels_{digest.hexdigest()[:16]}.so"
 
 
-def nvcc_command(out: Path):
-    return [nvcc(), *NVCC_FLAGS, "-o", str(out), *map(str, sources())]
+def compile_command(src: Path, obj: Path):
+    return [nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+
+
+def link_command(objs, out: Path):
+    return [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+            "-o", str(out), *map(str, objs)]
+
+
+def _run_all(commands):
+    """Run the commands in parallel; returns their (returncode, output)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in commands]
+    outs = [p.communicate()[0] for p in procs]
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
 
 
 def build(path: Path) -> None:
-    """Compile every source into ``path`` (written under a temporary name and
-    renamed, so a concurrent loader never sees half a library)."""
-    path.parent.mkdir(parents=True, exist_ok=True)
+    """Compile every source (one nvcc each, in parallel) and link them into
+    ``path`` (written under a temporary name and renamed, so a concurrent
+    loader never sees half a library)."""
+    tmp_dir = path.with_name(f"{path.name}.{os.getpid()}.objs")
+    tmp_dir.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    objs = [tmp_dir / f"{src.stem}.o" for src in sources()]
     t0 = time.monotonic()
-    proc = subprocess.run(nvcc_command(tmp), capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, path)
+    try:
+        results = _run_all(compile_command(src, obj)
+                           for src, obj in zip(sources(), objs))
+        failed = [f"{src.name}:\n{out}" for src, (code, out)
+                  in zip(sources(), results) if code != 0]
+        if not failed:
+            [(code, out)] = _run_all([link_command(objs, tmp)])
+            results.append((code, out))
+            failed = [f"link:\n{out}"] if code != 0 else []
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        os.replace(tmp, path)
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
     BUILD_INFO.update(seconds=time.monotonic() - t0,
-                      log=proc.stdout + proc.stderr)
+                      log="".join(out for _, out in results))
 
 
 @functools.cache

@@ -2,12 +2,15 @@
 ``repro/kernels/ops.py``, without its ``INTERPRET`` switch).
 
 A CUDA tensor goes to the Hopper kernel, a CPU tensor to the kernel's plain
-PyTorch version; the model code calls only these two functions.
+PyTorch version; the model code calls only these functions. They hand the
+kernels contiguous tensors (the wrappers raise on any other).
 """
 from __future__ import annotations
 
 from .flash_attention import flash_attention
 from .rmsnorm import rmsnorm
+from .slstm_scan import slstm_scan
+from .ssd_scan import ssd_scan
 
 
 def attention(q, k, v, *, causal=True, window=0, q_offset=0):
@@ -19,4 +22,22 @@ def norm(x, gain, *, eps=1e-6):
     return rmsnorm(x, gain, eps=eps)
 
 
-__all__ = ["attention", "norm"]
+def _contiguous(t):
+    return None if t is None else t.contiguous()
+
+
+def ssd(x, a, B, C, *, initial_state=None, norm_weights=None,
+        initial_norm_state=None):
+    """SSD recurrence with state in and out (``ssd_scan``)."""
+    return ssd_scan(x.contiguous(), a.contiguous(), B.contiguous(),
+                    C.contiguous(), initial_state=_contiguous(initial_state),
+                    norm_weights=_contiguous(norm_weights),
+                    initial_norm_state=_contiguous(initial_norm_state))
+
+
+def slstm(wx, r, b):
+    """sLSTM time scan returning (hs, (c, n, m, h)) (``slstm_scan``)."""
+    return slstm_scan(wx.contiguous(), r.contiguous(), b.contiguous())
+
+
+__all__ = ["attention", "norm", "slstm", "ssd"]

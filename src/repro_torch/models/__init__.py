@@ -1,4 +1,4 @@
-"""Model functions of the port (decoder-only ATTN stacks: qwen3)."""
+"""Model functions of the port (decoder-only stacks: qwen3, xlstm)."""
 from .model import (decode_step, embed_tokens, forward_hidden, init_cache,
                     init_params, lm_logits, pattern_stages, prefill)
 

@@ -1,29 +1,39 @@
 """Blocks of the port: init / forward / prefill / decode / cache-init
-(counterpart of ``repro/models/blocks.py``). Only the ATTN kind (attention +
-dense MLP) is ported; other kinds raise.
+(counterpart of ``repro/models/blocks.py``). Ported kinds: ATTN (attention
++ dense MLP), MLSTM and SLSTM (xLSTM); other kinds raise.
 
 Forwards return (x, aux) like the JAX package, aux being the MoE balance
-loss there and always 0 here.
+loss there and always 0 here. Decode updates the cache in place.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from . import xlstm as X
 from .attention import attn_decode, attn_prefill, init_attn_params, init_kv_cache
-from .common import rms_norm
+from .common import rms_norm, tree_map
 from .mlp import init_mlp_params, mlp_forward
 
+# the recurrent kinds: a mixer after ln1, with a residual around it
+_INIT = {"mlstm": X.init_mlstm_params, "slstm": X.init_slstm_params}
+_FORWARD = {"mlstm": X.mlstm_forward, "slstm": X.slstm_forward}
+_DECODE = {"mlstm": X.mlstm_decode, "slstm": X.slstm_decode}
+_CACHE = {"mlstm": X.init_mlstm_cache, "slstm": X.init_slstm_cache}
 
-def _attn_only(kind: str):
-    if kind != "attn":
+
+def _check_kind(kind: str):
+    if kind != "attn" and kind not in _INIT:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
 
 
 def init_block(kind: str, generator, cfg, dtype, device, lead=()):
     """One block's params, or ``lead``-stacked params of several blocks."""
-    _attn_only(kind)
+    _check_kind(kind)
     ones = lambda: torch.ones(*lead, cfg.d_model, dtype=dtype, device=device)
+    if kind in _INIT:
+        return {"ln1": ones(),
+                "mixer": _INIT[kind](generator, cfg, dtype, device, lead)}
     return {"ln1": ones(),
             "attn": init_attn_params(generator, cfg, dtype, device, lead),
             "ln2": ones(),
@@ -38,14 +48,47 @@ def _attn_mlp(p, cfg, x, pos):
 
 
 def block_forward(kind: str, p, cfg, x, *, pos):
-    _attn_only(kind)
-    return _attn_mlp(p, cfg, x, pos)[0], torch.zeros((), device=x.device)
+    _check_kind(kind)
+    zero = torch.zeros((), device=x.device)
+    if kind in _FORWARD:
+        y = _FORWARD[kind](p["mixer"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps))
+        return x + y, zero
+    return _attn_mlp(p, cfg, x, pos)[0], zero
+
+
+def _recurrent_prefill_mlstm(p, cfg, x):
+    """Forward + final (conv, ssm, ssm_n) state (``repro/models/blocks.py:206``).
+    The conv state is the last K-1 inputs, zero-padded on the left for a
+    prompt shorter than that (the causal conv's own padding)."""
+    Bsz, T, _ = x.shape
+    xb, z, q, k, v, i_log, f_log, _ = X._mlstm_qkvif(p, cfg, x)
+    K1 = cfg.ssm_conv - 1
+    conv_state = F.pad(xb[:, -K1:], (0, 0, max(K1 - T, 0), 0))
+    y, n, state, nstate = X._mlstm_recurrence(q, k, v, i_log, f_log)
+    out = X._mlstm_output(p, cfg, y, n, z, Bsz, T)
+    return out, {"conv": conv_state, "ssm": state, "ssm_n": nstate}
+
+
+def _recurrent_prefill_slstm(p, cfg, x):
+    """Forward + final (c, n, m, h) state (``repro/models/blocks.py:222``)."""
+    hs, (c, n, m, h) = X._slstm_scan(p, cfg, x)
+    return X._slstm_output(p, cfg, hs, x.dtype), {"c": c, "n": n, "m": m,
+                                                  "h": h}
+
+
+_PREFILLS = {"mlstm": _recurrent_prefill_mlstm,
+             "slstm": _recurrent_prefill_slstm}
 
 
 def block_prefill(kind: str, p, cfg, x, *, pos, cache_size: int = 0):
-    """Returns (x, cache); the (k, v) cache is zero-padded on the sequence
-    axis up to ``cache_size`` slots, headroom for generated tokens."""
-    _attn_only(kind)
+    """Returns (x, cache). For ATTN the (k, v) cache is zero-padded on the
+    sequence axis up to ``cache_size`` slots, headroom for generated tokens;
+    a recurrent kind's cache is its final state."""
+    _check_kind(kind)
+    if kind in _PREFILLS:
+        y, cache = _PREFILLS[kind](p["mixer"], cfg,
+                                   rms_norm(x, p["ln1"], cfg.norm_eps))
+        return x + y, cache
     if cfg.sliding_window:
         raise NotImplementedError("rolling (sliding-window) caches are not "
                                   "ported yet")
@@ -59,7 +102,12 @@ def block_prefill(kind: str, p, cfg, x, *, pos, cache_size: int = 0):
 
 def block_decode(kind: str, p, cfg, x, cache, *, cache_len):
     """One token; the cache is updated in place and returned."""
-    _attn_only(kind)
+    _check_kind(kind)
+    if kind in _DECODE:
+        y, new = _DECODE[kind](p["mixer"], cfg,
+                               rms_norm(x, p["ln1"], cfg.norm_eps), cache)
+        tree_map(lambda old, val: old.copy_(val), cache, new)
+        return x + y, cache
     a_out, kv = attn_decode(p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps),
                             cache["kv"], cache_len=cache_len)
     h = x + a_out
@@ -69,5 +117,7 @@ def block_decode(kind: str, p, cfg, x, cache, *, cache_len):
 
 def init_block_cache(kind: str, cfg, batch: int, cache_size: int, dtype,
                      device, lead=()):
-    _attn_only(kind)
+    _check_kind(kind)
+    if kind in _CACHE:
+        return _CACHE[kind](cfg, batch, dtype, device, lead)
     return {"kv": init_kv_cache(cfg, batch, cache_size, dtype, device, lead)}

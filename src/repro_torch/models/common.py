@@ -1,5 +1,5 @@
-"""Shared primitives of the port: dtypes, matmul, RMSNorm, RoPE, activations
-and init helpers (counterpart of ``repro/models/common.py``).
+"""Shared primitives of the port: dtypes, matmul, RMSNorm, per-head group
+norm, RoPE, activations and init helpers (counterpart of ``repro/models/common.py``).
 
 Params are nested dicts of tensors, weights stored ``[d_in, d_out]`` and
 applied as ``x @ w``, as in the JAX package.
@@ -34,33 +34,51 @@ def dtype_of(name: str) -> torch.dtype:
 # --------------------------------------------------------------------------
 # init helpers: the distributions of repro/models/common.py:25-31
 # --------------------------------------------------------------------------
-def _normal(shape, generator: torch.Generator, device):
-    return torch.randn(shape, generator=generator, dtype=F32,
-                       device=generator.device).to(device)
+def normal_init(generator, shape, std: float, dtype, device):
+    """N(0, std^2) of ``shape``, drawn from ``generator`` on its own device
+    and placed on ``device`` in ``dtype``."""
+    x = torch.randn(shape, generator=generator, dtype=F32,
+                    device=generator.device).to(device)
+    return (x * std).to(dtype)
 
 
 def dense_init(generator, d_in: int, d_out: int, dtype, device,
                scale: float = 1.0, lead=()):
     """N(0, (scale / sqrt(d_in))^2) of shape ``lead + (d_in, d_out)``."""
-    std = scale / math.sqrt(d_in)
-    return (_normal((*lead, d_in, d_out), generator, device) * std).to(dtype)
+    return normal_init(generator, (*lead, d_in, d_out), scale / math.sqrt(d_in),
+                       dtype, device)
 
 
 def embed_init(generator, vocab: int, d: int, dtype, device):
-    return (_normal((vocab, d), generator, device) * 0.02).to(dtype)
+    return normal_init(generator, (vocab, d), 0.02, dtype, device)
 
 
 def matmul(x, w, out_dtype=None):
     """``x @ w`` with fp32 accumulation, cast to ``out_dtype`` (x's dtype by
-    default); torch's bf16 matmul accumulates in fp32 on the card and the
-    CPU alike."""
-    return torch.matmul(x, w).to(out_dtype or x.dtype)
+    default). torch's bf16 matmul accumulates in fp32 on the card and the
+    CPU alike but rounds its result to bf16; where fp32 is asked for (JAX's
+    ``preferred_element_type=F32``), the product is taken in fp32 so the
+    accumulator itself comes out, not its bf16 rounding."""
+    out_dtype = out_dtype or x.dtype
+    if out_dtype == F32 and x.dtype != F32:
+        return torch.matmul(x.float(), w.float())
+    return torch.matmul(x, w).to(out_dtype)
 
 
 def rms_norm(x, gain, eps: float = 1e-6):
     """RMSNorm through the port's kernel (plain version on a CPU tensor).
     The kernel takes contiguous rows; ``h[:, -1:]`` of a batch is not."""
     return ops.norm(x.contiguous(), gain, eps=eps)
+
+
+def group_norm_heads(x, gain, eps: float = 1e-6):
+    """Per-head layer norm over the last dim (x: [..., H, hd]), in fp32,
+    cast back to x's dtype (``repro/models/common.py:66``)."""
+    h = x.float()
+    mu = h.mean(dim=-1, keepdim=True)
+    var = h.var(dim=-1, keepdim=True, unbiased=False)
+    h = (h - mu) * torch.rsqrt(var + eps)
+    return (h * gain.float()).to(x.dtype)
 
 
 def activation_fn(name: str):

@@ -1,12 +1,14 @@
 """Model assembly of the port: stages, init, forward, prefill and decode
-(counterpart of ``repro/models/model.py`` for decoder-only ATTN stacks).
+(counterpart of ``repro/models/model.py`` for decoder-only stacks of ATTN,
+MLSTM and SLSTM blocks: qwen3, xlstm).
 
 Params keep the JAX package's tree: ``{"embed", "final_norm", "stages":
 [...]}`` with each stage's blocks stacked on a leading layer axis, so
 ``repro_torch.convert`` carries weights across without reshaping. Where
 JAX scans a stage, the port loops over its layers. The serving cache is
-``{"stages": [{"kv": (k, v)}]}`` with leaves ``[L, B, S, KV, hd]``: layer
-axis first, batch at dim 1.
+``{"stages": [...]}``, one tree per stage whose leaves put the layer axis
+first and batch at dim 1: ``{"kv": (k, v)}`` of ``[L, B, S, KV, hd]`` for
+ATTN, the recurrent state (``[L, B, ...]``) for MLSTM and SLSTM.
 """
 from __future__ import annotations
 

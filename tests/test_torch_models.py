@@ -45,7 +45,8 @@ def _cfgs(**kw):
 def setup():
     jcfg, tcfg = _cfgs()
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
-    tparams = convert.to_torch(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = convert.to_torch(jax.tree_util.tree_map(np.asarray, jparams),
+                               device="cpu")
     return jcfg, tcfg, jparams, tparams
 
 
@@ -175,7 +176,7 @@ def test_convert_round_trip_keeps_paths_dtypes_and_bits():
     jcfg = jax_get_config("qwen3_0_6b").reduced()      # bf16 params
     jtree = jax.tree_util.tree_map(
         np.asarray, JM.init_params(jcfg, jax.random.PRNGKey(5)))
-    ttree = convert.to_torch(jtree)
+    ttree = convert.to_torch(jtree, device="cpu")
     assert ttree["stages"][0]["attn"]["wq"].dtype == torch.bfloat16
     assert ttree["stages"][0]["attn"]["wq"].shape == (4, 128, 128)
     back = convert.to_numpy(ttree)

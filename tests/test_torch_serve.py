@@ -134,7 +134,8 @@ def test_engine_path_logits_match_jax():
                                param_dtype="float32")
     tcfg = ArchConfig(**dataclasses.asdict(jcfg))
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
-    tparams = convert.to_torch(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = convert.to_torch(jax.tree_util.tree_map(np.asarray, jparams),
+                               device="cpu")
     prompt = np.array([[3, 14, 15, 9, 2]])
     forced = [11, 42, 7, 0, 63]
     max_seq = 32
