@@ -7,15 +7,22 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Identify the card (nvidia-smi name and power limit, torch and CUDA).
 2. Build the hand-written kernels from ``src/repro_torch/kernels/csrc``
-   (one nvcc per source, all at once).
+   (one nvcc per source, all at once); log ptxas's registers, shared memory
+   and spills, and the tensor-core flash kernel's dynamic shared memory.
 3. Hold each kernel against its plain PyTorch version on the card (fp32
    tolerance 2e-5, bf16 2e-2, as |got - want| <= tol + tol * |want|, each
    output at its own dtype's tolerance), on the grids of
    ``tests/test_kernels.py`` and at the serving paths' shapes, and time
    kernel, plain version, a one-call PyTorch yardstick where one exists and
-   the bound: flash_attention, rmsnorm, ssd_scan (outputs and final states,
-   with and without an initial state, with the mLSTM normalizer), slstm_scan
-   (outputs and final states).
+   the bound: flash_attention (every case in fp32, the CUDA-core kernel,
+   and in bf16, the tensor-core kernel: causal, three windows, non-causal,
+   T=1 at q_offset 76, T=37/S=100 at q_offset 63, then bf16 prefill
+   lengths, each also held per row against the fp32 result relative to
+   the row's RMS), rmsnorm (both dtypes, the vector path and the scalar
+   one: d=100 and a view 16-byte misaligned, and the q_norm decode rows
+   64 x 128),
+   ssd_scan (outputs and final states, with and without an initial state,
+   with the mLSTM normalizer), slstm_scan (outputs and final states).
 4. Serve: ``ServeEngine`` at full width, bf16 weights drawn from a seeded
    generator, 4 slots, 8 requests (prompt lengths from ``default_rng(0)`` in
    [100, 1500], 32 new tokens each), for two models in turn:
@@ -30,7 +37,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    one request against the same model run through the plain versions on the
    card (bf16 within twice the bf16 noise floor, measured against an fp32
    run; fp32 weights within the floor). A traced window then gives the
-   device's busy share and device time by kernel.
+   device's busy share and device time by kernel, and shows that bf16
+   serving ran no fp32 (CUDA-core) flash kernel.
 5. Print the kernels' JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -59,6 +67,8 @@ from repro_torch.kernels import (LAUNCHES, build, flash_attention,  # noqa: E402
                                  flash_attention_ref, ops, rmsnorm,
                                  rmsnorm_ref, slstm_scan, slstm_scan_ref,
                                  ssd_scan, ssd_scan_ref)
+from repro_torch.kernels.flash_attention import sm90_smem_bytes  # noqa: E402
+from repro_torch.kernels.rmsnorm import plan as rmsnorm_plan  # noqa: E402
 from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
 from repro_torch.models.common import tree_map  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
@@ -161,22 +171,25 @@ def compare(kernel: str, name: str, got, want) -> float:
 FLASH_GRID = [(1, 128, 128, 4, 4, 64), (2, 128, 128, 4, 2, 64),
               (1, 256, 256, 8, 1, 32), (1, 128, 384, 4, 4, 64),
               (2, 384, 384, 2, 2, 128)]      # tests/test_kernels.py:36-42
-PATH_T = (137, 512, 1000, 2048)              # prefill lengths; H=16 KV=8
+PATH_T = (137, 512, 1000, 1291, 2048)        # prefill lengths; H=16 KV=8
 RMS_ROWS = (4, 1000, 16000)
+RMS_EXTRA = ((64, 128), (4, 100), (1000, 100))   # q_norm decode rows; tails
 REPORT_T = 1000                              # the JSON line's flash shape
-REPORT_RMS = (16000, 128)                    # q_norm rows at T=1000
+REPORT_RMS = "rows=16000 d=128 bfloat16"     # q_norm rows at T=1000
 
 
 def check_flash(gen):
+    """Every case in fp32 (the CUDA-core kernel) and bf16 (the tensor-core
+    kernel), then the bf16 prefill shapes of the serving path."""
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         for B, T, S, H, KV, hd in FLASH_GRID:
             cases.append((B, T, S, H, KV, hd, dtype, True, 0, S - T))
-    for window in (64, 128, 256):
-        cases.append((1, 256, 256, 4, 4, 64, torch.float32, True, window, 0))
-    cases.append((2, 128, 128, 2, 2, 64, torch.float32, False, 0, 0))
-    cases += [(1, 1, 77, 4, 2, 32, torch.float32, True, 0, 76),
-              (1, 37, 100, 4, 2, 64, torch.bfloat16, True, 0, 63)]
+        for window in (64, 128, 256):
+            cases.append((1, 256, 256, 4, 4, 64, dtype, True, window, 0))
+        cases += [(2, 128, 128, 2, 2, 64, dtype, False, 0, 0),
+                  (1, 1, 77, 4, 2, 32, dtype, True, 0, 76),
+                  (1, 37, 100, 4, 2, 64, dtype, True, 0, 63)]
     for T in PATH_T:
         cases.append((1, T, T, 16, 8, 128, torch.bfloat16, True, 0, 0))
     path = {}
@@ -196,8 +209,39 @@ def check_flash(gen):
         require(ok, f"flash_attention disagrees with its plain version: {name}")
         if (B, H, KV, hd, dtype) == (1, 16, 8, 128, torch.bfloat16) \
                 and T == S and causal and off == 0:
+            check_flash_rows(q, k, v, got, name)
             path[T] = time_flash(q, k, v, err)
     return path
+
+
+def row_rel_err(got, want) -> float:
+    """The largest error in any (batch, position, head) row of ``got``,
+    relative to the RMS of that row of ``want``."""
+    got, want = got.float(), want.float()
+    rms = want.pow(2).mean(dim=-1).sqrt().clamp_min(1e-30)
+    return float(((got - want).abs().amax(dim=-1) / rms).max())
+
+
+def check_flash_rows(q, k, v, got, name):
+    """At a prefill shape, where outputs are ~0.05 and 2e-2 absolute would
+    pass a kernel that dropped a KV tile: the bf16 kernel's error per row
+    against the plain version in fp32 (same bf16 inputs), relative to the
+    row's RMS, within twice the plain version's own bf16 rounding of the
+    same rows. A plain run without the first 64 keys of the last rows must
+    fail the same limit, or the check could not see a missing tile."""
+    T = q.shape[1]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = flash_attention_ref(qf, kf, vf)
+    limit = 2 * row_rel_err(want.to(torch.bfloat16), want)
+    err = row_rel_err(got, want)
+    dropped = row_rel_err(flash_attention_ref(
+        qf, kf, vf, window=T - 64).to(torch.bfloat16), want)
+    ok = err <= limit < dropped
+    log(f"  per row {name}: max |err| / row RMS {err:.3e}, limit {limit:.3e} "
+        f"(2x the bf16 rounding of the fp32 result), first tile dropped "
+        f"{dropped:.3e} {'ok' if ok else 'FAIL'}")
+    require(err <= limit, f"flash_attention rows off the fp32 result: {name}")
+    require(dropped > limit, f"per-row check cannot see a dropped tile: {name}")
 
 
 def time_flash(q, k, v, err):
@@ -222,33 +266,55 @@ def time_flash(q, k, v, err):
     }
     log(f"  device time T={T}: kernel {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']}); kernel reaches "
-        f"{flops / row['ms'] / 1e9:.1f} TFLOP/s; one call from Python "
-        f"{host_ms(kernel, 20):.4f} ms")
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}); kernel / sdpa "
+        f"{row['ms'] / row['library_ms']:.3f}, {row['bound_ms'] / row['ms']:.1%} "
+        f"of the bound, {flops / row['ms'] / 1e9:.1f} TFLOP/s; one call from "
+        f"Python {host_ms(kernel, 20):.4f} ms")
     return row
+
+
+def rmsnorm_cases(gen, dtype):
+    """(name, x, g): the grid, the q_norm decode rows, tails of d = 100, and
+    two contiguous views off 16-byte alignment: ``x[1:]`` of a [1001, 100]
+    tensor (200 bytes in: the scalar path in bf16; 400 bytes, aligned, in
+    fp32) and rows of 1024 starting one element into a flat buffer (the
+    scalar path in both dtypes, a row too wide to hold: streamed)."""
+    shapes = [(rows, d) for rows in RMS_ROWS for d in (128, 1024, 2048)]
+    for rows, d in shapes + list(RMS_EXTRA):
+        x = randn(gen, rows, d, dtype=dtype)
+        g = (1 + 0.1 * randn(gen, d, dtype=torch.float32)).to(dtype)
+        yield f"rows={rows} d={d} {str(dtype)[6:]}", x, g
+    table = randn(gen, 1001, 100, dtype=dtype)
+    flat = randn(gen, 1000 * 1024 + 1, dtype=dtype)
+    for base, view in ((table, table[1:]), (flat, flat[1:].view(1000, 1024))):
+        d = view.shape[-1]
+        g = (1 + 0.1 * randn(gen, d, dtype=torch.float32)).to(dtype)
+        require(view.is_contiguous())
+        yield (f"rows=1000 d={d} {str(dtype)[6:]} view at byte offset "
+               f"{view.data_ptr() - base.data_ptr()}"), view, g
 
 
 def check_rmsnorm(gen):
     path = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for rows in RMS_ROWS:
-            for d in (128, 1024, 2048):
-                x = randn(gen, rows, d, dtype=dtype)
-                g = (1 + 0.1 * randn(gen, d, dtype=torch.float32)).to(dtype)
-                got = rmsnorm(x, g, eps=1e-6)
-                torch.cuda.synchronize()
-                err, ok = max_err(got, rmsnorm_ref(x, g, eps=1e-6),
-                                  TOL[dtype])
-                name = f"rows={rows} d={d} {str(dtype)[6:]}"
-                log(f"rmsnorm {name}: max_abs_err={err:.3e} "
-                    f"tol={TOL[dtype]:.0e} {'ok' if ok else 'FAIL'}")
-                require(ok, f"rmsnorm disagrees with its plain version: {name}")
-                if dtype == torch.bfloat16:
-                    path[(rows, d)] = time_rmsnorm(x, g, err)
+        for name, x, g in rmsnorm_cases(gen, dtype):
+            got = rmsnorm(x, g, eps=1e-6)
+            torch.cuda.synchronize()
+            err, ok = max_err(got, rmsnorm_ref(x, g, eps=1e-6), TOL[dtype])
+            vec, group, held = rmsnorm_plan(
+                x.data_ptr() | g.data_ptr() | got.data_ptr(), x.shape[-1],
+                x.element_size())
+            log(f"rmsnorm {name}: path vec={vec} group={group} "
+                f"{'held' if held else 'streamed'} "
+                f"max_abs_err={err:.3e} tol={TOL[dtype]:.0e} "
+                f"{'ok' if ok else 'FAIL'}")
+            require(ok, f"rmsnorm disagrees with its plain version: {name}")
+            if dtype == torch.bfloat16:
+                path[name] = time_rmsnorm(name, x, g, err)
     return path
 
 
-def time_rmsnorm(x, g, err):
+def time_rmsnorm(name, x, g, err):
     rows, d = x.shape
     nbytes = x.element_size() * (2 * x.numel() + d)
     bound = {"operations": 4 * x.numel() / PEAK_F32 * 1e3,
@@ -261,11 +327,13 @@ def time_rmsnorm(x, g, err):
         "library_ms": device_ms(lambda: F.rms_norm(x, (d,), g, 1e-6), 50),
         "bound_by": max(bound, key=bound.get),
         "bound_ms": max(bound.values()),
-        "shape": f"rows={rows} d={d} bf16",
+        "shape": name,
     }
-    log(f"  device time rows={rows} d={d}: kernel {row['ms']:.4f} ms, plain "
+    log(f"  device time {name}: kernel {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, F.rms_norm {row['library_ms']:.4f} ms, "
-        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); kernel moves "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); kernel / "
+        f"F.rms_norm {row['ms'] / row['library_ms']:.3f}, "
+        f"{row['bound_ms'] / row['ms']:.1%} of the bound, moves "
         f"{nbytes / row['ms'] / 1e6:.1f} GB/s; one call from Python "
         f"{host_ms(kernel, 50):.4f} ms")
     return row
@@ -559,7 +627,7 @@ def profile_serving(eng, prompts):
               "slstm_scan": 0.0, "matmul": 0.0, "other": 0.0}
     for e in kernels:
         name = e.key.lower()
-        group = ("flash_attention" if "flash_fwd_kernel" in name else
+        group = ("flash_attention" if "flash_fwd" in name else
                  "rmsnorm" if "rmsnorm_kernel" in name else
                  "ssd_scan" if "ssd_scan_kernel" in name else
                  "slstm_scan" if "slstm_scan_kernel" in name else
@@ -567,6 +635,8 @@ def profile_serving(eng, prompts):
                                                       "xmma", "sm90_"))
                  else "other")
         groups[group] += e.self_device_time_total / 1e3
+    cuda_core = [e.key for e in kernels if "flash_fwd_kernel" in e.key]
+    require(not cuda_core, f"bf16 serving ran the fp32 flash kernel: {cuda_core}")
     log(f"profile: {len(prompts)} requests x 8 tokens (traced), wall "
         f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
         f"({busy / wall_us:.1%}), {len(kernels)} kernel names; device ms by "
@@ -594,8 +664,10 @@ def main():
     build.load()
     log(f"build: {time.perf_counter() - t0:.1f} s -> {build.library_path()}")
     for line in build.BUILD_INFO.get("log", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if any(w in line for w in ("registers", "spill", "Compiling", "smem")):
             log(f"  {line.strip()}")
+    log("flash_fwd_sm90_kernel dynamic shared memory per block: " + ", ".join(
+        f"hd={hd} {sm90_smem_bytes(hd)} bytes" for hd in (32, 64, 128)))
 
     gen = torch.Generator("cuda").manual_seed(0)             # phase 3
     flash_rows = check_flash(gen)
@@ -619,7 +691,7 @@ def main():
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention.py:121",
          **launches("flash_attention"), **flash_rows[REPORT_T]},
         {"name": "rmsnorm", "route": "cuda",

@@ -1,4 +1,7 @@
-// Causal / sliding-window GQA flash attention (forward) for Hopper.
+// Causal / sliding-window GQA flash attention (forward), fp32, on the CUDA
+// cores. bf16 tensors take the tensor-core kernel of flash_attention_sm90.cu;
+// this one serves fp32, where TF32 tensor cores would not hold fp32's
+// tolerance.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py::_flash_kernel
 // (wrapper `flash_attention`, pallas_call at flash_attention.py:121). Same
@@ -18,14 +21,13 @@
 // key ends with l == 0 and gives 0 whatever the tiling; for every row with a
 // valid key the result equals the TPU kernel's.
 //
-// What bounds it on the H100: operations. At the serving shapes (hd = 128,
-// T = S ~ 1000) it does ~T/2 * 4 flops per byte of q, k, v and o, far above
-// the card's ~295 flops/byte. This first version computes in fp32 on the
-// CUDA cores (no tensor cores, no TMA): a 64x64 score tile is built from
-// register micro-tiles read out of padded (bank-conflict-free) shared memory,
-// and each warp then owns 8 query rows for the softmax and the P*V update,
-// so the two phases need only a warp barrier between them. Moving QK^T and
-// PV onto wgmma is the next step for speed.
+// What bounds it on the H100: operations. At T = S ~ 1000 and hd = 128 it
+// does ~T/2 * 4 flops per byte of q, k, v and o, far above the card's ~295
+// flops/byte, and in fp32 there are no tensor cores to spend them on: the
+// bound is 67 TFLOP/s of FMAs. A 64x64 score tile is built from register
+// micro-tiles read out of padded (bank-conflict-free) shared memory, and each
+// warp then owns 8 query rows for the softmax and the P*V update, so the two
+// phases need only a warp barrier between them.
 
 #include "common.cuh"
 
@@ -210,31 +212,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int T_le
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, int B, int T_len,
-                int S_len, int H, int KV, int causal, int window, int q_offset, float scale,
-                cudaStream_t s) {
-    switch (hd) {
-        case 32: return launch<T, 32>(q, k, v, o, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
-        case 64: return launch<T, 64>(q, k, v, o, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
-        case 128: return launch<T, 128>(q, k, v, o, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-}
-
 }  // namespace
 
-// q, o: [B,T,H,hd]; k, v: [B,S,KV,hd]; all contiguous, of one dtype (ReproDtype).
+// q, o: [B,T,H,hd]; k, v: [B,S,KV,hd]; all contiguous fp32.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int B, int T_len, int S_len, int H, int KV,
-                                   int hd, int causal, int window, int q_offset, float scale,
+                                   int B, int T_len, int S_len, int H, int KV, int hd,
+                                   int causal, int window, int q_offset, float scale,
                                    void* stream) {
     if (B <= 0 || T_len <= 0 || S_len <= 0 || KV <= 0 || H % KV != 0 || B * H > 65535)
         return static_cast<int>(cudaErrorInvalidValue);
     auto s = static_cast<cudaStream_t>(stream);
-    if (dtype == REPRO_F32)
-        return dispatch_hd<float>(hd, q, k, v, o, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
-    if (dtype == REPRO_BF16)
-        return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
-    return static_cast<int>(cudaErrorInvalidValue);
+    switch (hd) {
+        case 32: return launch<float, 32>(q, k, v, o, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
+        case 64: return launch<float, 64>(q, k, v, o, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
+        case 128: return launch<float, 128>(q, k, v, o, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
 }

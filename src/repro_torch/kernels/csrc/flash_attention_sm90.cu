@@ -1,0 +1,349 @@
+// Causal / sliding-window GQA flash attention (forward), bf16, on Hopper's
+// tensor cores: wgmma for both products, TMA for every tile.
+//
+// Replaces the Pallas TPU kernel repro/kernels/flash_attention.py::_flash_kernel
+// (wrapper `flash_attention`, pallas_call at flash_attention.py:121) for bf16
+// tensors; fp32 tensors keep the CUDA-core kernel of flash_attention.cu, since
+// TF32 would not hold fp32's tolerance. Same contract: q [B,T,H,hd], k/v
+// [B,S,KV,hd], hd in {32, 64, 128}, query row t at absolute position
+// t + q_offset, KV head = h / (H/KV), scale 1/sqrt(hd), online softmax with an
+// fp32 (acc, m, l) state, KV tiles fully masked for the block are skipped (the
+// TPU kernel's `live`), a row whose l stays 0 gives 0. Any T and S: query rows
+// past T are zero-filled by TMA and never written, keys past S are masked (a
+// zero-filled key would score 0, not -inf).
+//
+// What bounds it on the H100: operations once T >= ~300. A causal T x T pass
+// does ~T/2 * 4 flops per byte of q, k, v and o, against the card's ~295
+// flops per byte in bf16 (989 TFLOP/s over 3.35 TB/s).
+//
+// Design: a block owns 64 query rows of one (batch, head), the M of one
+// consumer warpgroup's wgmma, and two blocks share an SM (82 KB of shared
+// memory each at hd = 128). Against 128-row blocks of two warpgroups this
+// halves the longest block's work under causal and lets the block
+// scheduler pair a long query tile with a short one on each SM (the A/B on
+// the H100 is in PERF.md section 6).
+// - Q is loaded once by TMA; K and V tiles of 64 keys go through a two-stage
+//   ring in shared memory, so the copy of tile j+1 runs under the math of
+//   tile j. Each TMA box is one swizzle atom wide (hd*2 bytes up to 128), and
+//   the wgmma descriptors read it with the same swizzle: 128B for hd >= 64
+//   (hd = 128 is two atoms side by side), 64B for hd = 32. The tensor maps
+//   are 4-d (hd, heads, positions, batch), so the per-head strides H*hd and
+//   KV*hd and the ragged ends are the TMA unit's business.
+// - S = Q K^T is m64n64k16 with both operands in shared memory (K [keys, hd]
+//   is already K-major). O += P V is m64n{hd}k16 with P in registers,
+//   converted to bf16 from the S accumulator fragment, and V read as stored
+//   through the instruction's transpose flag.
+// - The softmax runs on the accumulator fragment (each thread holds two rows,
+//   a quad of threads a whole row): row max and sum by quad shuffles, exp2f
+//   with scale*log2(e) folded in. Only tiles that cross the causal diagonal,
+//   a window edge or S are masked element by element.
+// - Query tiles run heaviest first under causal (blockIdx.y reversed, heads
+//   along x), so the long rows do not land in the last wave.
+// - KV tiles masked for every row of the block are neither loaded nor
+//   computed: the loop runs over [kt_begin, kt_end) only.
+// Rounding P to bf16 before P V is the one departure from the TPU kernel,
+// which keeps P in fp32: about one bf16 ulp of the output.
+//
+// Left for later: a producer warp with setmaxnreg (warp specialisation) and
+// the next tile's Q K^T issued under this tile's softmax (FA3's ping-pong and
+// intra-warpgroup overlap), a persistent grid, a TMA store of O.
+
+#include "common.cuh"
+#include "sm90.cuh"
+
+namespace {
+
+constexpr int BQ = 64;      // query rows per block: one warpgroup's wgmma M
+constexpr int BK = 64;      // keys per KV tile
+constexpr int NT = 128;     // threads per block: one consumer warpgroup
+constexpr int STAGES = 2;   // K/V ring depth
+
+template <int HD>
+struct Cfg {
+    static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;  // swizzle = atom row bytes
+    static constexpr int ATOM = SW / 2;                     // columns per atom
+    static constexpr int NATOM = HD / ATOM;
+    static constexpr int Q_BYTES = BQ * HD * 2;
+    static constexpr int KV_BYTES = BK * HD * 2;            // one K or V tile
+    static constexpr int q = 0;                             // byte offsets, 1024-aligned
+    static constexpr int k = q + Q_BYTES;
+    static constexpr int v = k + STAGES * KV_BYTES;
+    static constexpr int bar = v + STAGES * KV_BYTES;       // q barrier, then one per stage
+    static constexpr int bytes = bar + 8 * (1 + STAGES) + 1024;  // + alignment slack
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NT, 2)
+flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+                      int T_len, int S_len, int H, int KV, int causal, int window,
+                      int q_offset, float scale_log2) {
+    using C = Cfg<HD>;
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+    const uint32_t Qs = base + C::q, Ks = base + C::k, Vs = base + C::v;
+    const uint32_t qbar = base + C::bar;
+    auto full = [&](int s) { return qbar + 8 * (1 + s); };
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int b = blockIdx.x / H, h = blockIdx.x % H, kvh = h / (H / KV);
+    const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+    const int q0 = qt * BQ;
+
+    // Live KV tiles of the block (the TPU kernel's `live`); every tile in
+    // [kt_begin, kt_end) has a visible key for some row of the block.
+    const int n_kt = (S_len + BK - 1) / BK;
+    const int q_first = q0 + q_offset;
+    const int q_last = min(q0 + BQ, T_len) - 1 + q_offset;
+    int kt_end = n_kt, kt_begin = 0;
+    if (causal) kt_end = q_last < 0 ? 0 : min(n_kt, q_last / BK + 1);
+    if (window > 0) kt_begin = max(0, (q_first - window + 1) / BK);
+
+    auto load_kv = [&](int stage, int kt) {
+        mbar_expect_tx(full(stage), 2 * C::KV_BYTES);
+#pragma unroll
+        for (int a = 0; a < C::NATOM; ++a) {
+            const uint32_t off = stage * C::KV_BYTES + a * BK * C::SW;
+            tma_load_4d(Ks + off, &kmap, full(stage), a * C::ATOM, kvh, kt * BK, b);
+            tma_load_4d(Vs + off, &vmap, full(stage), a * C::ATOM, kvh, kt * BK, b);
+        }
+    };
+    if (tid == 0) {
+        mbar_init(qbar, 1);
+        for (int s = 0; s < STAGES; ++s) mbar_init(full(s), 1);
+        mbar_fence_init();
+    }
+    __syncthreads();
+    if (tid == 0) {
+        mbar_expect_tx(qbar, C::Q_BYTES);
+#pragma unroll
+        for (int a = 0; a < C::NATOM; ++a)
+            tma_load_4d(Qs + a * BQ * C::SW, &qmap, qbar, a * C::ATOM, h, q0, b);
+        for (int s = 0; s < STAGES && kt_begin + s < kt_end; ++s) load_kv(s, kt_begin + s);
+    }
+
+    // This thread's two rows (block-local r and r + 8) and their positions.
+    const int r0 = warp * 16 + (lane >> 2);
+    const int p0 = q0 + r0 + q_offset, p1 = p0 + 8;
+    const int col = 2 * (lane & 3);
+
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // m in log2 units
+
+    mbar_wait(qbar, 0);
+    for (int kt = kt_begin, it = 0; kt < kt_end; ++kt, ++it) {
+        const int stage = it % STAGES;
+        mbar_wait(full(stage), (it / STAGES) & 1);
+        const int k0 = kt * BK;
+        float s[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+            const int atom = kk * 16 / C::ATOM;        // K-major: 32 bytes per k16
+            const uint32_t off = (kk * 16 % C::ATOM) * 2;
+            const uint64_t da = smem_desc<C::SW>(
+                Qs + atom * BQ * C::SW + off, 16, 8 * C::SW);
+            const uint64_t db = smem_desc<C::SW>(
+                Ks + stage * C::KV_BYTES + atom * BK * C::SW + off, 16, 8 * C::SW);
+            wgmma_ss_n64(s, da, db, kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        reg_fence(s);
+
+        const bool whole = k0 + BK <= S_len && (!causal || k0 + BK - 1 <= q_first) &&
+                           (window <= 0 || k0 > q_first + BQ - 1 - window);
+        if (!whole) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int key = k0 + 8 * i + col + (e & 1);
+                    const int pos = e < 2 ? p0 : p1;
+                    const bool ok = key < S_len && (!causal || key <= pos) &&
+                                    (window <= 0 || key > pos - window);
+                    if (!ok) s[4 * i + e] = -INFINITY;
+                }
+        }
+
+        float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
+            mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        }
+        const float n0 = fmaxf(m0, mx0 * scale_log2), n1 = fmaxf(m1, mx1 * scale_log2);
+        const float ref0 = n0 == -INFINITY ? 0.f : n0;   // a row with no key yet
+        const float ref1 = n1 == -INFINITY ? 0.f : n1;
+        const float alpha0 = exp2f(m0 - ref0), alpha1 = exp2f(m1 - ref1);
+        m0 = n0;
+        m1 = n1;
+        float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            s[4 * i] = exp2f(fmaf(s[4 * i], scale_log2, -ref0));
+            s[4 * i + 1] = exp2f(fmaf(s[4 * i + 1], scale_log2, -ref0));
+            s[4 * i + 2] = exp2f(fmaf(s[4 * i + 2], scale_log2, -ref1));
+            s[4 * i + 3] = exp2f(fmaf(s[4 * i + 3], scale_log2, -ref1));
+            ps0 += s[4 * i] + s[4 * i + 1];
+            ps1 += s[4 * i + 2] + s[4 * i + 3];
+        }
+        l0 = l0 * alpha0 + ps0;       // this thread's part of the row sum
+        l1 = l1 * alpha1 + ps1;
+
+        uint32_t pa[4][4];            // P as the A fragment of four k16 slices
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) {
+            pa[kc][0] = pack_bf16(s[8 * kc], s[8 * kc + 1]);
+            pa[kc][1] = pack_bf16(s[8 * kc + 2], s[8 * kc + 3]);
+            pa[kc][2] = pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
+            pa[kc][3] = pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
+        }
+        reg_fence(acc);
+#pragma unroll
+        for (int i = 0; i < HD / 8; ++i) {
+            acc[4 * i] *= alpha0;
+            acc[4 * i + 1] *= alpha0;
+            acc[4 * i + 2] *= alpha1;
+            acc[4 * i + 3] *= alpha1;
+        }
+        reg_fence(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) {
+            const uint64_t db = smem_desc<C::SW>(
+                Vs + stage * C::KV_BYTES + kc * 16 * C::SW, BK * C::SW, 8 * C::SW);
+            wgmma_rs(acc, pa[kc], db);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        reg_fence(acc);
+        __syncthreads();                              // every warp left this stage
+        if (tid == 0 && kt + STAGES < kt_end) load_kv(stage, kt + STAGES);
+    }
+
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float inv0 = l0 == 0.f ? 0.f : 1.f / l0, inv1 = l1 == 0.f ? 0.f : 1.f / l1;
+    const long long row_stride = static_cast<long long>(H) * HD;
+    __nv_bfloat16* o0 = o + (static_cast<long long>(b) * T_len + q0 + r0) * row_stride + h * HD;
+    __nv_bfloat16* o1 = o0 + 8 * row_stride;
+    const bool w0 = q0 + r0 < T_len, w1 = q0 + r0 + 8 < T_len;
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i) {
+        if (w0)
+            *reinterpret_cast<uint32_t*>(o0 + 8 * i + col) =
+                pack_bf16(acc[4 * i] * inv0, acc[4 * i + 1] * inv0);
+        if (w1)
+            *reinterpret_cast<uint32_t*>(o1 + 8 * i + col) =
+                pack_bf16(acc[4 * i + 2] * inv1, acc[4 * i + 3] * inv1);
+    }
+}
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+EncodeTiled encoder() {
+    static EncodeTiled fn = [] {
+        void* p = nullptr;
+#if CUDART_VERSION >= 12050
+        cudaDriverEntryPointQueryResult found;
+        if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                             cudaEnableDefault, &found) != cudaSuccess ||
+            found != cudaDriverEntryPointSuccess)
+            p = nullptr;
+#else
+        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) !=
+            cudaSuccess)
+            p = nullptr;
+#endif
+        return reinterpret_cast<EncodeTiled>(p);
+    }();
+    return fn;
+}
+
+// A 4-d map (hd, heads, positions, batch) of a [batch, positions, heads, hd]
+// bf16 tensor whose boxes are one swizzle atom of `rows` positions of one head.
+bool make_map(CUtensorMap* map, const void* ptr, int batch, int positions, int heads, int hd,
+              int rows, int atom, int swizzle) {
+    EncodeTiled encode = encoder();
+    if (encode == nullptr) return false;
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
+                                static_cast<cuuint64_t>(positions),
+                                static_cast<cuuint64_t>(batch)};
+    const cuuint64_t row = 2ull * hd;
+    const cuuint64_t strides[3] = {row, row * heads, row * heads * positions};
+    const cuuint32_t box[4] = {static_cast<cuuint32_t>(atom), 1, static_cast<cuuint32_t>(rows), 1};
+    const cuuint32_t one[4] = {1, 1, 1, 1};
+    const CUresult r = encode(
+        map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+        one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+        swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int T_len, int S_len,
+           int H, int KV, int causal, int window, int q_offset, float scale,
+           cudaStream_t stream) {
+    using C = Cfg<HD>;
+    CUtensorMap qmap, kmap, vmap;
+    if (!make_map(&qmap, q, B, T_len, H, HD, BQ, C::ATOM, C::SW) ||
+        !make_map(&kmap, k, B, S_len, KV, HD, BK, C::ATOM, C::SW) ||
+        !make_map(&vmap, v, B, S_len, KV, HD, BK, C::ATOM, C::SW))
+        return static_cast<int>(cudaErrorInvalidValue);
+    auto kernel = flash_fwd_sm90_kernel<HD>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           C::bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(B * H, (T_len + BQ - 1) / BQ);
+    kernel<<<grid, NT, C::bytes, stream>>>(qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o),
+                                           T_len, S_len, H, KV, causal, window, q_offset,
+                                           scale * 1.4426950408889634f);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q, o: [B,T,H,hd]; k, v: [B,S,KV,hd]; all contiguous bf16, 16-byte aligned.
+extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void* v, void* o,
+                                        int B, int T_len, int S_len, int H, int KV, int hd,
+                                        int causal, int window, int q_offset, float scale,
+                                        void* stream) {
+    if (B <= 0 || T_len <= 0 || S_len <= 0 || KV <= 0 || H % KV != 0 ||
+        (T_len + BQ - 1) / BQ > 65535)
+        return static_cast<int>(cudaErrorInvalidValue);
+    auto s = static_cast<cudaStream_t>(stream);
+    switch (hd) {
+        case 32: return launch<32>(q, k, v, o, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
+        case 64: return launch<64>(q, k, v, o, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
+        case 128: return launch<128>(q, k, v, o, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+// Dynamic shared memory of one block, for the build log.
+extern "C" int flash_attention_sm90_smem_bytes(int hd) {
+    switch (hd) {
+        case 32: return Cfg<32>::bytes;
+        case 64: return Cfg<64>::bytes;
+        case 128: return Cfg<128>::bytes;
+        default: return -1;
+    }
+}

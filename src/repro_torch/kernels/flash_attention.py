@@ -1,9 +1,11 @@
-"""Flash attention for Hopper: the CUDA kernel's wrapper and its plain version.
+"""Flash attention for Hopper: the CUDA kernels' wrapper and its plain version.
 
-``flash_attention`` launches ``csrc/flash_attention.cu`` on a CUDA tensor and
-runs ``flash_attention_ref`` on a CPU tensor; nothing else. The kernel
-replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py`` (see the
-note at the top of the CUDA source for what bounds it and how).
+``flash_attention`` runs ``flash_attention_ref`` on a CPU tensor. On a CUDA
+tensor the dtype alone picks the kernel: bf16 launches the tensor-core kernel
+of ``csrc/flash_attention_sm90.cu`` (wgmma, TMA), fp32 the CUDA-core kernel
+of ``csrc/flash_attention.cu`` (TF32 would break fp32's tolerance). Both
+replace the Pallas TPU kernel ``repro/kernels/flash_attention.py`` (see the
+notes at the top of the CUDA sources for what bounds them and how).
 """
 from __future__ import annotations
 
@@ -15,10 +17,11 @@ import torch
 from . import build
 
 NEG_INF = -1e30
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}      # ReproDtype in common.cuh
 _HEAD_DIMS = (32, 64, 128)
-_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 10
+_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 9
              + (ctypes.c_float, ctypes.c_void_p))
+_ENTRY = {torch.float32: "flash_attention_fwd",          # CUDA cores
+          torch.bfloat16: "flash_attention_sm90_fwd"}    # tensor cores
 
 
 def visible(T: int, S: int, q_offset: int, causal: bool, window: int, device):
@@ -62,12 +65,16 @@ def _check(q, k, v):
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} is on {t.device}, "
                              f"q on {q.device}")
-        if t.dtype not in _DTYPES or t.dtype != q.dtype:
+        if t.dtype not in _ENTRY or t.dtype != q.dtype:
             raise ValueError(f"flash_attention: {name} has dtype {t.dtype}; "
                              "takes float32 or bfloat16, all alike")
         if t.dim() != 4 or not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be a contiguous "
                              f"4-d tensor, got shape {tuple(t.shape)}")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: bf16 {name} at "
+                             f"{t.data_ptr():#x} is not 16-byte aligned "
+                             "(the tensor-core kernel loads it by TMA)")
     B, T, H, hd = q.shape
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
@@ -92,12 +99,18 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    fn = build.function("flash_attention_fwd", _ARGTYPES)
+    fn = build.function(_ENTRY[q.dtype], _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  _DTYPES[q.dtype], B, T, S, H, KV, hd, int(causal),
-                  int(window), int(q_offset), 1.0 / math.sqrt(hd), stream)
+                  B, T, S, H, KV, hd, int(causal), int(window), int(q_offset),
+                  1.0 / math.sqrt(hd), stream)
     build.check(code, "flash_attention")
     build.LAUNCHES["flash_attention"] += 1
     return out
+
+
+def sm90_smem_bytes(hd: int) -> int:
+    """Dynamic shared memory of one block of the bf16 tensor-core kernel."""
+    fn = build.function("flash_attention_sm90_smem_bytes", (ctypes.c_int,))
+    return fn(hd)

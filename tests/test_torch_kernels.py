@@ -14,6 +14,11 @@ time, as ``repro/kernels/ref.py`` does; the Pallas kernels and
 """
 from __future__ import annotations
 
+import importlib
+import importlib.util
+import math
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,12 +31,15 @@ from repro.kernels.slstm_scan import slstm_scan as jax_slstm
 from repro.kernels.ssd_scan import ssd_scan as jax_ssd
 from repro.models.attention import attend_naive as jax_attend_naive
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked
+from repro_torch.kernels.rmsnorm import plan as rmsnorm_plan
 from repro_torch.kernels import (LAUNCHES, build, flash_attention,
                                  flash_attention_ref, ops, rmsnorm,
                                  rmsnorm_ref, slstm_scan, slstm_scan_ref,
                                  ssd_scan, ssd_scan_ref)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the module (the package's ``flash_attention`` attribute is the function)
+flash_module = importlib.import_module("repro_torch.kernels.flash_attention")
 
 
 def _inputs(seed, *shapes, dtype="float32", scale=1.0):
@@ -101,6 +109,87 @@ def test_flash_plain_row_without_keys_gives_zero():
     assert torch.all(out[:, 2:].abs().sum(-1) > 0)
 
 
+def _sm90_emulation(q, k, v, *, causal, q_offset=0, block_k=64):
+    """The bf16 tensor-core kernel's arithmetic (``csrc/flash_attention_sm90.cu``)
+    written out in fp32: 64-key tiles, a running max in log2 units, exp2 with
+    scale*log2(e) folded in, fp32 row sums of the unrounded P, and P rounded
+    to bf16 before P V (the one departure from the TPU kernel)."""
+    B, T, H, hd = q.shape
+    S, group = k.shape[1], H // k.shape[2]
+    qf = q.float().transpose(1, 2)
+    kf = k.float().repeat_interleave(group, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(group, dim=2).transpose(1, 2)
+    c = math.log2(math.e) / math.sqrt(hd)
+    ok = flash_module.visible(T, S, q_offset, causal, 0, q.device)
+    m = torch.full((B, H, T, 1), -math.inf)
+    l = torch.zeros(B, H, T, 1)
+    acc = torch.zeros(B, H, T, hd)
+    for k0 in range(0, S, block_k):
+        s = qf @ kf[:, :, k0:k0 + block_k].transpose(-1, -2)
+        s = torch.where(ok[:, k0:k0 + block_k], s, -math.inf)
+        new = torch.maximum(m, s.amax(-1, keepdim=True) * c)
+        ref = torch.where(new == -math.inf, 0.0, new)
+        alpha = torch.exp2(m - ref)
+        p = torch.exp2(s * c - ref)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + block_k]
+        m = new
+    out = acc / torch.where(l == 0, 1.0, l)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("B,T,S,H,KV,hd", [
+    (1, 128, 128, 4, 4, 64), (2, 128, 128, 4, 2, 64), (1, 256, 256, 8, 1, 32),
+    (1, 128, 384, 4, 4, 64), (2, 384, 384, 2, 2, 128),
+])                                       # the bf16 grid of tests/test_kernels.py
+def test_flash_sm90_bf16_arithmetic_vs_pallas(B, T, S, H, KV, hd):
+    """Rounding P to bf16 before P V stays inside the bf16 tolerance."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(6, (B, T, H, hd), (B, S, KV, hd),
+                                         (B, S, KV, hd), dtype="bfloat16")
+    off = S - T
+    want = jax_flash(jq, jk, jv, causal=True, q_offset=off, block_q=128,
+                     block_k=128, interpret=True)
+    got = _sm90_emulation(tq, tk, tv, causal=True, q_offset=off)
+    assert got.dtype == torch.bfloat16
+    _close(got, want, TOL["bfloat16"])
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_flash_per_row_check_passes_the_arithmetic_and_sees_a_dropped_tile():
+    """``chip_smoke.py``'s per-row check at the T=137 prefill shape: the
+    tensor-core kernel's arithmetic passes it, and the same arithmetic with
+    the first 64-key tile skipped fails it (the absolute 2e-2 passes both
+    wherever outputs are small)."""
+    smoke = _chip_smoke()
+    _, (q, k, v) = _inputs(7, (1, 137, 16, 128), (1, 137, 8, 128),
+                           (1, 137, 8, 128), dtype="bfloat16")
+    smoke.check_flash_rows(q, k, v, _sm90_emulation(q, k, v, causal=True),
+                           "T=137")
+    skipped = _sm90_emulation(q, k[:, 64:], v[:, 64:], causal=True,
+                              q_offset=-64)
+    with pytest.raises(RuntimeError, match="rows off the fp32 result"):
+        smoke.check_flash_rows(q, k, v, skipped, "T=137, first tile skipped")
+
+
+def test_flash_dtype_alone_picks_the_kernel():
+    """bf16 goes to the tensor-core kernel, fp32 to the CUDA-core one, and
+    each C entry point is defined by its own source."""
+    assert flash_module._ENTRY == {torch.float32: "flash_attention_fwd",
+                                   torch.bfloat16: "flash_attention_sm90_fwd"}
+    text = {p.name: p.read_text() for p in build.sources()}
+    assert 'extern "C" int flash_attention_sm90_fwd(' in text[
+        "flash_attention_sm90.cu"]
+    assert 'extern "C" int flash_attention_fwd(' in text["flash_attention.cu"]
+    assert "wgmma.mma_async" in (build.CSRC / "sm90.cuh").read_text()
+
+
 # --------------------------------------------------------------------------
 # rmsnorm
 # --------------------------------------------------------------------------
@@ -112,6 +201,43 @@ def test_rmsnorm_plain_vs_pallas(shape, dtype):
     got = rmsnorm(tx, tg)
     assert got.dtype == tx.dtype and got.shape == tx.shape
     _close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("ptr,d,size,want", [
+    (0, 128, 2, (8, 8, True)),       # q_norm / k_norm rows, bf16
+    (0, 128, 4, (4, 16, True)),
+    (0, 1024, 2, (8, 64, True)),     # qwen residual norms
+    (0, 2048, 2, (8, 128, True)),    # xlstm
+    (0, 2048, 4, (4, 256, True)),
+    (256, 100, 4, (4, 16, True)),    # fp32 d=100 is a multiple of 4
+    (0, 100, 2, (1, 64, True)),      # a tail: scalar loads
+    (8, 1024, 2, (1, 256, False)),   # 8-byte aligned: scalar, streamed
+    (200, 100, 2, (1, 64, True)),    # x[1:] of a [rows, 100] bf16 tensor
+    (4, 128, 4, (1, 64, True)),
+    (0, 65536, 2, (8, 256, False)),  # too wide for registers: streamed
+    (0, 8, 2, (8, 1, True)),         # one unit: one thread
+])
+def test_rmsnorm_plan(ptr, d, size, want):
+    assert rmsnorm_plan(ptr, d, size) == want
+
+
+@pytest.mark.parametrize("size", [2, 4])
+def test_rmsnorm_plan_covers_every_row(size):
+    """Vector loads only where aligned and d divides; one row per group of
+    at most 256 threads (a power of two); two units per thread hold the
+    whole row, or the row is streamed."""
+    for d in list(range(1, 300)) + [1000, 1024, 2048, 4096, 5504, 16384]:
+        for ptr in (0, 8, 16, 4, 2):
+            vec, group, held = rmsnorm_plan(ptr, d, size)
+            aligned = ptr % 16 == 0 and d % (16 // size) == 0
+            assert vec == (16 // size if aligned else 1)
+            assert group & (group - 1) == 0 and 1 <= group <= 256
+            assert isinstance(held, bool)
+            if held:
+                assert group * 2 * vec >= d
+                assert group * 2 * vec < 2 * d or group == 1
+            else:
+                assert group == 256 and 256 * 2 * vec < d
 
 
 # --------------------------------------------------------------------------
@@ -248,3 +374,9 @@ def test_scan_wrappers_raise_on_other_devices():
 def test_build_compiles_the_scan_kernels():
     names = {p.name for p in build.sources()}
     assert {"ssd_scan.cu", "slstm_scan.cu"} <= names
+
+
+def test_build_compiles_the_tensor_core_flash_kernel():
+    names = {p.name for p in build.sources()}
+    assert "flash_attention_sm90.cu" in names
+    assert (build.CSRC / "sm90.cuh").exists()   # hashed into the library name
