@@ -9,7 +9,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. Build the hand-written kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, all at once); log ptxas's registers, shared memory
    and spills, and the tensor-core flash kernel's dynamic shared memory.
-3. Hold each kernel against its plain PyTorch version on the card (fp32
+3. The serve paths' bf16 GEMMs (prefill and decode rows) against the fp32
+   product of the same operands rounded to bf16, with
+   ``allow_bf16_reduced_precision_reduction`` at its default and False:
+   the worst error in bf16 ulps per shape (at most one at the default),
+   and whether the flag changes a bit (a split-K GEMM reducing its
+   partials in bf16 would).
+4. Hold each kernel against its plain PyTorch version on the card (fp32
    tolerance 2e-5, bf16 2e-2, as |got - want| <= tol + tol * |want|, each
    output at its own dtype's tolerance), on the grids of
    ``tests/test_kernels.py`` and at the serving paths' shapes, and time
@@ -22,16 +28,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    one: d=100 and a view 16-byte misaligned, and the q_norm decode rows
    64 x 128),
    ssd_scan (outputs and final states, with and without an initial state,
-   with the mLSTM normalizer), slstm_scan (outputs and final states).
-4. Serve: ``ServeEngine`` at full width, bf16 weights drawn from a seeded
+   with the mLSTM normalizer, and one path case drawn like the served
+   model: slow forgetting, exponential input gates; timed at each path
+   length), slstm_scan (outputs and final states).
+5. Serve: ``ServeEngine`` at full width, bf16 weights drawn from a seeded
    generator, 4 slots, 8 requests (prompt lengths from ``default_rng(0)`` in
    [100, 1500], 32 new tokens each), for two models in turn:
    - qwen3-0.6b (28 layers, 2048 positions): 28 flash launches per prefill,
      113 rmsnorm launches per prefill and per decode step;
    - xlstm-1.3b (48 blocks, 42 mLSTM + 6 sLSTM): 42 ssd_scan and 6
-     slstm_scan launches per prefill (one ssd_scan launch computes an mLSTM
-     layer's output and normalizer), 55 rmsnorm launches per prefill and
-     per decode step.
+     slstm_scan launches per prefill (one ssd_scan call, its two kernels,
+     computes an mLSTM layer's output and normalizer), 55 rmsnorm launches
+     per prefill and per decode step.
    Each checks every request finished, the exact launch counts (set to 0
    just before the phase and read just after), and teacher-forced logits of
    one request against the same model run through the plain versions on the
@@ -39,7 +47,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    run; fp32 weights within the floor). A traced window then gives the
    device's busy share and device time by kernel, and shows that bf16
    serving ran no fp32 (CUDA-core) flash kernel.
-5. Print the kernels' JSON line, the card line, and as the last line
+6. Print the kernels' JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and cuDNN, so fp32 comparisons are full fp32.
@@ -166,7 +174,81 @@ def compare(kernel: str, name: str, got, want) -> float:
 
 
 # --------------------------------------------------------------------------
-# phase 3: kernels against their plain versions
+# phase 3: bf16 GEMMs of the serving paths, split-K reduction precision
+# --------------------------------------------------------------------------
+SPLITK_SHAPES = [      # (model, GEMM, K, N, weight is a transposed [N, K])
+    ("qwen3-0.6b", "q", 1024, 2048, False),
+    ("qwen3-0.6b", "k / v", 1024, 1024, False),
+    ("qwen3-0.6b", "o", 2048, 1024, False),
+    ("qwen3-0.6b", "mlp gate / up", 1024, 3072, False),
+    ("qwen3-0.6b", "mlp down", 3072, 1024, False),
+    ("qwen3-0.6b", "lm head (tied)", 1024, 151936, True),
+    ("xlstm-1.3b", "up_x / up_z", 2048, 4096, False),
+    ("xlstm-1.3b", "down", 4096, 2048, False),
+    ("xlstm-1.3b", "lm head (tied)", 2048, 50304, True),
+]
+SPLITK_ROWS = (1000, 4)          # prefill rows; decode rows at 4 slots
+
+
+def bf16_ulps(got, want) -> float:
+    """The largest |got - want| in bf16 ulps, each ulp taken at the larger of
+    |want| and the RMS of want's row: an output that cancels to near 0 would
+    otherwise count the fp32 rounding of its terms as thousands of ulps."""
+    want = want.float()
+    rms = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    scale = torch.maximum(want.abs(), rms).clamp_min(2.0**-126)
+    ulp = torch.exp2(torch.floor(torch.log2(scale)) - 7)
+    return float(((got.float() - want).abs() / ulp).max())
+
+
+def check_splitk(gen):
+    """``torch.matmul`` on bf16 operands against their fp32 product rounded
+    to bf16 (TF32 off, so that product is full fp32), with
+    ``allow_bf16_reduced_precision_reduction`` at its default and False: a
+    split-K GEMM that reduces its partials in bf16 is off by more than the
+    one ulp that rounding the same fp32 sum in another order can give.
+    Logs per shape the worst error in ulps, the share of outputs whose bits
+    differ from the reference and the time at each setting, and whether the
+    two settings gave the same bits; fails if the default setting is off by
+    more than one ulp; returns the worst error in ulps at each setting."""
+    flags = torch.backends.cuda.matmul
+    default = flags.allow_bf16_reduced_precision_reduction
+    worst = {True: 0.0, False: 0.0}
+    try:
+        for model, name, K, N, tied in SPLITK_SHAPES:
+            w = randn(gen, *((N, K) if tied else (K, N)),
+                      dtype=torch.bfloat16, scale=1 / math.sqrt(K))
+            w = w.T if tied else w
+            for M in SPLITK_ROWS:
+                x = randn(gen, M, K, dtype=torch.bfloat16)
+                want = (x.float() @ w.float()).to(torch.bfloat16)
+                cells, outs = [], []
+                for setting in (True, False):
+                    flags.allow_bf16_reduced_precision_reduction = setting
+                    got = torch.matmul(x, w)
+                    ulps = bf16_ulps(got, want)
+                    worst[setting] = max(worst[setting], ulps)
+                    outs.append(got)
+                    cells.append(
+                        f"{setting}: {ulps:.2f} ulp, "
+                        f"{float((got != want).float().mean()):.3%} differ, "
+                        f"{device_ms(lambda: torch.matmul(x, w), 10):.4f} ms")
+                log(f"splitk {model} {name} M={M} K={K} N={N}: "
+                    + "; ".join(cells) + "; same bits at both settings: "
+                    + str(torch.equal(*outs)))
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = default
+    log(f"splitk: default allow_bf16_reduced_precision_reduction={default}; "
+        f"worst error True {worst[True]:.2f} ulp, False {worst[False]:.2f} "
+        f"ulp")
+    # the port's matmul (models/common.py) relies on fp32 accumulation
+    require(worst[default] <= 1, "bf16 GEMM off by more than one ulp of its "
+            "fp32 product: reduced-precision split-K reduction")
+    return worst
+
+
+# --------------------------------------------------------------------------
+# phase 4: kernels against their plain versions
 # --------------------------------------------------------------------------
 FLASH_GRID = [(1, 128, 128, 4, 4, 64), (2, 128, 128, 4, 2, 64),
               (1, 256, 256, 8, 1, 32), (1, 128, 384, 4, 4, 64),
@@ -349,6 +431,18 @@ SLSTM_PATH = (1, 4, 512)                     # sLSTM: B, nh, dh
 SLSTM_PATH_T = (1, 137, 1000)
 
 
+def model_like_ssd(gen, b, T, H, N, P):
+    """mLSTM inputs drawn as the served model makes them: log forget gates
+    logsigmoid(N(3, 1)) (b_f = 3: slow forgetting, state carried across
+    many chunks), input gates w = exp(clamp(N(-2, 1), max=15)), x = v * w,
+    B = k / sqrt(N), C = q."""
+    a = F.logsigmoid(randn(gen, b, T, H) + 3)
+    w = torch.exp(torch.clamp(randn(gen, b, T, H) - 2, max=15))
+    x = randn(gen, b, T, H, P) * w[..., None]
+    return x, a, randn(gen, b, T, H, N, scale=1 / math.sqrt(N)), \
+        randn(gen, b, T, H, N), w
+
+
 def check_ssd(gen):
     for dtype in (torch.float32, torch.bfloat16):
         for b, T, H, G, N, P in SSD_GRID:
@@ -376,8 +470,17 @@ def check_ssd(gen):
             err = compare("ssd_scan", f"b={b} T={T} H={H} N={N} P={P} fp32 "
                           f"normalizer initial_state={init}", got,
                           ssd_scan_ref(x, a, B, C, **kw))
-            if T == REPORT_T and not init:
+            if not init:
                 path[T] = time_ssd(x, a, B, C, kw["norm_weights"], err)
+    T = SSD_PATH_T[-1]
+    x, a, B, C, w = model_like_ssd(gen, b, T, H, N, P)
+    kw = {"norm_weights": w, "initial_state": randn(gen, b, H, N, P),
+          "initial_norm_state": randn(gen, b, H, N)}
+    got = ssd_scan(x, a, B, C, **kw)
+    torch.cuda.synchronize()
+    compare("ssd_scan", f"b={b} T={T} H={H} N={N} P={P} fp32 normalizer "
+            "initial_state=True, drawn like the model", got,
+            ssd_scan_ref(x, a, B, C, **kw))
     return path
 
 
@@ -403,8 +506,9 @@ def time_ssd(x, a, B, C, w, err):
     log(f"  device time T={T}: kernel {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, no one-call PyTorch equivalent, bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']}); kernel reaches "
-        f"{flops / row['ms'] / 1e9:.1f} TFLOP/s; one call from Python "
-        f"{host_ms(kernel, 5):.4f} ms")
+        f"{flops / row['ms'] / 1e9:.1f} TFLOP/s, "
+        f"{row['bound_ms'] / row['ms']:.1%} of the bound; one call from "
+        f"Python {host_ms(kernel, 5):.4f} ms")
     return row
 
 
@@ -471,7 +575,7 @@ def time_slstm(wx, r, b, err):
 
 
 # --------------------------------------------------------------------------
-# phase 4: serve
+# phase 5: serve
 # --------------------------------------------------------------------------
 @contextlib.contextmanager
 def plain_versions():
@@ -629,7 +733,7 @@ def profile_serving(eng, prompts):
         name = e.key.lower()
         group = ("flash_attention" if "flash_fwd" in name else
                  "rmsnorm" if "rmsnorm_kernel" in name else
-                 "ssd_scan" if "ssd_scan_kernel" in name else
+                 "ssd_scan" if "ssd_scan" in name else
                  "slstm_scan" if "slstm_scan_kernel" in name else
                  "matmul" if any(w in name for w in ("gemm", "cutlass",
                                                       "xmma", "sm90_"))
@@ -669,13 +773,15 @@ def main():
     log("flash_fwd_sm90_kernel dynamic shared memory per block: " + ", ".join(
         f"hd={hd} {sm90_smem_bytes(hd)} bytes" for hd in (32, 64, 128)))
 
-    gen = torch.Generator("cuda").manual_seed(0)             # phase 3
+    check_splitk(torch.Generator("cuda").manual_seed(1))    # phase 3
+
+    gen = torch.Generator("cuda").manual_seed(0)             # phase 4
     flash_rows = check_flash(gen)
     rms_rows = check_rmsnorm(gen)
     ssd_rows = check_ssd(gen)
     slstm_rows = check_slstm(gen)
 
-    qwen, _ = serve("qwen3-0.6b", QWEN_LAYERS,                # phase 4
+    qwen, _ = serve("qwen3-0.6b", QWEN_LAYERS,                # phase 5
                     {"flash_attention": QWEN_LAYERS, "rmsnorm": QWEN_NORMS},
                     {"rmsnorm": QWEN_NORMS})
     xlstm, _ = serve("xlstm-1.3b", XLSTM_MLSTM + XLSTM_SLSTM,
@@ -683,7 +789,7 @@ def main():
                       "rmsnorm": XLSTM_NORMS},
                      {"rmsnorm": XLSTM_NORMS})
 
-    def launches(name):                                      # phase 5
+    def launches(name):                                      # phase 6
         by_path = {"qwen3-0.6b": qwen.get(name, 0),
                    "xlstm-1.3b": xlstm.get(name, 0)}
         return {"launches": sum(by_path.values()),

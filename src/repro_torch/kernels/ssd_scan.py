@@ -2,11 +2,13 @@
 version.
 
 ``ssd_scan`` launches ``csrc/ssd_scan.cu`` on a CUDA tensor and runs
-``ssd_scan_ref`` on a CPU tensor; nothing else. The kernel replaces the
-Pallas TPU kernel ``repro/kernels/ssd_scan.py`` and adds what prefill needs
-and the TPU kernel lacks: any T, an initial state, the final state, and the
-mLSTM normalizer chain in the same launch (see the note at the top of the
-CUDA source for what bounds it and how).
+``ssd_scan_ref`` on a CPU tensor; nothing else. The CUDA code replaces the
+Pallas TPU kernel ``repro/kernels/ssd_scan.py`` with the same chunked form
+in fp32 on the CUDA cores (two kernels per call: the chunks' masked decay
+matrices, then the scan) and adds what prefill needs and the TPU kernel
+lacks: any T, an initial state, the final state, and the mLSTM normalizer
+chain in the same call (see the note at the top of the CUDA source for
+what bounds it and how).
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ from . import build
 F32 = torch.float32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}      # ReproDtype in common.cuh
 _STATE_SIZES = (8, 16, 32, 64, 128, 256, 512)        # N the kernel is built for
-_ARGTYPES = (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+CHUNK = 64                                           # kChunk in csrc/ssd_scan.cu
+_ARGTYPES = (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 
 
 def ssd_scan_ref(x, a, B, C, *, initial_state=None, norm_weights=None,
@@ -90,8 +93,9 @@ def _ptr(t):
 def ssd_scan(x, a, B, C, *, initial_state=None, norm_weights=None,
              initial_norm_state=None):
     """Arguments and results as ``ssd_scan_ref``; any T. On a CUDA tensor
-    one launch computes y, the final state and, with ``norm_weights``, the
-    normalizer chain."""
+    one call computes y, the final state and, with ``norm_weights``, the
+    normalizer chain: two kernels, the chunks' masked decay matrices into a
+    workspace, then the chunked scan."""
     kw = dict(initial_state=initial_state, norm_weights=norm_weights,
               initial_norm_state=initial_norm_state)
     if x.device.type == "cpu":
@@ -106,13 +110,20 @@ def ssd_scan(x, a, B, C, *, initial_state=None, norm_weights=None,
     norm = norm_weights is not None
     n = torch.empty(b, T, H, dtype=F32, device=x.device) if norm else None
     Sn = torch.empty(b, H, N, dtype=F32, device=x.device) if norm else None
+    # per (batch*head, chunk): M [CHUNK, CHUNK] and two [CHUNK] decay vectors
+    chunks = -(-T // CHUNK)
+    ws = torch.empty(b * H * chunks * CHUNK * (CHUNK + 2), dtype=F32,
+                     device=x.device)
+    # B and C are copied into shared memory 16 bytes at a time
+    B, C = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (B, C))
     fn = build.function("ssd_scan_fwd", _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(x.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(),
                   _ptr(initial_state), y.data_ptr(), S.data_ptr(),
                   _ptr(norm_weights), _ptr(initial_norm_state), _ptr(n),
-                  _ptr(Sn), _DTYPES[x.dtype], b, T, H, N, P, stream)
+                  _ptr(Sn), ws.data_ptr(), _DTYPES[x.dtype], b, T, H, N, P,
+                  stream)
     build.check(code, "ssd_scan")
     build.LAUNCHES["ssd_scan"] += 1
     return (y, n, S, Sn) if norm else (y, S)

@@ -40,6 +40,7 @@ from repro_torch.kernels import (LAUNCHES, build, flash_attention,
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # the module (the package's ``flash_attention`` attribute is the function)
 flash_module = importlib.import_module("repro_torch.kernels.flash_attention")
+ssd_module = importlib.import_module("repro_torch.kernels.ssd_scan")
 
 
 def _inputs(seed, *shapes, dtype="float32", scale=1.0):
@@ -280,6 +281,143 @@ def test_ssd_plain_state_and_normalizer_vs_ssd_chunked(T, chunk):
     assert [g.shape for g in got] == [w.shape for w in want]
     for g, w in zip(got, want):
         _close(g, w, TOL["float32"])
+
+
+def _ssd_chunked_emulation(x, a, B, C, *, initial_state=None,
+                           norm_weights=None, initial_norm_state=None):
+    """The CUDA kernel's chunked arithmetic in plain torch, step for step:
+    chunks of ``CHUNK`` steps, the last padded with decay 1 (a = 0), B = C =
+    0 and x = 0; the normalizer as one more column whose input is w. Per
+    chunk the decay exponents are sums of a taken in order over exactly the
+    steps they span (seg[i, j] = a[j+1] + ... + a[i], never a difference of
+    two cumulative sums), M is computed first with the exponent taken only
+    where i >= j, then y = exp(a_cum) * (C . S_old) + M . X and
+    S = exp(a_tot) * S_old + B^T . (X * exp(seg[L-1, :]))."""
+    b, T, H, P = x.shape
+    N = B.shape[-1]
+    L = ssd_module.CHUNK
+    nc = -(-T // L)
+    pad = nc * L - T
+    norm = norm_weights is not None
+    X = x.float()
+    S = (torch.zeros(b, H, N, P) if initial_state is None
+         else initial_state.float())
+    if norm:
+        X = torch.cat([X, norm_weights.float()[..., None]], dim=-1)
+        Sn = (torch.zeros(b, H, N) if initial_norm_state is None
+              else initial_norm_state.float())
+        S = torch.cat([S, Sn[..., None]], dim=-1)
+
+    def chunked(t):                         # [b,T,H,...] -> [b,H,nc,L,...]
+        t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        t = t.reshape(b, nc, L, H, *t.shape[3:])
+        return t.movedim(3, 1)
+
+    X, Bc, Cc = chunked(X), chunked(B.float()), chunked(C.float())
+    A = chunked(a.float()[..., None])[..., 0]
+    below = torch.ones(L, L, dtype=torch.bool).tril()
+    seg = torch.zeros(b, H, nc, L, L)       # seg[..., i, j], i >= j
+    for i in range(1, L):                   # one add per step, in order
+        seg[..., i, :i] = seg[..., i - 1, :i] + A[..., i, None]
+    a_cum = A.clone()                       # a[0] + ... + a[i], in order
+    for i in range(1, L):
+        a_cum[..., i] = a_cum[..., i - 1] + A[..., i]
+    M = torch.where(below, (Cc @ Bc.transpose(-1, -2)) * torch.exp(seg), 0.0)
+    ys = []
+    for c in range(nc):
+        ys.append(torch.exp(a_cum[:, :, c])[..., None] * (Cc[:, :, c] @ S)
+                  + M[:, :, c] @ X[:, :, c])
+        Xd = X[:, :, c] * torch.exp(seg[:, :, c, L - 1])[..., None]
+        S = (torch.exp(a_cum[:, :, c, -1:])[..., None] * S
+             + Bc[:, :, c].transpose(-1, -2) @ Xd)
+    y = torch.stack(ys, dim=2).reshape(b, H, nc * L, -1)[:, :, :T]
+    y = y.movedim(1, 2)                     # [b,T,H,P(+1)]
+    if not norm:
+        return y.to(x.dtype), S
+    return y[..., :P].to(x.dtype), y[..., P], S[..., :P], S[..., P]
+
+
+def _ssd_model_like(seed, b, T, H, N, P, gate_shift=0.0):
+    """mLSTM inputs as the model draws them: log forget gates
+    logsigmoid(N(3, 1)) (slow forgetting), input gates
+    w = exp(clamp(N(-2, 1) + gate_shift, max=15)) (the model's clamp; a
+    shift of 15 puts w at ~1e6, where the clamp bites), x = v * w,
+    B = k / sqrt(N), C = q."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    a = torch.nn.functional.logsigmoid(f32(b, T, H) + 3)
+    w = torch.exp(torch.clamp(f32(b, T, H) - 2 + gate_shift, max=15))
+    x = f32(b, T, H, P) * w[..., None]
+    return x, a, f32(b, T, H, N) / math.sqrt(N), f32(b, T, H, N), w
+
+
+@pytest.mark.parametrize("norm", [False, True])
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 137, 300])
+def test_ssd_chunked_emulation_vs_plain(T, init, norm):
+    """The kernel's chunked arithmetic against the sequential recurrence:
+    ragged tails, one step, exact chunks, state in and out, normalizer."""
+    b, H, N, P = 2, 2, 16, 24
+    _, (x, B, C, S0, w, Sn0) = _inputs(
+        14, (b, T, H, P), (b, T, H, N), (b, T, H, N), (b, H, N, P),
+        (b, T, H), (b, H, N), scale=0.5)
+    a = torch.from_numpy(_log_decay(15, b, T, H))
+    kw = {}
+    if init:
+        kw["initial_state"] = S0
+    if norm:
+        kw["norm_weights"] = torch.exp(w - 2)
+        if init:
+            kw["initial_norm_state"] = Sn0
+    got = _ssd_chunked_emulation(x, a, B, C, **kw)
+    want = ssd_scan_ref(x, a, B, C, **kw)
+    assert len(got) == len(want) == (4 if norm else 2)
+    for g, w_ in zip(got, want):
+        assert g.shape == w_.shape and g.dtype == w_.dtype
+        _close(g, w_.numpy(), TOL["float32"])
+
+
+@pytest.mark.parametrize("gate_shift", [0.0, 15.0])
+@pytest.mark.parametrize("T", [137, 300])
+def test_ssd_chunked_emulation_model_like_inputs(T, gate_shift):
+    """Slow forgetting (a ~ -0.05, the served model's b_f = 3) carries state
+    across many chunks; exponential input gates make x and w large. At
+    w ~ 1e6 outputs that cancel to near 0 carry the rounding of terms of
+    ~1e6 in either summation order, so there each output is held to 2e-5
+    of its tensor's largest magnitude (the fp32 error is ~1e-6 of it)."""
+    x, a, B, C, w = _ssd_model_like(16, 1, T, 2, 32, 16, gate_shift)
+    S0 = torch.from_numpy(np.random.default_rng(17).standard_normal(
+        (1, 2, 32, 16)).astype(np.float32))
+    kw = dict(initial_state=S0, norm_weights=w)
+    got = _ssd_chunked_emulation(x, a, B, C, **kw)
+    for g, w_ in zip(got, ssd_scan_ref(x, a, B, C, **kw)):
+        if gate_shift:
+            scale = float(w_.abs().max())
+            assert scale > 1e5
+            assert float((g - w_).abs().max()) <= TOL["float32"] * scale
+        else:
+            _close(g, w_.numpy(), TOL["float32"])
+
+
+def test_ssd_chunked_emulation_vs_ssd_chunked():
+    """Against the JAX package's chunk-parallel form at a T it takes."""
+    b, T, H, N, P = 1, 256, 2, 16, 32
+    (jx, jB, jC, jS, jw, jSn), (tx, tB, tC, tS, tw, tSn) = _inputs(
+        18, (b, T, H, P), (b, T, H, N), (b, T, H, N), (b, H, N, P), (b, T, H),
+        (b, H, N), scale=0.5)
+    a = _log_decay(19, b, T, H)
+    want = jax_ssd_chunked(jx, jnp.asarray(a), jB, jC, 64, initial_state=jS,
+                           norm_weights=jw, initial_norm_state=jSn)
+    got = _ssd_chunked_emulation(tx, torch.from_numpy(a), tB, tC,
+                                 initial_state=tS, norm_weights=tw,
+                                 initial_norm_state=tSn)
+    for g, w_ in zip(got, want):
+        _close(g, w_, TOL["float32"])
+
+
+def test_ssd_chunk_constant_matches_the_kernel():
+    src = (build.CSRC / "ssd_scan.cu").read_text()
+    assert f"constexpr int kChunk = {ssd_module.CHUNK};" in src
 
 
 # --------------------------------------------------------------------------
