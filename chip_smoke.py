@@ -30,7 +30,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    ssd_scan (outputs and final states, with and without an initial state,
    with the mLSTM normalizer, and one path case drawn like the served
    model: slow forgetting, exponential input gates; timed at each path
-   length), slstm_scan (outputs and final states).
+   length), slstm_scan (outputs and final states; path cases at every
+   path length, fp32 r at dh=512 whose rows beyond shared memory come from
+   L2, and B=4; each timed, in µs per step too; the cluster shape and how
+   many such clusters the card holds at once).
 5. Serve: ``ServeEngine`` at full width, bf16 weights drawn from a seeded
    generator, 4 slots, 8 requests (prompt lengths from ``default_rng(0)`` in
    [100, 1500], 32 new tokens each), for two models in turn:
@@ -77,6 +80,8 @@ from repro_torch.kernels import (LAUNCHES, build, flash_attention,  # noqa: E402
                                  ssd_scan, ssd_scan_ref)
 from repro_torch.kernels.flash_attention import sm90_smem_bytes  # noqa: E402
 from repro_torch.kernels.rmsnorm import plan as rmsnorm_plan  # noqa: E402
+from repro_torch.kernels.slstm_scan import (slstm_max_clusters,  # noqa: E402
+                                            slstm_plan)
 from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
 from repro_torch.models.common import tree_map  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
@@ -429,6 +434,8 @@ SLSTM_GRID = [(2, 64, 2, 16), (1, 128, 4, 32),
               (3, 128, 1, 64)]               # tests/test_kernels.py:197-201
 SLSTM_PATH = (1, 4, 512)                     # sLSTM: B, nh, dh
 SLSTM_PATH_T = (1, 137, 1000)
+SLSTM_EXTRA = [(1, 137, torch.float32),      # B, T, r dtype: fp32 r (L2 tail)
+               (4, 137, torch.bfloat16)]     # a batch tile of 4 rows
 
 
 def model_like_ssd(gen, b, T, H, N, P):
@@ -512,38 +519,49 @@ def time_ssd(x, a, B, C, w, err):
     return row
 
 
-def slstm_inputs(gen, B, T, nh, dh, dtype, path):
+def slstm_inputs(gen, B, T, nh, dh, dtype, path, r_dtype=torch.bfloat16):
     """Grid inputs as tests/test_kernels.py draws them; path inputs as the
     model's: wx ~ N(0, 1) (rms-normed x through w_in), r ~ N(0, 1/dh) in
-    bf16, b = -2 / 3 / 0 / 0 for the i / f / z / o gates."""
+    ``r_dtype`` (bf16 weights; fp32 in the fp32-weight check), b = -2 / 3 /
+    0 / 0 for the i / f / z / o gates."""
     if not path:
         return (randn(gen, B, T, nh, 4 * dh, dtype=dtype, scale=0.5),
                 randn(gen, nh, dh, 4 * dh, scale=0.3),
                 randn(gen, nh, 4 * dh, scale=0.2))
     gate_b = torch.tensor([-2.0, 3.0, 0.0, 0.0], device="cuda")
     return (randn(gen, B, T, nh, 4 * dh),
-            randn(gen, nh, dh, 4 * dh, dtype=torch.bfloat16,
+            randn(gen, nh, dh, 4 * dh, dtype=r_dtype,
                   scale=1 / math.sqrt(dh)),
             gate_b.repeat_interleave(dh).expand(nh, 4 * dh).contiguous())
 
 
 def check_slstm(gen):
-    cases = [(B, T, nh, dh, dtype, False) for dtype in (torch.float32,
-                                                        torch.bfloat16)
-             for B, T, nh, dh in SLSTM_GRID]
-    cases += [(*SLSTM_PATH[:1], T, *SLSTM_PATH[1:], torch.float32, True)
-              for T in SLSTM_PATH_T]
+    """Every case against the plain version; each path case (the served
+    model's shapes) also timed. Returns the path rows by (B, T, r dtype)."""
+    bf16 = torch.bfloat16
+    cases = [(B, T, nh, dh, dtype, torch.float32, False)
+             for dtype in (torch.float32, bf16) for B, T, nh, dh in SLSTM_GRID]
+    B1, nh, dh = SLSTM_PATH
+    cases += [(B1, T, nh, dh, torch.float32, bf16, True) for T in SLSTM_PATH_T]
+    cases += [(B, T, nh, dh, torch.float32, r_dtype, True)
+              for B, T, r_dtype in SLSTM_EXTRA]
+    for B, r_dtype in [(B1, bf16)] + [(B, r) for B, _, r in SLSTM_EXTRA]:
+        plan = slstm_plan(B, nh, dh, r_dtype)
+        fit = slstm_max_clusters(B, nh, dh, torch.float32, r_dtype)
+        log(f"slstm_scan B={B} nh={nh} dh={dh} r {str(r_dtype)[6:]}: {plan}; "
+            f"the card holds {fit} such clusters at once"
+            + ("" if fit >= nh else f", so the {nh} heads run in waves"))
     path = {}
-    for B, T, nh, dh, dtype, on_path in cases:
-        wx, r, b = slstm_inputs(gen, B, T, nh, dh, dtype, on_path)
+    for B, T, nh, dh, dtype, r_dtype, on_path in cases:
+        wx, r, b = slstm_inputs(gen, B, T, nh, dh, dtype, on_path, r_dtype)
         hs, state = slstm_scan(wx, r, b)
         torch.cuda.synchronize()
         want_hs, want_state = slstm_scan_ref(wx, r, b)
         err = compare("slstm_scan", f"B={B} T={T} nh={nh} dh={dh} wx "
                       f"{str(wx.dtype)[6:]} r {str(r.dtype)[6:]}",
                       (hs, *state), (want_hs, *want_state))
-        if on_path and T == REPORT_T:
-            path[T] = time_slstm(wx, r, b, err)
+        if on_path:
+            path[B, T, str(r_dtype)[6:]] = time_slstm(wx, r, b, err)
     return path
 
 
@@ -564,10 +582,11 @@ def time_slstm(wx, r, b, err):
         "library_ms": None,
         "bound_by": max(bound, key=bound.get),
         "bound_ms": max(bound.values()),
-        "shape": f"B={B} T={T} nh={nh} dh={dh} wx fp32 r bf16",
+        "shape": f"B={B} T={T} nh={nh} dh={dh} wx {str(wx.dtype)[6:]} r "
+                 f"{str(r.dtype)[6:]}",
     }
-    log(f"  device time T={T}: kernel {row['ms']:.4f} ms "
-        f"({row['ms'] / T * 1e3:.2f} us per step), plain "
+    log(f"  device time {row['shape']}: kernel {row['ms']:.4f} ms "
+        f"({row['ms'] / T * 1e3:.3f} us per step), plain "
         f"{row['plain_ms']:.4f} ms, no one-call PyTorch equivalent, bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']}); one call from Python "
         f"{host_ms(kernel, 3):.4f} ms")
@@ -811,7 +830,7 @@ def main():
         {"name": "slstm_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/slstm_scan.cu",
          "replaces": "src/repro/kernels/slstm_scan.py:94",
-         **launches("slstm_scan"), **slstm_rows[REPORT_T]},
+         **launches("slstm_scan"), **slstm_rows[1, REPORT_T, "bfloat16"]},
     ]
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']} never ran on a serving path")

@@ -41,6 +41,7 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # the module (the package's ``flash_attention`` attribute is the function)
 flash_module = importlib.import_module("repro_torch.kernels.flash_attention")
 ssd_module = importlib.import_module("repro_torch.kernels.ssd_scan")
+slstm_module = importlib.import_module("repro_torch.kernels.slstm_scan")
 
 
 def _inputs(seed, *shapes, dtype="float32", scale=1.0):
@@ -441,6 +442,101 @@ def test_slstm_plain_vs_pallas(B, T, nh, dh, chunk, dtype):
                for s in (c, n, m, h))
     if dtype == "float32":
         assert torch.equal(h, got[:, -1])
+
+
+@pytest.mark.parametrize("B,nh,dh,r_dtype", [
+    (2, 2, 16, torch.float32),    # chip_smoke.py SLSTM_GRID
+    (1, 4, 32, torch.float32),
+    (3, 1, 64, torch.float32),
+    (2, 2, 16, torch.bfloat16),
+    (1, 4, 512, torch.bfloat16),  # the served sLSTM layer (xlstm-1.3b)
+    (16, 4, 512, torch.bfloat16),
+    (1, 4, 512, torch.float32),   # fp32 weights: rows beyond shared memory
+    (16, 4, 512, torch.float32),
+    (4, 4, 512, torch.bfloat16),
+    (1, 1, 48, torch.bfloat16),   # dh not a multiple of 32: 16 units
+])
+def test_slstm_plan(B, nh, dh, r_dtype):
+    """One cluster of G <= 16 blocks per head, G dividing dh; units and
+    segments as the dot's layout needs them; shared memory within the
+    card's 232,448 bytes per block; the bf16 slice whole in shared memory,
+    an fp32 one at dh = 512 with an L2 tail of whole warps' rows."""
+    plan = slstm_module.slstm_plan(B, nh, dh, r_dtype)
+    assert 1 <= plan.blocks <= 16 and plan.blocks * plan.units == dh
+    assert plan.units in (16, 32)
+    groups = plan.units // 2                       # 8-column groups
+    threads = plan.segments * groups
+    assert threads % 32 == 0 and threads <= slstm_module.THREADS
+    assert plan.segments & (plan.segments - 1) == 0
+    assert dh % (4 * plan.segments) == 0           # rows come in float4s
+    assert plan.tile == (1 if B == 1 else slstm_module.TILE)
+    assert plan.smem_bytes + slstm_module.BARRIER_BYTES <= 232_448
+    warp_rows = 32 // groups * (dh // plan.segments)
+    assert plan.resident_rows % warp_rows == 0
+    if r_dtype == torch.bfloat16:
+        assert plan.resident_rows == dh
+    elif dh == 512:
+        assert 0 < plan.resident_rows < dh
+        # nothing that fits is left out: one more warp's rows would not fit
+        more = plan.smem_bytes + warp_rows * 4 * plan.units * 4
+        assert more + slstm_module.BARRIER_BYTES > 232_448
+
+
+def test_slstm_plan_at_the_served_shape():
+    bf16 = slstm_module.slstm_plan(1, 4, 512, torch.bfloat16)
+    assert bf16 == (16, 32, 16, 1, 512, 512 * 128 * 2 + 2 * 512 * 4
+                    + 8 * 128 * 4 + 3 * 32 * 4)
+    assert slstm_module.slstm_plan(1, 4, 512, torch.float32).resident_rows \
+        == 384
+
+
+@pytest.mark.parametrize("B,nh,dh,r_dtype,reason", [
+    (1, 4, 1024, torch.bfloat16, "more than a cluster's 16"),
+    (1, 4, 40, torch.bfloat16, "dh % 16 == 0"),
+    (17, 4, 64, torch.float32, "B <= 16"),
+    (0, 4, 64, torch.float32, "1 <= B"),
+    (1, 4, 64, torch.float16, "float32 or bfloat16"),
+])
+def test_slstm_plan_refuses_what_the_kernel_cannot_take(B, nh, dh, r_dtype,
+                                                        reason):
+    with pytest.raises(ValueError, match=reason):
+        slstm_module.slstm_plan(B, nh, dh, r_dtype)
+
+
+def test_slstm_constants_match_the_kernel():
+    src = (build.CSRC / "slstm_scan.cu").read_text()
+    for name, value in (("kThreads", slstm_module.THREADS),
+                        ("kTile", slstm_module.TILE),
+                        ("kMaxBatch", slstm_module.MAX_BATCH),
+                        ("kMaxCluster", slstm_module.MAX_CLUSTER),
+                        ("kMaxSmem", slstm_module.SMEM_MAX),
+                        ("kBarrierBytes", slstm_module.BARRIER_BYTES)):
+        assert f"constexpr int {name} = {value};" in src
+
+
+def _c_params(src, name):
+    sig = src[src.index(f'extern "C" int {name}('):]
+    return sig[:sig.index(")")].count(",") + 1
+
+
+def test_slstm_kernel_is_a_cluster_launch_without_a_grid_barrier():
+    """One cluster per head through cudaLaunchKernelEx, h exchanged in
+    distributed shared memory; no cooperative launch, counters, spin,
+    fences or device-memory h buffer; the C entries take what the wrapper
+    passes."""
+    src = (build.CSRC / "slstm_scan.cu").read_text()
+    for used in ("cudaLaunchKernelEx", "cudaLaunchAttributeClusterDimension",
+                 "cudaFuncAttributeNonPortableClusterSizeAllowed",
+                 "st.async.shared::cluster", "barrier.cluster.arrive",
+                 "cudaOccupancyMaxActiveClusters"):
+        assert used in src
+    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    for gone in ("cudaLaunchCooperativeKernel", "__threadfence", "atomicAdd",
+                 "hbuf", "counters", "volatile int"):
+        assert gone not in code
+    assert _c_params(src, "slstm_scan_fwd") == len(slstm_module._ARGTYPES)
+    assert _c_params(src, "slstm_scan_max_clusters") == len(
+        slstm_module._OCC_ARGTYPES)
 
 
 # --------------------------------------------------------------------------
