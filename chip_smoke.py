@@ -25,15 +25,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    T=1 at q_offset 76, T=37/S=100 at q_offset 63, then bf16 prefill
    lengths, each also held per row against the fp32 result relative to
    the row's RMS), rmsnorm (both dtypes, the vector path and the scalar
-   one: d=100 and a view 16-byte misaligned, and the q_norm decode rows
-   64 x 128),
+   one: d=100 and a view 16-byte misaligned, the q_norm decode rows
+   64 x 128, and in fp32 every norm shape of both training paths),
    ssd_scan (outputs and final states, with and without an initial state,
    with the mLSTM normalizer, and one path case drawn like the served
    model: slow forgetting, exponential input gates; timed at each path
    length), slstm_scan (outputs and final states; path cases at every
    path length, fp32 r at dh=512 whose rows beyond shared memory come from
    L2, and B=4; each timed, in µs per step too; the cluster shape and how
-   many such clusters the card holds at once).
+   many such clusters the card holds at once). Then the member step's
+   backward kernels, in fp32, against autograd of the plain versions, each
+   gradient within 1e-4 of its largest magnitude: flash_attention_bwd (hd 32
+   and 128, GQA group 2, causal, T = 32 / 137 / 512 / 1000 with B.T >= 2048
+   at the larger T, one q_offset > 0 and one window case; the fp32 forward's
+   output beside it; a run without the first key tile must fail the check)
+   and rmsnorm_bwd (every norm shape of both training paths and a view off
+   16-byte alignment, the scalar path); a bf16 backward must raise. Each is
+   timed beside its bound, its plain backward and the backward of
+   ``F.scaled_dot_product_attention`` (fp32, GQA) or ``F.rms_norm``.
 5. Serve: ``ServeEngine`` at full width, bf16 weights drawn from a seeded
    generator, 4 slots, 8 requests (prompt lengths from ``default_rng(0)`` in
    [100, 1500], 32 new tokens each), for two models in turn:
@@ -50,14 +59,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    run; fp32 weights within the floor). A traced window then gives the
    device's busy share and device time by kernel, and shows that bf16
    serving ran no fp32 (CUDA-core) flash kernel.
-6. Print the kernels' JSON line, the card line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+5b. Train: the sweep's member step (``repro_torch.launch.sweep``:
+   ``forward_loss`` -> autograd through the kernels' Functions ->
+   ``adamw_update``), TF32 off, params in fp32:
+   - qwen3-0.6b at full width (28 layers, vocab 151936, tied; random from
+     seed 0) on one fixed 4 x 512 batch: one step with the kernels against
+     the same step through the plain versions (loss, grad norm, every
+     gradient and updated leaf), then 8 steps at lr 1e-3 with exactly 28
+     flash_attention, 28 flash_attention_bwd, 113 rmsnorm and 113
+     rmsnorm_bwd launches each and a falling loss, then one traced step,
+     recorded after a warm-up step (busy share, device ms by group);
+   - the sweep's own member (``member_config``: 4 layers, hd 32, vocab
+     256): one step held against its plain step as above, then 16
+     members x 5 steps on ``SyntheticLM(256, 32, 8, seed=0)`` at
+     lr ``np.geomspace(1e-4, 3e-2, 16)``, one after another, with exactly
+     4 / 4 / 17 / 17 launches per step.
+6. Print the kernels' JSON line (the fp32 forward and both backward kernels
+   with their training launches beside the serving kernels), the card
+   line, and as the last line ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and cuDNN, so fp32 comparisons are full fp32.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -74,16 +100,23 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels import (LAUNCHES, build, flash_attention,  # noqa: E402
+                                 flash_attention_bwd, flash_attention_bwd_ref,
                                  flash_attention_ref, ops, rmsnorm,
-                                 rmsnorm_ref, slstm_scan, slstm_scan_ref,
-                                 ssd_scan, ssd_scan_ref)
+                                 rmsnorm_bwd, rmsnorm_bwd_ref, rmsnorm_ref,
+                                 slstm_scan, slstm_scan_ref, ssd_scan,
+                                 ssd_scan_ref)
 from repro_torch.kernels.flash_attention import sm90_smem_bytes  # noqa: E402
 from repro_torch.kernels.rmsnorm import plan as rmsnorm_plan  # noqa: E402
 from repro_torch.kernels.slstm_scan import (slstm_max_clusters,  # noqa: E402
                                             slstm_plan)
 from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
+from repro_torch.launch.sweep import (build_member_step,  # noqa: E402
+                                      loss_and_grads, member_config,
+                                      to_batch)
 from repro_torch.models.common import tree_map  # noqa: E402
+from repro_torch.optim import adamw_init, adamw_update  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
 # Published dense peaks of one H100 SXM at its 700 W limit.
@@ -261,6 +294,9 @@ FLASH_GRID = [(1, 128, 128, 4, 4, 64), (2, 128, 128, 4, 2, 64),
 PATH_T = (137, 512, 1000, 1291, 2048)        # prefill lengths; H=16 KV=8
 RMS_ROWS = (4, 1000, 16000)
 RMS_EXTRA = ((64, 128), (4, 100), (1000, 100))   # q_norm decode rows; tails
+TRAIN_NORM_SHAPES = [  # rows, d: every norm of both training paths (fp32)
+    (2048, 1024), (2048 * 16, 128), (2048 * 8, 128),   # full width, B.T=2048
+    (256, 128), (256 * 4, 32), (256 * 2, 32)]         # sweep member, B.T=256
 REPORT_T = 1000                              # the JSON line's flash shape
 REPORT_RMS = "rows=16000 d=128 bfloat16"     # q_norm rows at T=1000
 
@@ -361,13 +397,16 @@ def time_flash(q, k, v, err):
 
 
 def rmsnorm_cases(gen, dtype):
-    """(name, x, g): the grid, the q_norm decode rows, tails of d = 100, and
-    two contiguous views off 16-byte alignment: ``x[1:]`` of a [1001, 100]
+    """(name, x, g): the grid, the q_norm decode rows, tails of d = 100, in
+    fp32 the training paths' norm shapes, and two contiguous views off 16-byte alignment: ``x[1:]`` of a [1001, 100]
     tensor (200 bytes in: the scalar path in bf16; 400 bytes, aligned, in
     fp32) and rows of 1024 starting one element into a flat buffer (the
     scalar path in both dtypes, a row too wide to hold: streamed)."""
     shapes = [(rows, d) for rows in RMS_ROWS for d in (128, 1024, 2048)]
-    for rows, d in shapes + list(RMS_EXTRA):
+    shapes += RMS_EXTRA
+    if dtype == torch.float32:
+        shapes += TRAIN_NORM_SHAPES
+    for rows, d in shapes:
         x = randn(gen, rows, d, dtype=dtype)
         g = (1 + 0.1 * randn(gen, d, dtype=torch.float32)).to(dtype)
         yield f"rows={rows} d={d} {str(dtype)[6:]}", x, g
@@ -423,6 +462,243 @@ def time_rmsnorm(name, x, g, err):
         f"{row['bound_ms'] / row['ms']:.1%} of the bound, moves "
         f"{nbytes / row['ms'] / 1e6:.1f} GB/s; one call from Python "
         f"{host_ms(kernel, 50):.4f} ms")
+    return row
+
+
+# --------------------------------------------------------------------------
+# phase 4, backward: the member step's gradient kernels
+# --------------------------------------------------------------------------
+GRAD_TOL = 1e-4       # fp32, of each gradient's largest magnitude
+FLASH_BWD_CASES = [   # B, T, S, H, KV, hd, window, q_offset
+    *[(B, T, T, 4, 2, 32, 0, 0)            # the sweep member's heads
+      for B, T in ((8, 32), (2, 137), (4, 512), (3, 1000))],
+    *[(B, T, T, 16, 8, 128, 0, 0)          # qwen3-0.6b at full width
+      for B, T in ((8, 32), (2, 137), (4, 512), (3, 1000))],
+    (1, 100, 300, 16, 8, 128, 0, 200),     # q_offset > 0
+    (2, 512, 512, 4, 2, 32, 128, 0),       # window
+]
+FLASH_BWD_REPORT = (4, 512, 16, 8, 128)    # B, T, H, KV, hd: the member step
+RMS_BWD_REPORT = "rows=2048 d=1024"                    # ln1 / ln2 / final
+
+
+def grad_device_ms(forward, inputs, grad, iters: int) -> float:
+    """Mean device time of one ``torch.autograd.grad`` through
+    ``forward(*inputs)`` (a library's backward): the forward runs once on
+    the capture stream, since autograd runs each node's backward on its
+    forward's stream, then ``iters`` backward calls are captured in one
+    CUDA graph and replayed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = forward(*inputs)
+        for _ in range(3):
+            torch.autograd.grad(out, inputs, grad, retain_graph=True)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            torch.autograd.grad(out, inputs, grad, retain_graph=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (5 * iters)
+
+
+def check_grads(kernel: str, name: str, got, want, tol: float = GRAD_TOL):
+    """Each gradient against autograd's through the plain version, within
+    ``tol`` of that tensor's largest magnitude (fp32 sums of up to a few
+    thousand terms in another order stay ~100x inside it; a dropped key tile
+    or row is off by a large share of it). Returns the largest such error."""
+    errs = []
+    for g, w in zip(got, want):
+        require(g.shape == w.shape and torch.isfinite(g).all(),
+                f"{kernel}: gradient of shape {tuple(g.shape)} not finite or "
+                f"not {tuple(w.shape)}: {name}")
+        scale = float(w.float().abs().max())
+        errs.append(float((g.float() - w.float()).abs().max()) / max(scale,
+                                                                     1e-30))
+    ok = max(errs) <= tol
+    log(f"{kernel} {name}: max |err| / max |grad| "
+        f"{', '.join(f'{e:.2e}' for e in errs)}, tol {tol:.0e} "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, f"{kernel} disagrees with autograd of its plain version: "
+            f"{name}")
+    return max(errs)
+
+
+def flash_grads(q, k, v, do, attend, **kw):
+    """(out, dq, dk, dv) through ``attend`` (the kernel's Function or the
+    plain version) with fresh leaves."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = attend(*leaves, **kw)
+    return (out.detach(), *torch.autograd.grad(out, leaves, do))
+
+
+def check_flash_bwd(gen):
+    """The fp32 forward with lse and the backward kernels against autograd
+    of the plain version (fp32 on the card); a run without the first key
+    tile must fail; bf16 gradients must raise. Returns the timed rows of the
+    backward and of the fp32 forward at the member step's shape."""
+    rows = None
+    for B, T, S, H, KV, hd, window, off in FLASH_BWD_CASES:
+        q, do = (randn(gen, B, T, H, hd) for _ in range(2))
+        k, v = (randn(gen, B, S, KV, hd) for _ in range(2))
+        kw = dict(causal=True, window=window, q_offset=off)
+        out, *got = flash_grads(q, k, v, do, flash_attention, **kw)
+        torch.cuda.synchronize()
+        ref_out, *want = flash_grads(q, k, v, do, flash_attention_ref, **kw)
+        name = (f"B={B} T={T} S={S} H={H} KV={KV} hd={hd} fp32 causal "
+                f"window={window} q_offset={off}")
+        fwd_err = compare("flash_attention", f"{name}, forward with lse",
+                          (out,), (ref_out,))
+        err = check_grads("flash_attention_bwd", name, got, want)
+        if (B, T, H, KV, hd) == FLASH_BWD_REPORT:
+            rows = time_flash_bwd(q, k, v, do, err, fwd_err)
+        if (B, T, hd, window, off) == (2, 137, 128, 0, 0):
+            check_flash_bwd_dropped_tile(q, k, v, do, want)
+    q = randn(gen, 1, 64, 4, 32, dtype=torch.bfloat16).requires_grad_(True)
+    kv = randn(gen, 1, 64, 2, 32, dtype=torch.bfloat16)
+    out = flash_attention(q, kv, kv)
+    try:
+        torch.autograd.grad(out, q, torch.ones_like(out))
+    except NotImplementedError as e:
+        log(f"flash_attention_bwd bf16 on the card raises: {e}")
+    else:
+        require(False, "a bf16 flash backward ran on the card")
+    return rows
+
+
+def check_flash_bwd_dropped_tile(q, k, v, do, want):
+    """The kernels run without the first 64 keys (k, v from key 64 on at
+    q_offset -64: rows 0..63 see no key) must fail ``check_grads``."""
+    T = q.shape[1]
+    _, dq, dk, dv = flash_grads(q, k[:, 64:].contiguous(),
+                                v[:, 64:].contiguous(), do, flash_attention,
+                                q_offset=-64)
+    pad = lambda t: F.pad(t, (0, 0, 0, 0, 64, 0))
+    try:
+        check_grads("flash_attention_bwd", f"T={T}, first key tile dropped",
+                    (dq, pad(dk), pad(dv)), want)
+    except RuntimeError:
+        log(f"flash_attention_bwd T={T}: the run without the first key tile "
+            "fails the check, as it must")
+    else:
+        require(False, "the gradient check cannot see a dropped key tile")
+
+
+def time_flash_bwd(q, k, v, do, err, fwd_err):
+    B, T, H, hd = q.shape
+    KV = k.shape[2]
+    o, lse = flash_attention_ref(q, k, v, with_lse=True)
+    o = o.contiguous()
+    pairs = T * (T + 1) // 2
+    flops = 2.5 * 4 * B * H * hd * pairs
+    nbytes = 4 * (4 * q.numel() + 4 * k.numel() + 2 * lse.numel())
+    bound = {"operations": flops / PEAK_F32 * 1e3,
+             "bytes": nbytes / HBM * 1e3}
+    kernel = lambda: flash_attention_bwd(q, k, v, o, lse, do)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    sdpa = lambda q_, k_, v_: F.scaled_dot_product_attention(
+        q_, k_, v_, is_causal=True, enable_gqa=True)
+    row = {
+        "max_abs_err": err,
+        "ms": device_ms(kernel, 5),
+        "plain_ms": device_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse,
+                                                              do), 2),
+        "library_ms": grad_device_ms(sdpa, (qt, kt, vt), do.transpose(1, 2),
+                                     5),
+        "bound_by": max(bound, key=bound.get),
+        "bound_ms": max(bound.values()),
+        "shape": f"B={B} T=S={T} H={H} KV={KV} hd={hd} fp32 causal",
+    }
+    fwd_bound = {"operations": flops / 2.5 / PEAK_F32 * 1e3,
+                 "bytes": 4 * (2 * q.numel() + 2 * k.numel()) / HBM * 1e3}
+    fwd = {
+        "max_abs_err": fwd_err,
+        "ms": device_ms(lambda: flash_attention(q, k, v), 5),
+        "plain_ms": device_ms(lambda: flash_attention_ref(q, k, v), 2),
+        "library_ms": device_ms(lambda: sdpa(qt, kt, vt), 5),
+        "bound_by": max(fwd_bound, key=fwd_bound.get),
+        "bound_ms": max(fwd_bound.values()),
+        "shape": f"B={B} T=S={T} H={H} KV={KV} hd={hd} fp32 causal",
+    }
+    log(f"  device time {row['shape']}: backward kernels {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.4f} ms, SDPA backward (fp32, GQA) "
+        f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}); {row['bound_ms'] / row['ms']:.1%} of the "
+        f"bound, {flops / row['ms'] / 1e9:.1f} TFLOP/s; one call from Python "
+        f"{host_ms(kernel, 5):.4f} ms; forward (fp32, CUDA cores) "
+        f"{fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.4f}, SDPA "
+        f"{fwd['library_ms']:.4f}, bound {fwd['bound_ms']:.4f}")
+    return row, fwd
+
+
+def rmsnorm_bwd_cases(gen):
+    """(name, x, g, dy): every training norm's shape, then a view 4 bytes
+    off 16-byte alignment (the scalar path)."""
+    for rows, d in TRAIN_NORM_SHAPES:
+        yield (f"rows={rows} d={d}", randn(gen, rows, d),
+               1 + 0.1 * randn(gen, d), randn(gen, rows, d))
+    flat = randn(gen, 1000 * 128 + 1)
+    yield ("rows=1000 d=128 view at byte offset 4", flat[1:].view(1000, 128),
+           1 + 0.1 * randn(gen, 128), randn(gen, 1000, 128))
+
+
+def check_rmsnorm_bwd(gen):
+    path = {}
+    for name, x, g, dy in rmsnorm_bwd_cases(gen):
+        d = x.shape[-1]
+        vec, group, _ = rmsnorm_plan(x.data_ptr() | g.data_ptr()
+                                     | dy.data_ptr(), d, 4)
+        got = rmsnorm_bwd(x, g, dy, eps=1e-6)
+        torch.cuda.synchronize()
+        leaves = [t.clone().requires_grad_(True) for t in (x, g)]
+        want = torch.autograd.grad(rmsnorm_ref(*leaves, eps=1e-6), leaves, dy)
+        err = check_grads("rmsnorm_bwd", f"{name} fp32 (vec={vec} "
+                          f"group={group})", got, want)
+        path[name] = time_rmsnorm_bwd(name, x, g, dy, err)
+    x = randn(gen, 4, 128, dtype=torch.bfloat16).requires_grad_(True)
+    try:
+        torch.autograd.grad(rmsnorm(x, torch.ones(128, dtype=torch.bfloat16,
+                                                  device="cuda")).sum(), x)
+    except NotImplementedError as e:
+        log(f"rmsnorm_bwd bf16 on the card raises: {e}")
+    else:
+        require(False, "a bf16 rmsnorm backward ran on the card")
+    return path
+
+
+def time_rmsnorm_bwd(name, x, g, dy, err):
+    rows, d = x.shape
+    nbytes = 4 * (3 * rows * d + 2 * d)
+    bound = {"operations": 8 * rows * d / PEAK_F32 * 1e3,
+             "bytes": nbytes / HBM * 1e3}
+    kernel = lambda: rmsnorm_bwd(x, g, dy, eps=1e-6)
+    xl, gl = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
+    row = {
+        "max_abs_err": err,
+        "ms": device_ms(kernel, 50),
+        "plain_ms": device_ms(lambda: rmsnorm_bwd_ref(x, g, dy, eps=1e-6),
+                              20),
+        "library_ms": grad_device_ms(
+            lambda x_, g_: F.rms_norm(x_, (d,), g_, 1e-6), (xl, gl), dy, 50),
+        "bound_by": max(bound, key=bound.get),
+        "bound_ms": max(bound.values()),
+        "shape": f"{name} fp32",
+    }
+    log(f"  device time {name}: backward kernels {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, F.rms_norm backward "
+        f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}); {row['bound_ms'] / row['ms']:.1%} of the "
+        f"bound, moves {nbytes / row['ms'] / 1e6:.1f} GB/s; one call from "
+        f"Python {host_ms(kernel, 50):.4f} ms")
     return row
 
 
@@ -769,6 +1045,264 @@ def profile_serving(eng, prompts):
             f"{e.key[:100]}")
 
 
+# --------------------------------------------------------------------------
+# phase 5b: training, the sweep's member step
+# --------------------------------------------------------------------------
+TRAIN_LR = 1e-3
+TRAIN_STEPS = 8
+TRAIN_BATCH = (4, 512)
+SWEEP_MEMBERS, SWEEP_STEPS = 16, 5           # launch/sweep.py's defaults
+B1, B2, ADAM_EPS, WD = 0.9, 0.95, 1e-8, 0.1  # adamw_update's defaults
+LOSS_RTOL = 1e-5      # kernel step vs plain step on the card, fp32
+GNORM_RTOL = 1e-4
+LEAF_GRAD_TOL = 1e-3  # of each gradient leaf's largest magnitude
+
+
+def train_launches(n_layers: int) -> dict:
+    """One member step's launches: a flash call and its backward per layer,
+    ln1, q_norm, k_norm, ln2 per layer and final_norm, each with its
+    backward."""
+    norms = 4 * n_layers + 1
+    return {"flash_attention": n_layers, "flash_attention_bwd": n_layers,
+            "rmsnorm": norms, "rmsnorm_bwd": norms}
+
+
+def clone_tree(tree):
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            yield from named_leaves(sub, f"{prefix}/{key}")
+    elif isinstance(tree, (list, tuple)):
+        for i, sub in enumerate(tree):
+            yield from named_leaves(sub, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+def first_step(params, cfg, batch, lr):
+    """One member step from fresh moments, in its parts: (loss, grads, grad
+    norm); the params are updated in place."""
+    loss, grads = loss_and_grads(params, cfg, batch)
+    _, _, gnorm = adamw_update(grads, adamw_init(params), params, lr=lr)
+    return float(loss), grads, float(gnorm)
+
+
+def adam_first_step64(g, p, clip, lr):
+    """A first AdamW step of one leaf in float64 from zero moments, and the
+    magnitude of its terms (the scale of its fp32 rounding)."""
+    g, p = g.double() * clip, p.double()
+    m, v = (1 - B1) * g, (1 - B2) * g * g
+    step = (m / (1 - B1)) / (torch.sqrt(v / (1 - B2)) + ADAM_EPS)
+    if p.dim() >= 2:
+        step = step + WD * p
+    return p - lr * step, p.abs() + lr * step.abs()
+
+
+def check_train_step_vs_plain(label, cfg, base, batch):
+    """One member step with the kernels against the same step through the
+    plain versions on the card, from the same params and batch: loss, grad
+    norm, every gradient leaf and every updated leaf. The updated leaves are
+    held to 1e-6 of their terms plus what the two runs' gradients move a
+    first Adam step by (float64): that step is ~g/|g| elementwise, so where
+    |g| is within the gradients' agreement its sign is noise and the two
+    updates may differ by up to 2 lr."""
+    want_launches = train_launches(len(cfg.block_pattern))
+    LAUNCHES.clear()
+    kernel = clone_tree(base)
+    loss_k, grads_k, gn_k = first_step(kernel, cfg, batch, TRAIN_LR)
+    torch.cuda.synchronize()
+    require(dict(LAUNCHES) == want_launches,
+            f"kernel step launched {dict(LAUNCHES)}, not {want_launches}")
+    plain = clone_tree(base)
+    with plain_versions():
+        loss_p, grads_p, gn_p = first_step(plain, cfg, batch, TRAIN_LR)
+    require(dict(LAUNCHES) == want_launches,
+            "the plain step launched a kernel")
+    loss_err, gn_err = abs(loss_k - loss_p) / loss_p, abs(gn_k - gn_p) / gn_p
+    grad_err, upd_err, noisy, n = 0.0, 0.0, 0, 0
+    clip_k, clip_p = min(1.0, 1.0 / gn_k), min(1.0, 1.0 / gn_p)
+    for (path, gk), (_, gp), (_, p0), (_, pk), (_, pp) in zip(
+            named_leaves(grads_k), named_leaves(grads_p), named_leaves(base),
+            named_leaves(kernel), named_leaves(plain)):
+        err = float((gk - gp).abs().max() / gp.abs().max())
+        grad_err = max(grad_err, err)
+        require(err <= LEAF_GRAD_TOL, f"gradient {path}: {err:.3e} of its max")
+        ref_k, terms = adam_first_step64(gk, p0, clip_k, TRAIN_LR)
+        ref_p, _ = adam_first_step64(gp, p0, clip_p, TRAIN_LR)
+        diff = (pk.detach().double() - pp.detach().double()).abs()
+        tol = 1e-6 * terms + (ref_k - ref_p).abs()
+        require(bool((diff <= tol).all()),
+                f"updated {path} off the plain step")
+        upd_err = max(upd_err, float(diff.max()) / TRAIN_LR)
+        noisy += int((diff > 1e-3 * TRAIN_LR).sum())
+        n += diff.numel()
+    log(f"train check {label}, one step kernels vs plain versions: loss "
+        f"{loss_k:.6f} "
+        f"vs {loss_p:.6f} (rel {loss_err:.2e}, tol {LOSS_RTOL:.0e}); grad "
+        f"norm {gn_k:.6f} vs {gn_p:.6f} (rel {gn_err:.2e}, tol "
+        f"{GNORM_RTOL:.0e}); worst gradient leaf {grad_err:.2e} of its max "
+        f"(tol {LEAF_GRAD_TOL:.0e}); updated leaves within tolerance, largest "
+        f"difference {upd_err:.3f} lr, {noisy} of {n} elements differ by more "
+        f"than 1e-3 lr (Adam's sign noise where |g| ~ 0)")
+    require(loss_err <= LOSS_RTOL,
+            "training loss disagrees with the plain run")
+    require(gn_err <= GNORM_RTOL, "grad norm disagrees with the plain run")
+
+
+def profile_train_step(step, params, opt, batch, n_layers):
+    """Trace one member step: device busy share and device ms by group. The
+    tracer runs through a warm-up step first and records only the second
+    step, so no kernel launched while it starts is missed; the log says
+    whether the recorded step holds all its flash launches."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            params, opt, loss = step(params, opt, batch, TRAIN_LR)
+            float(loss)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
+    kernels = [e for e in prof.key_averages()    # not the step's own span
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")]
+    traced = Counter()    # the fp32 forward and the backward's dq kernel
+    for e in kernels:
+        for name in ("flash_fwd_kernel<", "flash_bwd_dq_kernel<"):
+            if name in e.key:
+                traced[name[:-1]] += e.count
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    groups = dict.fromkeys(("flash fwd", "flash bwd", "rmsnorm fwd",
+                            "rmsnorm bwd", "matmul", "other"), 0.0)
+    for e in kernels:
+        name = e.key.lower()
+        group = ("flash fwd" if "flash_fwd" in name else
+                 "flash bwd" if "flash_bwd" in name else
+                 "rmsnorm bwd" if "rmsnorm_bwd" in name else
+                 "rmsnorm fwd" if "rmsnorm_kernel" in name else
+                 "matmul" if any(w in name for w in ("gemm", "cutlass",
+                                                      "xmma", "sm90_"))
+                 else "other")
+        groups[group] += e.self_device_time_total / 1e3
+    require(kernels, "the traced step shows no device time")
+    complete = all(traced[k] == n_layers for k in ("flash_fwd_kernel",
+                                                   "flash_bwd_dq_kernel"))
+    log(f"train profile: traced flash calls {dict(traced)} of {n_layers} "
+        f"per step: {'complete' if complete else 'INCOMPLETE'} trace")
+    log(f"train profile: one traced step, wall {wall_ms:.1f} ms, device busy "
+        f"{busy:.1f} ms ({busy / wall_ms:.1%}), {len(kernels)} kernel names; "
+        f"device ms by group "
+        f"{json.dumps({k: round(v, 3) for k, v in groups.items()})}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
+            f"{e.key[:100]}")
+    return {"traced_step_ms": wall_ms, "busy_ms": busy,
+            "busy_share": busy / wall_ms, "device_ms_by_group": groups}
+
+
+def train_full_width():
+    """qwen3-0.6b at full width in fp32, the sweep member's dtype: the
+    kernel step against the plain one, then ``TRAIN_STEPS`` member steps on
+    one fixed batch with exact launch counts per step and a falling loss,
+    then one traced step. Returns (launches of the steps, metrics)."""
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), param_dtype="float32",
+                              remat="none")
+    require(cfg.block_pattern == ("attn",) * QWEN_LAYERS
+            and cfg.head_dim == 128)
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                         device="cuda")
+    n_params = sum(t.numel() for _, t in named_leaves(params))
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, TRAIN_BATCH)
+    batch = to_batch({"tokens": tokens, "labels": tokens}, "cuda")
+    log(f"train: {cfg.name} full width ({cfg.n_layers} ATTN layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, hd "
+        f"{cfg.head_dim}, vocab {cfg.vocab_size}, tied), fp32 params from "
+        f"seed 0: {n_params / 1e6:.1f} M ({n_params * 4 / 2**30:.2f} GiB); "
+        f"batch {TRAIN_BATCH[0]}x{TRAIN_BATCH[1]}, lr {TRAIN_LR}; TF32 off "
+        "(torch.backends.cuda.matmul.allow_tf32 = False), so the fp32 GEMMs "
+        "run in full fp32 as the CPU parity holds them")
+    check_train_step_vs_plain("qwen3-0.6b full width", cfg, params, batch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = build_member_step(cfg, device="cuda")
+    opt = adamw_init(params)
+    want = train_launches(cfg.n_layers)
+    losses, step_ms, launches = [], [], Counter()
+    for i in range(TRAIN_STEPS):
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, batch, TRAIN_LR)
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        require(dict(LAUNCHES) == want,
+                f"step {i} launched {dict(LAUNCHES)}, not {want}")
+        launches.update(LAUNCHES)
+        log(f"train step {i}: loss {losses[-1]:.6f}, {step_ms[-1]:.1f} ms")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(all(math.isfinite(x) for x in losses), "non-finite training loss")
+    require(losses[-1] < 0.9 * losses[0],
+            f"loss did not fall: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    metrics = {"loss_first": losses[0], "loss_last": losses[-1],
+               "step_ms_median": float(np.median(step_ms[1:])),
+               "step_ms": step_ms, "peak_mem_gib": peak,
+               "launches_per_step": want}
+    log("train metrics qwen3-0.6b fp32 full width: " + json.dumps(metrics))
+    metrics.update(profile_train_step(step, params, opt, batch, cfg.n_layers))
+    return dict(launches), metrics
+
+
+def train_sweep():
+    """The sweep's own member (``member_config``: 4 ATTN layers, hd 32,
+    vocab 256, fp32): ``SWEEP_MEMBERS`` members of ``SWEEP_STEPS`` steps on
+    ``SyntheticLM`` batches at the sweep's learning rates, one after another
+    in-process, each from the same base params, after one member step with
+    the kernels is held against the same step through the plain versions.
+    Returns (launches, metrics)."""
+    cfg = member_config("qwen3-0.6b")
+    require(cfg.block_pattern == ("attn",) * 4 and cfg.head_dim == 32)
+    base = init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                       device="cuda")
+    src = SyntheticLM(cfg.vocab_size, 32, 8, seed=0)
+    batches = [to_batch(src.batch(i), "cuda") for i in range(SWEEP_STEPS)]
+    check_train_step_vs_plain("sweep member", cfg, base, batches[0])
+    step = build_member_step(cfg, device="cuda")
+    lrs = np.geomspace(1e-4, 3e-2, SWEEP_MEMBERS)
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    finals = []
+    for lr in lrs:
+        params = clone_tree(base)
+        opt = adamw_init(params)
+        for batch in batches:
+            params, opt, loss = step(params, opt, batch, float(lr))
+        finals.append(float(loss))
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    want = {k: v * SWEEP_MEMBERS * SWEEP_STEPS
+            for k, v in train_launches(len(cfg.block_pattern)).items()}
+    log(f"sweep: {SWEEP_MEMBERS} members x {SWEEP_STEPS} steps of "
+        f"{cfg.name} (4 ATTN layers, d_model {cfg.d_model}, hd "
+        f"{cfg.head_dim}, fp32) in {wall:.2f} s "
+        f"({wall / (SWEEP_MEMBERS * SWEEP_STEPS) * 1e3:.2f} ms per step); "
+        f"launches {launches} (expected {want})")
+    log("sweep final losses by lr: " + ", ".join(
+        f"{lr:.2e}: {x:.4f}" for lr, x in zip(lrs, finals)))
+    require(launches == want, f"sweep launch counts {launches} != {want}")
+    require(all(math.isfinite(x) for x in finals), "a member's loss is not "
+            "finite")
+    require(min(finals) < math.log(cfg.vocab_size),
+            "no member's loss fell below the uniform guess")
+    return launches, {"members": SWEEP_MEMBERS, "steps": SWEEP_STEPS,
+                      "wall_s": wall, "final_losses": finals}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA card visible; this script runs only "
@@ -797,6 +1331,8 @@ def main():
     gen = torch.Generator("cuda").manual_seed(0)             # phase 4
     flash_rows = check_flash(gen)
     rms_rows = check_rmsnorm(gen)
+    flash_bwd_row, flash_fp32_row = check_flash_bwd(gen)
+    rms_bwd_rows = check_rmsnorm_bwd(gen)
     ssd_rows = check_ssd(gen)
     slstm_rows = check_slstm(gen)
 
@@ -807,33 +1343,49 @@ def main():
                      {"ssd_scan": XLSTM_MLSTM, "slstm_scan": XLSTM_SLSTM,
                       "rmsnorm": XLSTM_NORMS},
                      {"rmsnorm": XLSTM_NORMS})
+    train, _ = train_full_width()                            # phase 5b
+    sweep, _ = train_sweep()
 
-    def launches(name):                                      # phase 6
-        by_path = {"qwen3-0.6b": qwen.get(name, 0),
-                   "xlstm-1.3b": xlstm.get(name, 0)}
+    serving = {"qwen3-0.6b serve": qwen, "xlstm-1.3b serve": xlstm}
+    training = {"qwen3-0.6b train (fp32, full width)": train,
+                "sweep member (qwen3-0.6b reduced, fp32)": sweep}
+
+    def launches(name, paths):                               # phase 6
+        by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
+    csrc = "src/repro_torch/kernels/csrc/"
+    flash_tpu = "src/repro/kernels/flash_attention.py:121"
+    rms_tpu = "src/repro/kernels/rmsnorm.py:35"
     kernels = [
         {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
-         "replaces": "src/repro/kernels/flash_attention.py:121",
-         **launches("flash_attention"), **flash_rows[REPORT_T]},
-        {"name": "rmsnorm", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
-         "replaces": "src/repro/kernels/rmsnorm.py:35",
-         **launches("rmsnorm"), **rms_rows[REPORT_RMS]},
-        {"name": "ssd_scan", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "source": csrc + "flash_attention_sm90.cu", "replaces": flash_tpu,
+         **launches("flash_attention", serving), **flash_rows[REPORT_T]},
+        {"name": "flash_attention_fp32", "route": "cuda",
+         "source": csrc + "flash_attention.cu", "replaces": flash_tpu,
+         **launches("flash_attention", training), **flash_fp32_row},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": csrc + "flash_attention_bwd.cu", "replaces": flash_tpu,
+         **launches("flash_attention_bwd", training), **flash_bwd_row},
+        {"name": "rmsnorm", "route": "cuda", "source": csrc + "rmsnorm.cu",
+         "replaces": rms_tpu, **launches("rmsnorm", {**serving, **training}),
+         **rms_rows[REPORT_RMS]},
+        {"name": "rmsnorm_bwd", "route": "cuda",
+         "source": csrc + "rmsnorm_bwd.cu", "replaces": rms_tpu,
+         **launches("rmsnorm_bwd", training),
+         **rms_bwd_rows[RMS_BWD_REPORT]},
+        {"name": "ssd_scan", "route": "cuda", "source": csrc + "ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:82",
-         **launches("ssd_scan"), **ssd_rows[REPORT_T]},
+         **launches("ssd_scan", serving), **ssd_rows[REPORT_T]},
         {"name": "slstm_scan", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/slstm_scan.cu",
+         "source": csrc + "slstm_scan.cu",
          "replaces": "src/repro/kernels/slstm_scan.py:94",
-         **launches("slstm_scan"), **slstm_rows[1, REPORT_T, "bfloat16"]},
+         **launches("slstm_scan", serving),
+         **slstm_rows[1, REPORT_T, "bfloat16"]},
     ]
     for k in kernels:
-        require(k["launches"] > 0, f"{k['name']} never ran on a serving path")
+        require(k["launches"] > 0, f"{k['name']} never ran on its paths")
         require(all(math.isfinite(k[f]) for f in ("ms", "plain_ms",
                                                  "bound_ms")))
         require(k["library_ms"] is None or math.isfinite(k["library_ms"]))

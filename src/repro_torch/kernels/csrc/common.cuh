@@ -3,6 +3,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 // Element type codes passed across the C interface (see kernels/build.py).
 enum ReproDtype { REPRO_F32 = 0, REPRO_BF16 = 1 };

@@ -21,6 +21,12 @@
 // key ends with l == 0 and gives 0 whatever the tiling; for every row with a
 // valid key the result equals the TPU kernel's.
 //
+// For training, the fp32 entry also writes each row's log-sum-exp, lse =
+// m + log(l) in scaled-score units, fp32 [B,H,T], which the backward
+// (flash_attention_bwd.cu) reads to rebuild P = exp(s - lse). The pointer may
+// be null (serving passes null and writes nothing more). A row with no valid
+// key writes +inf: exp(s - inf) = 0, so the backward gives it no weight.
+//
 // What bounds it on the H100: operations. At T = S ~ 1000 and hd = 128 it
 // does ~T/2 * 4 flops per byte of q, k, v and o, far above the card's ~295
 // flops/byte, and in fp32 there are no tensor cores to spend them on: the
@@ -55,8 +61,8 @@ struct Layout {                          // shared-memory layout, in floats
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int T_len, int S_len, int H, int KV, int causal,
-                 int window, int q_offset, float scale) {
+                 T* __restrict__ o, float* __restrict__ lse, int T_len, int S_len, int H,
+                 int KV, int causal, int window, int q_offset, float scale) {
     using L = Layout<HD>;
     constexpr int DPL = HD / 32;         // output dims owned by one lane
     extern __shared__ float smem[];
@@ -193,11 +199,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
         for (int dd = 0; dd < DPL; ++dd)
             ob[(q0 + r) * q_stride + lane + 32 * dd] = from_float<T>(acc[rr][dd] / safe);
+        if (lse != nullptr && lane == 0)
+            lse[static_cast<long long>(blockIdx.y) * T_len + q0 + r] =
+                l[rr] == 0.f ? CUDART_INF_F : m[rr] + logf(l[rr]);
     }
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int T_len,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int T_len,
            int S_len, int H, int KV, int causal, int window, int q_offset, float scale,
            cudaStream_t stream) {
     auto kernel = flash_fwd_kernel<T, HD>;
@@ -207,25 +216,27 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int T_le
     if (err != cudaSuccess) return static_cast<int>(err);
     dim3 grid((T_len + BQ - 1) / BQ, B * H);
     kernel<<<grid, NT, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                       static_cast<const T*>(v), static_cast<T*>(o), T_len,
+                                       static_cast<const T*>(v), static_cast<T*>(o), lse, T_len,
                                        S_len, H, KV, causal, window, q_offset, scale);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, o: [B,T,H,hd]; k, v: [B,S,KV,hd]; all contiguous fp32.
+// q, o: [B,T,H,hd]; k, v: [B,S,KV,hd]; all contiguous fp32. lse: fp32
+// [B,H,T] or null.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int B, int T_len, int S_len, int H, int KV, int hd,
+                                   void* lse, int B, int T_len, int S_len, int H, int KV, int hd,
                                    int causal, int window, int q_offset, float scale,
                                    void* stream) {
     if (B <= 0 || T_len <= 0 || S_len <= 0 || KV <= 0 || H % KV != 0 || B * H > 65535)
         return static_cast<int>(cudaErrorInvalidValue);
     auto s = static_cast<cudaStream_t>(stream);
+    auto l = static_cast<float*>(lse);
     switch (hd) {
-        case 32: return launch<float, 32>(q, k, v, o, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
-        case 64: return launch<float, 64>(q, k, v, o, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
-        case 128: return launch<float, 128>(q, k, v, o, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
+        case 32: return launch<float, 32>(q, k, v, o, l, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
+        case 64: return launch<float, 64>(q, k, v, o, l, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
+        case 128: return launch<float, 128>(q, k, v, o, l, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

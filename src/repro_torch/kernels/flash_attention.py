@@ -1,11 +1,21 @@
-"""Flash attention for Hopper: the CUDA kernels' wrapper and its plain version.
+"""Flash attention for Hopper: the CUDA kernels' wrappers, their autograd
+Function and their plain versions.
 
 ``flash_attention`` runs ``flash_attention_ref`` on a CPU tensor. On a CUDA
-tensor the dtype alone picks the kernel: bf16 launches the tensor-core kernel
-of ``csrc/flash_attention_sm90.cu`` (wgmma, TMA), fp32 the CUDA-core kernel
-of ``csrc/flash_attention.cu`` (TF32 would break fp32's tolerance). Both
-replace the Pallas TPU kernel ``repro/kernels/flash_attention.py`` (see the
-notes at the top of the CUDA sources for what bounds them and how).
+tensor the dtype alone picks the forward kernel: bf16 launches the
+tensor-core kernel of ``csrc/flash_attention_sm90.cu`` (wgmma, TMA), fp32
+the CUDA-core kernel of ``csrc/flash_attention.cu`` (TF32 would break fp32's
+tolerance). Both replace the Pallas TPU kernel
+``repro/kernels/flash_attention.py`` (see the notes at the top of the CUDA
+sources for what bounds them and how).
+
+Where grad is enabled and an input requires it, the call goes through an
+``autograd.Function``: the fp32 forward then also writes each row's
+log-sum-exp, and the backward launches ``csrc/flash_attention_bwd.cu``
+(``flash_attention_bwd``). On CPU tensors the same Function runs the plain
+forward and the plain backward ``flash_attention_bwd_ref``, explicit
+formulas rather than autograd of the plain forward. A bf16 backward on the
+card is not written yet and raises.
 """
 from __future__ import annotations
 
@@ -18,10 +28,14 @@ from . import build
 
 NEG_INF = -1e30
 _HEAD_DIMS = (32, 64, 128)
-_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 9
-             + (ctypes.c_float, ctypes.c_void_p))
+_SCALARS = (ctypes.c_int,) * 9 + (ctypes.c_float, ctypes.c_void_p)
 _ENTRY = {torch.float32: "flash_attention_fwd",          # CUDA cores
           torch.bfloat16: "flash_attention_sm90_fwd"}    # tensor cores
+_ARGTYPES = {"flash_attention_fwd": (ctypes.c_void_p,) * 5 + _SCALARS,  # + lse
+             "flash_attention_sm90_fwd": (ctypes.c_void_p,) * 4 + _SCALARS}
+_BWD_ARGTYPES = (ctypes.c_void_p,) * 10 + _SCALARS
+BF16_BACKWARD = ("the bf16 flash_attention backward is not written yet "
+                 "(ROADMAP.md queue 2 item 3); train in fp32")
 
 
 def visible(T: int, S: int, q_offset: int, causal: bool, window: int, device):
@@ -37,12 +51,13 @@ def visible(T: int, S: int, q_offset: int, causal: bool, window: int, device):
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                        q_offset: int = 0):
+                        q_offset: int = 0, with_lse: bool = False):
     """Plain PyTorch version of the kernel's contract, in fp32.
 
     q: [B,T,H,hd], k/v: [B,S,KV,hd] -> [B,T,H,hd] in q's dtype. Masked keys
     get no weight; a row with no visible key gives 0 (the TPU kernel's
-    ``l == 0`` finalise).
+    ``l == 0`` finalise). ``with_lse`` also returns each row's log-sum-exp of
+    the scaled scores, fp32 [B,H,T], +inf for a row with no visible key.
     """
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
@@ -57,7 +72,41 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     p = torch.where(ok, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     out = torch.matmul(p, vf) / torch.where(l == 0, 1.0, l)
-    return out.transpose(1, 2).to(q.dtype)
+    out = out.transpose(1, 2).to(q.dtype)
+    if not with_lse:
+        return out
+    lse = torch.where(l == 0, math.inf, m + torch.log(l))[..., 0]
+    return out, lse
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                            window: int = 0, q_offset: int = 0):
+    """Plain backward in fp32, the formulas of ``csrc/flash_attention_bwd.cu``:
+    with s = scale * q.k and P = exp(s - lse) on visible keys,
+    dv = P^T do, dS = P * (do v^T - rowsum(do * o)), dq = scale * dS k,
+    dk = scale * dS^T q; dk and dv summed over each KV head's query heads.
+    Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    group = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qf, of, dof = (t.float().transpose(1, 2) for t in (q, o, do))  # [B,H,T,hd]
+    kf = k.float().repeat_interleave(group, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(group, dim=2).transpose(1, 2)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    ok = visible(T, S, q_offset, causal, window, q.device)
+    p = torch.where(ok, torch.exp(s - lse.float()[..., None]), 0.0)
+    delta = (dof * of).sum(dim=-1, keepdim=True)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale         # [B,H,S,hd]
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+
+    def per_kv_head(t):                    # [B,H,S,hd] -> [B,S,KV,hd]
+        return t.reshape(B, KV, group, S, hd).sum(dim=2).transpose(1, 2)
+
+    return (dq.transpose(1, 2).to(q.dtype), per_kv_head(dk).to(k.dtype),
+            per_kv_head(dv).to(v.dtype))
 
 
 def _check(q, k, v):
@@ -87,27 +136,108 @@ def _check(q, k, v):
                          f"KV={KV} B={B}")
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    q_offset: int = 0):
-    """q: [B,T,H,hd]; k/v: [B,S,KV,hd] -> [B,T,H,hd] (any T and S)."""
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _forward(q, k, v, causal, window, q_offset, with_lse):
+    """(out, lse): lse fp32 [B,H,T] when ``with_lse`` and the kernel writes
+    it (CPU, or fp32 on the card), else None."""
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+        got = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset, with_lse=with_lse)
+        return got if with_lse else (got, None)
     _check(q, k, v)
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    fn = build.function(_ENTRY[q.dtype], _ARGTYPES)
+    entry = _ENTRY[q.dtype]
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    lse = None
+    if entry == "flash_attention_fwd":       # the fp32 entry: lse or null
+        if with_lse:
+            lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
+        args.append(None if lse is None else lse.data_ptr())
+    fn = build.function(entry, _ARGTYPES[entry])
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  B, T, S, H, KV, hd, int(causal), int(window), int(q_offset),
-                  1.0 / math.sqrt(hd), stream)
+        code = fn(*args, B, T, S, H, KV, hd, int(causal), int(window),
+                  int(q_offset), 1.0 / math.sqrt(hd), _stream(q))
     build.check(code, "flash_attention")
     build.LAUNCHES["flash_attention"] += 1
-    return out
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0, q_offset: int = 0):
+    """(dq, dk, dv) of ``flash_attention`` at (q, k, v), given its output
+    ``o``, its fp32 ``lse`` [B,H,T] and the output's gradient ``do``.
+
+    A CPU tensor takes ``flash_attention_bwd_ref``; an fp32 CUDA tensor the
+    kernels of ``csrc/flash_attention_bwd.cu`` (three per call: D = rowsum(do
+    * o), dk/dv, dq; ``LAUNCHES["flash_attention_bwd"]`` counts the call
+    once); a bf16 one raises ``NotImplementedError``.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       window=window, q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: no kernel for device "
+                         f"{q.device}")
+    if q.dtype != torch.float32:
+        raise NotImplementedError(BF16_BACKWARD)
+    _check(q, k, v)
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    for name, t, shape in (("o", o, q.shape), ("do", do, q.shape),
+                           ("lse", lse, (B, H, T))):
+        if (t.shape != shape or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"flash_attention_bwd: {name} must be a "
+                             f"contiguous fp32 {tuple(shape)} on {q.device}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    fn = build.function("flash_attention_bwd", _BWD_ARGTYPES)
+    with torch.cuda.device(q.device):
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), delta.data_ptr(), B, T, S, H, KV, hd,
+                  int(causal), int(window), int(q_offset),
+                  1.0 / math.sqrt(hd), _stream(q))
+    build.check(code, "flash_attention_bwd")
+    build.LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The forward kernel (with lse) and ``flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        out, lse = _forward(q, k, v, causal, window, q_offset, with_lse=True)
+        ctx.mask = dict(causal=causal, window=window, q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        if lse is None:
+            raise NotImplementedError(BF16_BACKWARD)
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                         **ctx.mask)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0):
+    """q: [B,T,H,hd]; k/v: [B,S,KV,hd] -> [B,T,H,hd] (any T and S);
+    differentiable in q, k and v."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, q_offset)
+    return _forward(q, k, v, causal, window, q_offset, with_lse=False)[0]
 
 
 def sm90_smem_bytes(hd: int) -> int:

@@ -1,4 +1,5 @@
-"""Fused RMSNorm for Hopper: the CUDA kernel's wrapper and its plain version.
+"""Fused RMSNorm for Hopper: the CUDA kernels' wrappers, their autograd
+Function and their plain versions.
 
 ``rmsnorm`` launches ``csrc/rmsnorm.cu`` on a CUDA tensor and runs
 ``rmsnorm_ref`` on a CPU tensor; nothing else. The kernel replaces the
@@ -7,6 +8,12 @@ the CUDA source for what bounds it and how). It serves fp32 and bf16 at any
 d; ``plan`` picks its path for the shape: 16-byte vector loads where the
 pointers are 16-byte aligned and d a multiple of the vector, scalar loads
 otherwise, and how many threads share a row.
+
+Where grad is enabled and x or the gain requires it, the call goes through
+an ``autograd.Function`` whose backward is ``rmsnorm_bwd``: the fp32 kernels
+of ``csrc/rmsnorm_bwd.cu`` on the card, the explicit formulas of
+``rmsnorm_bwd_ref`` on CPU tensors. A bf16 backward on the card is not
+written yet and raises.
 """
 from __future__ import annotations
 
@@ -21,7 +28,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}      # ReproDtype in common.cuh
 _ARGTYPES = ((ctypes.c_void_p,) * 3
              + (ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_float)
              + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
+_BWD_ARGTYPES = ((ctypes.c_void_p,) * 6
+                 + (ctypes.c_longlong, ctypes.c_int, ctypes.c_float)
+                 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
 _MAX_GROUP = 256          # threads per row at most (one block)
+_BWD_BLOCKS_PER_SM = 4    # rows of dg partial sums stay a small share of bytes
+BF16_BACKWARD = ("the bf16 rmsnorm backward is not written yet (ROADMAP.md "
+                 "queue 2 item 3); train in fp32")
 
 
 def _pow2(n: int) -> int:
@@ -59,21 +72,37 @@ def rmsnorm_ref(x, gain, *, eps: float = 1e-6):
     return (h * torch.rsqrt(var + eps) * gain.float()).to(x.dtype)
 
 
-def rmsnorm(x, gain, *, eps: float = 1e-6):
-    """x: [..., d]; gain: [d] -> x's shape and dtype."""
-    if x.device.type == "cpu":
-        return rmsnorm_ref(x, gain, eps=eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"rmsnorm: no kernel for device {x.device}")
+def rmsnorm_bwd_ref(x, gain, dy, *, eps: float = 1e-6):
+    """Plain backward in fp32, the formulas of ``csrc/rmsnorm_bwd.cu``: with
+    r = rsqrt(mean(x^2) + eps) per row, dx = r * (g * dy) - x * r^3 *
+    mean((g * dy) * x) and dg = sum over rows of dy * x * r. Returns (dx, dg)
+    in x's and the gain's dtypes."""
+    h, dyf = x.float(), dy.float()
+    r = torch.rsqrt((h * h).mean(dim=-1, keepdim=True) + eps)
+    gdy = gain.float() * dyf
+    dx = r * gdy - h * (r * r * r) * (gdy * h).mean(dim=-1, keepdim=True)
+    dg = (dyf * h * r).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dg.to(gain.dtype)
+
+
+def _check(x, gain, name):
     d = x.shape[-1] if x.dim() else 0
     if x.dtype not in _DTYPES or gain.dtype != x.dtype:
-        raise ValueError(f"rmsnorm: x {x.dtype} and gain {gain.dtype}; takes "
+        raise ValueError(f"{name}: x {x.dtype} and gain {gain.dtype}; takes "
                          "float32 or bfloat16, both alike")
     if gain.device != x.device or gain.shape != (d,):
-        raise ValueError(f"rmsnorm: gain {tuple(gain.shape)} on {gain.device} "
+        raise ValueError(f"{name}: gain {tuple(gain.shape)} on {gain.device} "
                          f"for x {tuple(x.shape)} on {x.device}")
     if not (x.is_contiguous() and gain.is_contiguous()) or x.numel() == 0:
-        raise ValueError("rmsnorm: x and gain must be contiguous and non-empty")
+        raise ValueError(f"{name}: x and gain must be contiguous and "
+                         "non-empty")
+    return d
+
+
+def _forward(x, gain, eps):
+    if x.device.type == "cpu":
+        return rmsnorm_ref(x, gain, eps=eps)
+    d = _check(x, gain, "rmsnorm")
     out = torch.empty_like(x)
     vec, group, held = plan(x.data_ptr() | gain.data_ptr() | out.data_ptr(),
                             d, x.element_size())
@@ -86,3 +115,75 @@ def rmsnorm(x, gain, *, eps: float = 1e-6):
     build.check(code, "rmsnorm")
     build.LAUNCHES["rmsnorm"] += 1
     return out
+
+
+def bwd_blocks(rows: int, group: int, sms: int) -> int:
+    """Blocks of the backward's first kernel: at most ``_BWD_BLOCKS_PER_SM``
+    per SM, and as few as give every block the same number of row groups.
+    Each writes one fp32 row of dg partial sums."""
+    groups = -(-rows // (_MAX_GROUP // group))
+    rounds = -(-groups // (_BWD_BLOCKS_PER_SM * sms))
+    return -(-groups // rounds)
+
+
+def rmsnorm_bwd(x, gain, dy, *, eps: float = 1e-6):
+    """(dx, dg) of ``rmsnorm`` at (x, gain) for the output's gradient ``dy``.
+
+    A CPU tensor takes ``rmsnorm_bwd_ref``; an fp32 CUDA tensor the kernels
+    of ``csrc/rmsnorm_bwd.cu`` (two per call: dx with per-block dg partial
+    sums, then their sum; ``LAUNCHES["rmsnorm_bwd"]`` counts the call once);
+    a bf16 one raises ``NotImplementedError``.
+    """
+    if x.device.type == "cpu":
+        return rmsnorm_bwd_ref(x, gain, dy, eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm_bwd: no kernel for device {x.device}")
+    if x.dtype != torch.float32:
+        raise NotImplementedError(BF16_BACKWARD)
+    d = _check(x, gain, "rmsnorm_bwd")
+    if (dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device
+            or not dy.is_contiguous()):
+        raise ValueError(f"rmsnorm_bwd: dy must be a contiguous fp32 "
+                         f"{tuple(x.shape)} on {x.device}")
+    rows = x.numel() // d
+    dx = torch.empty_like(x)
+    dg = torch.empty_like(gain)
+    vec, group, _ = plan(x.data_ptr() | gain.data_ptr() | dy.data_ptr()
+                         | dx.data_ptr(), d, 4)
+    blocks = bwd_blocks(rows, group, _sm_count(x.device.index))
+    partial = torch.empty(blocks, d, dtype=torch.float32, device=x.device)
+    fn = build.function("rmsnorm_bwd", _BWD_ARGTYPES)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = fn(x.data_ptr(), gain.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                  dg.data_ptr(), partial.data_ptr(), rows, d, eps, vec, group,
+                  blocks, stream)
+    build.check(code, "rmsnorm_bwd")
+    build.LAUNCHES["rmsnorm_bwd"] += 1
+    return dx, dg
+
+
+class RMSNorm(torch.autograd.Function):
+    """The forward kernel and ``rmsnorm_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, gain, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, gain)
+        return _forward(x, gain, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gain = ctx.saved_tensors
+        dx, dg = rmsnorm_bwd(x, gain, dy.contiguous(), eps=ctx.eps)
+        return dx, dg, None
+
+
+def rmsnorm(x, gain, *, eps: float = 1e-6):
+    """x: [..., d]; gain: [d] -> x's shape and dtype; differentiable in x
+    and the gain."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"rmsnorm: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or gain.requires_grad):
+        return RMSNorm.apply(x, gain, eps)
+    return _forward(x, gain, eps)

@@ -1,6 +1,8 @@
 """Model functions of the port (decoder-only stacks: qwen3, xlstm)."""
-from .model import (decode_step, embed_tokens, forward_hidden, init_cache,
-                    init_params, lm_logits, pattern_stages, prefill)
+from .model import (decode_step, embed_tokens, forward_hidden, forward_loss,
+                    init_cache, init_params, lm_logits, pattern_stages,
+                    prefill)
 
-__all__ = ["decode_step", "embed_tokens", "forward_hidden", "init_cache",
-           "init_params", "lm_logits", "pattern_stages", "prefill"]
+__all__ = ["decode_step", "embed_tokens", "forward_hidden", "forward_loss",
+           "init_cache", "init_params", "lm_logits", "pattern_stages",
+           "prefill"]

@@ -26,6 +26,14 @@ def tree_map(fn, *trees):
     return fn(*trees)
 
 
+def tree_leaves(tree):
+    """The leaves of a tree of dicts, lists and tuples, in ``tree_map``'s
+    order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
 def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32,
             "float16": torch.float16}[name]

@@ -18,7 +18,8 @@ import torch
 
 from .blocks import (block_decode, block_forward, block_prefill, init_block,
                      init_block_cache)
-from .common import dtype_of, embed_init, matmul, rms_norm, tree_map
+from .common import (dtype_of, embed_init, matmul, rms_norm, tree_leaves,
+                     tree_map)
 
 
 def pattern_stages(cfg) -> List[Tuple[str, int]]:
@@ -44,6 +45,18 @@ def _layer(tree, i: int):
     """Layer ``i`` of a stacked stage (views, so in-place updates land in
     the stack)."""
     return tree_map(lambda x: x[i], tree)
+
+
+def _layers(tree, count: int):
+    """Every layer of a stacked stage, as views from one ``unbind`` per
+    leaf: autograd then stacks each leaf's gradient once, where indexing
+    layer by layer would add a zero-filled copy of the stack per layer."""
+    parts = [x.unbind(0) for x in tree_leaves(tree)]
+    layers = []
+    for i in range(count):
+        leaf = iter(parts)
+        layers.append(tree_map(lambda _: next(leaf)[i], tree))
+    return layers
 
 
 def init_params(cfg, generator: torch.Generator, device="cuda") -> Dict[str, Any]:
@@ -87,10 +100,31 @@ def forward_hidden(p, cfg, tokens, *, pos=None):
     h = embed_tokens(p, cfg, tokens)
     aux = torch.zeros((), device=h.device)
     for (kind, count), stage in zip(pattern_stages(cfg), p["stages"]):
-        for i in range(count):
-            h, a = block_forward(kind, _layer(stage, i), cfg, h, pos=pos)
+        for layer in _layers(stage, count):
+            h, a = block_forward(kind, layer, cfg, h, pos=pos)
             aux = aux + a
     return h, aux
+
+
+def forward_loss(p, cfg, batch):
+    """batch: {tokens [B,T], labels [B,T] (-1 = ignore)} -> (loss, metrics),
+    as ``repro/models/model.py:230-258``: bf16 logits, the next-token
+    shift, and the lse and the target logit taken in fp32 from the bf16
+    logits. Each takes its own fp32 copy, as JAX's two ``astype`` do, so
+    each path's gradient is rounded to bf16 on its own before the two are
+    added (one shared copy would add them in fp32 first)."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    h, aux = forward_hidden(p, cfg, tokens)
+    logits = lm_logits(p, cfg, h)[:, :-1]                 # [B, T-1, V] bf16
+    targets = labels[:, 1:]
+    mask = (targets >= 0).float()
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    tgt = torch.gather(logits.float(), -1,
+                       targets.clamp_min(0)[..., None].long())[..., 0]
+    nll = (lse - tgt) * mask
+    loss = nll.sum() / mask.sum().clamp_min(1.0)
+    metrics = {"nll": loss, "aux": aux, "ntokens": mask.sum()}
+    return loss + aux, metrics
 
 
 def init_cache(cfg, batch: int, seq_len: int, dtype=None, device="cuda"):

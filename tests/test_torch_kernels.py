@@ -19,6 +19,7 @@ import importlib.util
 import math
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,15 +32,20 @@ from repro.kernels.slstm_scan import slstm_scan as jax_slstm
 from repro.kernels.ssd_scan import ssd_scan as jax_ssd
 from repro.models.attention import attend_naive as jax_attend_naive
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked
+from repro.models.common import rms_norm as jax_rms_norm
+from repro_torch.kernels.rmsnorm import bwd_blocks as rmsnorm_bwd_blocks
 from repro_torch.kernels.rmsnorm import plan as rmsnorm_plan
 from repro_torch.kernels import (LAUNCHES, build, flash_attention,
+                                 flash_attention_bwd, flash_attention_bwd_ref,
                                  flash_attention_ref, ops, rmsnorm,
-                                 rmsnorm_ref, slstm_scan, slstm_scan_ref,
-                                 ssd_scan, ssd_scan_ref)
+                                 rmsnorm_bwd, rmsnorm_bwd_ref, rmsnorm_ref,
+                                 slstm_scan, slstm_scan_ref, ssd_scan,
+                                 ssd_scan_ref)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # the module (the package's ``flash_attention`` attribute is the function)
 flash_module = importlib.import_module("repro_torch.kernels.flash_attention")
+rms_module = importlib.import_module("repro_torch.kernels.rmsnorm")
 ssd_module = importlib.import_module("repro_torch.kernels.ssd_scan")
 slstm_module = importlib.import_module("repro_torch.kernels.slstm_scan")
 
@@ -614,3 +620,209 @@ def test_build_compiles_the_tensor_core_flash_kernel():
     names = {p.name for p in build.sources()}
     assert "flash_attention_sm90.cu" in names
     assert (build.CSRC / "sm90.cuh").exists()   # hashed into the library name
+
+
+# --------------------------------------------------------------------------
+# backward of flash_attention and rmsnorm (the member step's gradients)
+# --------------------------------------------------------------------------
+BWD_TOL = 2e-5        # fp32, relative to each gradient's largest magnitude
+FLASH_BWD_CASES = [   # B, T, S, H, KV, hd, window, q_offset
+    (2, 16, 16, 4, 2, 32, 0, 0),       # the sweep member's attention, GQA
+    (1, 37, 37, 4, 2, 32, 0, 0),       # ragged T
+    (1, 70, 70, 2, 1, 64, 0, 0),       # two tiles, a ragged second one
+    (1, 21, 50, 4, 2, 32, 0, 29),      # q_offset (cross lengths)
+    (1, 40, 40, 4, 4, 32, 8, 0),       # window
+    (1, 9, 9, 4, 1, 128, 0, 0),        # the full width's head_dim
+]
+
+
+@pytest.fixture
+def saved_launches():
+    """Launch counts as they were before the test, restored after it."""
+    before = LAUNCHES.copy()
+    yield LAUNCHES
+    LAUNCHES.clear()
+    LAUNCHES.update(before)
+
+
+def _rel_max(got, want):
+    """max |got - want| over max |want|."""
+    want = np.asarray(want, np.float64)
+    got = np.asarray(got, np.float64)
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+@pytest.mark.parametrize("B,T,S,H,KV,hd,window,q_offset", FLASH_BWD_CASES)
+def test_flash_bwd_ref_vs_jax_vjp(B, T, S, H, KV, hd, window, q_offset):
+    """The plain backward's explicit formulas against jax.vjp of the JAX
+    package's ``attend_naive``, on the same inputs and output gradient."""
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _inputs(
+        20, (B, T, H, hd), (B, S, KV, hd), (B, S, KV, hd), (B, T, H, hd))
+    out, vjp = jax.vjp(lambda q, k, v: jax_attend_naive(
+        q, k, v, causal=True, window=window, q_offset=q_offset), jq, jk, jv)
+    want = vjp(jdo)
+    o, lse = flash_attention_ref(tq, tk, tv, window=window, q_offset=q_offset,
+                                 with_lse=True)
+    _close(o, out, TOL["float32"])
+    assert lse.shape == (B, H, T) and torch.isfinite(lse).all()
+    got = flash_attention_bwd_ref(tq, tk, tv, o, lse, tdo, window=window,
+                                  q_offset=q_offset)
+    for g, w, t in zip(got, want, (tq, tk, tv)):
+        assert g.shape == t.shape and g.dtype == torch.float32
+        assert _rel_max(g.numpy(), w) < BWD_TOL
+
+
+@pytest.mark.parametrize("B,T,S,H,KV,hd,window,q_offset",
+                         FLASH_BWD_CASES + [(1, 8, 8, 2, 1, 32, 0, -3)])
+def test_flash_function_cpu_vs_autograd_of_plain(B, T, S, H, KV, hd, window,
+                                                 q_offset, saved_launches):
+    """On CPU tensors the autograd Function runs the plain forward and the
+    plain backward; its gradients equal autograd's through the plain
+    forward, rows with no visible key (q_offset < 0) included, and it
+    launches nothing."""
+    _, tensors = _inputs(21, (B, T, H, hd), (B, S, KV, hd), (B, S, KV, hd),
+                         (B, T, H, hd))
+    q, k, v, do = tensors
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    saved_launches.clear()
+    out = ops.attention(*leaves, **kw)
+    got = torch.autograd.grad(out, leaves, do)
+    assert sum(saved_launches.values()) == 0
+    want_out = flash_attention_ref(*ref_leaves, **kw)
+    want = torch.autograd.grad(want_out, ref_leaves, do)
+    assert torch.equal(out.detach(), want_out.detach())
+    for g, w in zip(got, want):
+        assert _rel_max(g.numpy(), w.numpy()) < BWD_TOL
+    if q_offset < 0:                       # rows 0..2 see no key
+        assert torch.all(got[0][:, :-q_offset] == 0)
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 128), (2, 16, 4, 32), (3, 1024),
+                                   (5, 100)])
+def test_rmsnorm_bwd_ref_vs_jax_vjp(shape):
+    """dx and dg of the explicit formulas against jax.vjp of the JAX
+    package's ``rms_norm``, at the member step's widths (d_model 128, head
+    dim 32), the full width's 1024 and a tail."""
+    d = shape[-1]
+    (jx, jdy), (tx, tdy) = _inputs(22, shape, shape)
+    g = (1 + 0.1 * np.random.default_rng(23).standard_normal(d)).astype(
+        np.float32)
+    _, vjp = jax.vjp(lambda x, g_: jax_rms_norm(x, g_, 1e-6), jx,
+                     jnp.asarray(g))
+    want_dx, want_dg = vjp(jdy)
+    dx, dg = rmsnorm_bwd_ref(tx, torch.from_numpy(g), tdy, eps=1e-6)
+    assert dx.shape == tx.shape and dg.shape == (d,)
+    assert _rel_max(dx.numpy(), want_dx) < BWD_TOL
+    assert _rel_max(dg.numpy(), want_dg) < BWD_TOL
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 128), (2, 16, 4, 32), (7, 100)])
+def test_rmsnorm_function_cpu_vs_autograd_of_plain(shape, saved_launches):
+    d = shape[-1]
+    _, (x, dy, g) = _inputs(24, shape, shape, (d,))
+    g = 1 + 0.1 * g
+    leaves = [x.clone().requires_grad_(True), g.clone().requires_grad_(True)]
+    ref_leaves = [x.clone().requires_grad_(True),
+                  g.clone().requires_grad_(True)]
+    saved_launches.clear()
+    out = ops.norm(*leaves, eps=1e-6)
+    got = torch.autograd.grad(out, leaves, dy)
+    assert sum(saved_launches.values()) == 0
+    want_out = rmsnorm_ref(*ref_leaves, eps=1e-6)
+    want = torch.autograd.grad(want_out, ref_leaves, dy)
+    assert torch.equal(out.detach(), want_out.detach())
+    for got_t, want_t in zip(got, want):
+        assert _rel_max(got_t.numpy(), want_t.numpy()) < BWD_TOL
+
+
+def test_no_grad_calls_skip_the_functions():
+    """Serving (no input requires grad) calls the forward directly, as
+    before the backward existed; the Functions are used only for grads."""
+    _, (q, k, v, x) = _inputs(25, (1, 9, 4, 32), (1, 9, 2, 32),
+                              (1, 9, 2, 32), (3, 128))
+    assert flash_attention(q, k, v).grad_fn is None
+    assert rmsnorm(x, torch.ones(128)).grad_fn is None
+    q.requires_grad_(True)
+    x.requires_grad_(True)
+    assert type(flash_attention(q, k, v).grad_fn).__name__ == \
+        "FlashAttentionBackward"
+    assert type(rmsnorm(x, torch.ones(128)).grad_fn).__name__ == \
+        "RMSNormBackward"
+    with torch.no_grad():
+        assert flash_attention(q, k, v).grad_fn is None
+
+
+def test_backward_wrappers_raise_on_other_devices():
+    q = torch.empty(1, 8, 4, 32, device="meta")
+    lse = torch.empty(1, 4, 8, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        flash_attention_bwd(q, q, q, q, lse, q)
+    with pytest.raises(ValueError, match="no kernel"):
+        rmsnorm_bwd(q, torch.empty(32, device="meta"), q)
+
+
+@pytest.mark.parametrize("entry,source,argtypes", [
+    ("flash_attention_fwd", "flash_attention.cu",
+     flash_module._ARGTYPES["flash_attention_fwd"]),
+    ("flash_attention_sm90_fwd", "flash_attention_sm90.cu",
+     flash_module._ARGTYPES["flash_attention_sm90_fwd"]),
+    ("flash_attention_bwd", "flash_attention_bwd.cu",
+     flash_module._BWD_ARGTYPES),
+    ("rmsnorm_fwd", "rmsnorm.cu", rms_module._ARGTYPES),
+    ("rmsnorm_bwd", "rmsnorm_bwd.cu", rms_module._BWD_ARGTYPES),
+])
+def test_c_entries_take_what_the_wrappers_pass(entry, source, argtypes):
+    """Each C entry is defined by its source and takes as many arguments as
+    its wrapper declares (ctypes would not notice a mismatch)."""
+    assert source in {p.name for p in build.sources()}
+    assert _c_params((build.CSRC / source).read_text(), entry) == len(argtypes)
+
+
+def test_backward_kernels_are_deterministic_and_write_lse():
+    """No float atomics in the backward kernels (fixed summation order),
+    and the fp32 forward writes +inf lse for a row with no visible key."""
+    for name in ("flash_attention_bwd.cu", "rmsnorm_bwd.cu"):
+        code = "\n".join(line.split("//")[0] for line in
+                         (build.CSRC / name).read_text().splitlines())
+        assert "atomic" not in code
+    fwd = (build.CSRC / "flash_attention.cu").read_text()
+    assert "l[rr] == 0.f ? CUDART_INF_F : m[rr] + logf(l[rr])" in fwd
+
+
+@pytest.mark.parametrize("rows,d,sms", [(2048, 1024, 132), (32768, 128, 132),
+                                        (256, 32, 132), (1, 128, 132),
+                                        (1000, 100, 4)])
+def test_rmsnorm_bwd_blocks(rows, d, sms):
+    """At most 4 blocks per SM, each with the same number of row groups
+    (to one), every row group covered."""
+    _, group, _ = rmsnorm_plan(0, d, 4)
+    per_block = 256 // group
+    groups = -(-rows // per_block)
+    blocks = rmsnorm_bwd_blocks(rows, group, sms)
+    assert 1 <= blocks <= min(groups, 4 * sms)
+    rounds = -(-groups // blocks)
+    assert blocks * rounds >= groups and (blocks - 1) * rounds < groups
+
+
+def test_flash_bwd_check_sees_a_dropped_key_tile():
+    """``chip_smoke.py``'s gradient check at a member-step shape: the plain
+    backward passes it against autograd of the plain forward, and the same
+    backward run without the first 64 keys (q_offset -64) fails it."""
+    smoke = _chip_smoke()
+    _, (q, k, v, do) = _inputs(26, (1, 137, 4, 32), (1, 137, 2, 32),
+                               (1, 137, 2, 32), (1, 137, 4, 32))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_ref(*leaves), leaves, do)
+    o, lse = flash_attention_ref(q, k, v, with_lse=True)
+    got = flash_attention_bwd_ref(q, k, v, o, lse, do)
+    smoke.check_grads("flash_attention_bwd", "T=137", got, want)
+    o, lse = flash_attention_ref(q, k[:, 64:], v[:, 64:], q_offset=-64,
+                                 with_lse=True)
+    dq, dk, dv = flash_attention_bwd_ref(q, k[:, 64:], v[:, 64:], o, lse, do,
+                                         q_offset=-64)
+    pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 0, 64, 0))
+    with pytest.raises(RuntimeError, match="disagrees with autograd"):
+        smoke.check_grads("flash_attention_bwd", "T=137, first tile dropped",
+                          (dq, pad(dk), pad(dv)), want)
