@@ -8,7 +8,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Identify the card (nvidia-smi name and power limit, torch and CUDA).
 2. Build the hand-written kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, all at once); log ptxas's registers, shared memory
-   and spills, and the tensor-core flash kernel's dynamic shared memory.
+   and spills, the tensor-core flash kernel's dynamic shared memory, and the
+   flash backward kernels' shared memory and blocks per SM.
 3. The serve paths' bf16 GEMMs (prefill and decode rows) against the fp32
    product of the same operands rounded to bf16, with
    ``allow_bf16_reduced_precision_reduction`` at its default and False:
@@ -37,8 +38,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    backward kernels, in fp32, against autograd of the plain versions, each
    gradient within 1e-4 of its largest magnitude: flash_attention_bwd (hd 32
    and 128, GQA group 2, causal, T = 32 / 137 / 512 / 1000 with B.T >= 2048
-   at the larger T, one q_offset > 0 and one window case; the fp32 forward's
-   output beside it; a run without the first key tile must fail the check)
+   at the larger T, one q_offset > 0 and one window case, one hd 64 case;
+   the fp32 forward's output beside it; a run without the first key tile
+   must fail the check; two calls at T=512 and T=137, hd 128, must give the
+   same bits; the delta, dk/dv and dq kernels also timed apart)
    and rmsnorm_bwd (every norm shape of both training paths and a view off
    16-byte alignment, the scalar path); a bf16 backward must raise. Each is
    timed beside its bound, its plain backward and the backward of
@@ -73,7 +76,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      256): one step held against its plain step as above, then 16
      members x 5 steps on ``SyntheticLM(256, 32, 8, seed=0)`` at
      lr ``np.geomspace(1e-4, 3e-2, 16)``, one after another, with exactly
-     4 / 4 / 17 / 17 launches per step.
+     4 / 4 / 17 / 17 launches per step; then 20 ticks of a 2-slot engine
+     on the last member's trained params: no param leaf requires grad, no
+     cache leaf carries autograd state, and the tokens equal an engine's on
+     a detached copy.
 6. Print the kernels' JSON line (the fp32 forward and both backward kernels
    with their training launches beside the serving kernels), the card
    line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -107,7 +113,8 @@ from repro_torch.kernels import (LAUNCHES, build, flash_attention,  # noqa: E402
                                  rmsnorm_bwd, rmsnorm_bwd_ref, rmsnorm_ref,
                                  slstm_scan, slstm_scan_ref, ssd_scan,
                                  ssd_scan_ref)
-from repro_torch.kernels.flash_attention import sm90_smem_bytes  # noqa: E402
+from repro_torch.kernels.flash_attention import (bwd_occupancy,  # noqa: E402
+                                                  sm90_smem_bytes)
 from repro_torch.kernels.rmsnorm import plan as rmsnorm_plan  # noqa: E402
 from repro_torch.kernels.slstm_scan import (slstm_max_clusters,  # noqa: E402
                                             slstm_plan)
@@ -115,7 +122,7 @@ from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
 from repro_torch.launch.sweep import (build_member_step,  # noqa: E402
                                       loss_and_grads, member_config,
                                       to_batch)
-from repro_torch.models.common import tree_map  # noqa: E402
+from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
 from repro_torch.optim import adamw_init, adamw_update  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
@@ -476,8 +483,10 @@ FLASH_BWD_CASES = [   # B, T, S, H, KV, hd, window, q_offset
       for B, T in ((8, 32), (2, 137), (4, 512), (3, 1000))],
     (1, 100, 300, 16, 8, 128, 0, 200),     # q_offset > 0
     (2, 512, 512, 4, 2, 32, 128, 0),       # window
+    (2, 200, 200, 8, 2, 64, 0, 0),         # hd 64, GQA group 4
 ]
 FLASH_BWD_REPORT = (4, 512, 16, 8, 128)    # B, T, H, KV, hd: the member step
+FLASH_BWD_REPEAT = ((4, 512, 16, 8, 128), (2, 137, 16, 8, 128))  # bit-identical
 RMS_BWD_REPORT = "rows=2048 d=1024"                    # ln1 / ln2 / final
 
 
@@ -558,6 +567,8 @@ def check_flash_bwd(gen):
         fwd_err = compare("flash_attention", f"{name}, forward with lse",
                           (out,), (ref_out,))
         err = check_grads("flash_attention_bwd", name, got, want)
+        if (B, T, H, KV, hd) in FLASH_BWD_REPEAT:
+            check_flash_bwd_repeats(q, k, v, do, name)
         if (B, T, H, KV, hd) == FLASH_BWD_REPORT:
             rows = time_flash_bwd(q, k, v, do, err, fwd_err)
         if (B, T, hd, window, off) == (2, 137, 128, 0, 0):
@@ -572,6 +583,38 @@ def check_flash_bwd(gen):
     else:
         require(False, "a bf16 flash backward ran on the card")
     return rows
+
+
+def check_flash_bwd_repeats(q, k, v, do, name):
+    """Two calls of the backward kernels on the same inputs give the same
+    bits: every gradient element is summed in a fixed order."""
+    o, lse = flash_attention_ref(q, k, v, with_lse=True)
+    o = o.contiguous()
+    first = flash_attention_bwd(q, k, v, o, lse, do)
+    second = flash_attention_bwd(q, k, v, o, lse, do)
+    same = [torch.equal(a, b) for a, b in zip(first, second)]
+    log(f"flash_attention_bwd {name}: two calls bit-identical in dq, dk, dv: "
+        f"{same}")
+    require(all(same), f"flash_attention_bwd is not deterministic: {name}")
+
+
+def device_ms_by_kernel(fn, iters: int) -> dict:
+    """Device ms per call of each kernel ``fn`` launches, summed by name
+    over a profiler trace of ``iters`` calls after three warm-up calls."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    times = Counter()
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            times[e.key] += e.self_device_time_total / 1e3 / iters
+    return times
 
 
 def check_flash_bwd_dropped_tile(q, k, v, do, want):
@@ -618,6 +661,24 @@ def time_flash_bwd(q, k, v, do, err, fwd_err):
         "bound_ms": max(bound.values()),
         "shape": f"B={B} T=S={T} H={H} KV={KV} hd={hd} fp32 causal",
     }
+    by_name = device_ms_by_kernel(kernel, 20)
+    row["split_ms"] = {part: sum(ms for key, ms in by_name.items()
+                                 if f"flash_bwd_{part}_kernel" in key)
+                       for part in ("delta", "dkdv", "dq")}
+    # the kernels run 64 x 64 tiles: 4 products per visible tile pair in
+    # dk/dv (S, dP, dv, dk), 3 in dq (S, dP, dq)
+    n = -(-T // 64)
+    tile_flops = 2 * 64 * 64 * hd * n * (n + 1) // 2 * B * H
+    split = row["split_ms"]
+    log(f"  backward kernels apart, device ms per call (profiler, 20 calls): "
+        f"delta {split['delta']:.4f}, dk/dv {split['dkdv']:.4f} "
+        f"({4 * tile_flops / split['dkdv'] / 1e9:.1f} TFLOP/s on its tile "
+        f"products), dq {split['dq']:.4f} "
+        f"({3 * tile_flops / split['dq'] / 1e9:.1f} TFLOP/s); sum "
+        f"{sum(split.values()):.4f}; all kernels of the call "
+        f"{sum(by_name.values()):.4f}")
+    require(all(ms > 0 for ms in split.values()),
+            f"a backward kernel is missing from the trace: {dict(by_name)}")
     fwd_bound = {"operations": flops / 2.5 / PEAK_F32 * 1e3,
                  "bytes": 4 * (2 * q.numel() + 2 * k.numel()) / HBM * 1e3}
     fwd = {
@@ -1258,6 +1319,40 @@ def train_full_width():
     return dict(launches), metrics
 
 
+SERVE_TRAINED_TICKS = 20
+
+
+def check_serving_trained(cfg, params, device="cuda"):
+    """Serve params straight from training (2 slots, prompts of 9 and 23
+    tokens, 40 new tokens each, ``SERVE_TRAINED_TICKS`` ticks): no param
+    leaf requires grad, no cache leaf has a ``grad_fn`` (the engine records
+    no graph), and the tokens equal an engine's on a detached copy."""
+    require(not any(t.requires_grad for t in tree_leaves(params)),
+            "a param leaf requires grad after a member step")
+
+    def run(p):
+        eng = ServeEngine(cfg, p, slots=2, max_seq=128, device=device)
+        rng = np.random.default_rng(0)
+        for n in (9, 23):
+            eng.submit(rng.integers(0, cfg.vocab_size, n), max_new=40)
+        reqs = list(eng.queue)
+        for _ in range(SERVE_TRAINED_TICKS):
+            eng.tick()
+        return [list(r.tokens) for r in reqs], eng.cache
+
+    tokens, cache = run(params)
+    leaves = tree_leaves(cache)
+    graphs = sum(t.grad_fn is not None or t.requires_grad for t in leaves)
+    want, _ = run(clone_tree(params))
+    log(f"serve after training: {SERVE_TRAINED_TICKS} ticks, "
+        f"{sum(map(len, tokens))} tokens; {graphs} of {len(leaves)} cache "
+        f"leaves carry autograd state; tokens "
+        f"{'equal' if tokens == want else 'DIFFER from'} those of an engine "
+        "on a detached copy")
+    require(graphs == 0, "serving trained params recorded an autograd graph")
+    require(tokens == want, "serving trained params changed the tokens")
+
+
 def train_sweep():
     """The sweep's own member (``member_config``: 4 ATTN layers, hd 32,
     vocab 256, fp32): ``SWEEP_MEMBERS`` members of ``SWEEP_STEPS`` steps on
@@ -1299,6 +1394,7 @@ def train_sweep():
             "finite")
     require(min(finals) < math.log(cfg.vocab_size),
             "no member's loss fell below the uniform guess")
+    check_serving_trained(cfg, params)
     return launches, {"members": SWEEP_MEMBERS, "steps": SWEEP_STEPS,
                       "wall_s": wall, "final_losses": finals}
 
@@ -1325,6 +1421,15 @@ def main():
             log(f"  {line.strip()}")
     log("flash_fwd_sm90_kernel dynamic shared memory per block: " + ", ".join(
         f"hd={hd} {sm90_smem_bytes(hd)} bytes" for hd in (32, 64, 128)))
+    for hd in (32, 64, 128):
+        occ = bwd_occupancy(hd)
+        log(f"flash_attention_bwd hd={hd}: dk/dv kernel "
+            f"{occ['dkdv_smem_bytes']} bytes of shared memory, "
+            f"{occ['dkdv_blocks_per_sm']} block(s) of 16 warps per SM; dq "
+            f"kernel {occ['dq_smem_bytes']} bytes, "
+            f"{occ['dq_blocks_per_sm']} block(s) per SM")
+        require(min(occ["dkdv_blocks_per_sm"], occ["dq_blocks_per_sm"]) >= 1,
+                f"a flash backward kernel does not fit an SM at hd={hd}")
 
     check_splitk(torch.Generator("cuda").manual_seed(1))    # phase 3
 

@@ -7,8 +7,8 @@
 // through its jnp attention instead. This is the backward of the port's own
 // forward (flash_attention.cu), in the same contract: q [B,T,H,hd], k/v
 // [B,S,KV,hd], query row t at absolute position t + q_offset, KV head =
-// q head / (H/KV), scale 1/sqrt(hd), causal and window masks, any T and S.
-// With s = scale * q.k and P = exp(s - lse):
+// q head / (H/KV), scale 1/sqrt(hd), causal and window masks, any T and S,
+// hd 32, 64 or 128. With s = scale * q.k and P = exp(s - lse):
 //   D  = rowsum(do * o)                  (flash_bwd_delta_kernel)
 //   dv = P^T do,  dS = P * (do v^T - D)
 //   dk = scale * dS^T q                  (flash_bwd_dkdv_kernel)
@@ -25,13 +25,38 @@
 //   stays in the block's registers.
 // - dq: one block per (batch * head, 64-row query tile), looping over the key
 //   tiles its rows can see, as the forward does.
-// Each recomputes S and dP (the dq kernel does not store P); the work is
-// ~3.5x the forward's two products where the least is 2.5x.
+// Each recomputes S and dP: 7 tile products where a backward needs 5 (dq
+// could be summed per key tile in the dk/dv pass instead, at T^2/64 floats
+// of scratch: a later lever).
 //
 // What bounds it on the H100: operations. In fp32 there are no tensor cores
 // to use (TF32 would not hold fp32's tolerance), so the bound is 67 TFLOP/s
-// of FMAs. Every product is built from 4 x (hd/16 or 4) register micro-tiles
-// read out of padded (bank-conflict-free) shared memory, as in the forward.
+// of FMAs, 128 a clock per SM: the FMA issue alone fills every scheduler,
+// so every other instruction, and every stall, is lost FMA time. The design:
+// - Loads never stall a product. Tiles come in by cp.async, 16 bytes a
+//   thread, double-buffered: the next q/do tile (dk/dv) or k/v tile (dq) is
+//   in flight while the current one's products run.
+// - 16-byte shared loads without bank conflicts. q and do tiles are stored
+//   unpadded with each 16-byte chunk of row r at chunk c ^ (r & 7); k and v
+//   rows are padded to hd + 4 floats. So a float4 read along the rows of
+//   several threads (the q.k and do.v products) and one read along a single
+//   row (the P^T do, dS^T q and dS k products) both hit distinct banks.
+//   Each thread reads float4 operands into 4x4 (q.k, do.v, and dS k at hd
+//   128) or 8x4 (P^T do, dS^T q at hd 128) register micro-tiles: 2 or 2.7
+//   FMAs per word it loads. The lanes of a warp form a 4 x 8 grid over the
+//   micro-tiles, so a warp's load has at most 128 distinct bytes and costs
+//   one shared-memory wavefront: 8 to 10.7 FMAs per wavefront, above the 4
+//   that keep the FMA pipes fed.
+// - 16 warps per block, one block per SM (227 KB of shared memory at hd 128
+//   for dk/dv: k, v, two q and two do buffers, P and dS; 212.5 KB for dq),
+//   128 registers a thread and no spills. The two halves of a block split
+//   each step: warps 0-7 make S (then P and dv), warps 8-15 dP (then dk),
+//   so no thread holds more than one accumulator of 32 floats, and no
+//   kernel reserves a tile it does not use.
+// - Heaviest tiles first: the grids put the tile index in y, so the block
+//   scheduler starts every key tile 0 (the most query tiles under the causal
+//   mask) before any key tile 1, and every last query tile before the
+//   others, and the lighter tiles fill the SMs that finish early.
 
 #include "common.cuh"
 
@@ -39,22 +64,47 @@ namespace {
 
 constexpr int BQ = 64;                   // query rows per tile
 constexpr int BK = 64;                   // keys per tile
-constexpr int NT = 256;                  // threads per block: a 16 x 16 grid
+constexpr int NT = 512;                  // threads per block: 16 warps
 constexpr int WARPS = NT / 32;
 
+// 64 x HD tiles of q and do: row r's 16-byte chunk c sits at chunk c ^ (r & 7).
+// Returns the float offset of column col (a multiple of 4).
 template <int HD>
-struct Layout {                          // shared-memory layout, in floats
-    static constexpr int RS = HD + 1;    // padded row stride of q, do, k, v tiles
-    static constexpr int SS = BK + 1;    // padded row stride of P and dS tiles
-    static constexpr int q = 0;
-    static constexpr int dout = q + BQ * RS;
-    static constexpr int k = dout + BQ * RS;
-    static constexpr int v = k + BK * RS;
-    static constexpr int p = v + BK * RS;
-    static constexpr int ds = p + BQ * SS;
-    static constexpr int lse = ds + BQ * SS;
-    static constexpr int delta = lse + BQ;
-    static constexpr size_t bytes = (delta + BQ) * sizeof(float);
+__device__ __forceinline__ int q_at(int r, int col) {
+    return r * HD + (((col >> 2) ^ (r & 7)) << 2);
+}
+
+// k and v tiles: rows padded to HD + 4 floats, so consecutive rows start 4
+// banks apart (8 rows read at one column hit 32 banks) and a thread's k and
+// v rows are read at constant offsets.
+template <int HD>
+constexpr int KS = HD + 4;
+
+// 64 x 64 score tiles. [i][j] (P and dS of the dk/dv kernel): column j at
+// j ^ 8 (i & 3); [j][i] (dS^T of the dq kernel): column i at i ^ 4 (j & 7).
+// Both keep 4-float groups together and let the phase-B stores of a warp
+// (4 rows x 8 columns of the S grid) hit 32 banks.
+__device__ __forceinline__ int p_at(int i, int j) { return i * BK + (j ^ ((i & 3) << 3)); }
+__device__ __forceinline__ int dst_at(int j, int i) { return j * BQ + (i ^ ((j & 7) << 2)); }
+
+template <int HD>
+struct DkdvLayout {                      // shared memory, in floats
+    static constexpr int qtile = BQ * HD, ktile = BK * KS<HD>;
+    static constexpr int k = 0, v = ktile;
+    static constexpr int q = 2 * ktile, dout = q + 2 * qtile;  // 2 buffers each
+    static constexpr int p = dout + 2 * qtile, ds = p + BQ * BK;
+    static constexpr int stats = ds + BQ * BK;  // 2 buffers of lse[64], D[64]
+    static constexpr size_t bytes = (stats + 4 * BQ) * sizeof(float);  // 227 KB at hd 128
+};
+
+template <int HD>
+struct DqLayout {
+    static constexpr int qtile = BQ * HD, ktile = BK * KS<HD>;
+    static constexpr int q = 0, dout = qtile;
+    static constexpr int k = 2 * qtile, v = k + 2 * ktile;     // 2 buffers each
+    static constexpr int dst = v + 2 * ktile;
+    static constexpr int stats = dst + BQ * BK;  // lse[64], D[64]
+    static constexpr size_t bytes = (stats + 2 * BQ) * sizeof(float);
 };
 
 struct Mask {
@@ -66,76 +116,149 @@ struct Mask {
     }
     // The forward's tile-level pruning: no (row, key) pair of the two tiles
     // is visible.
-    __device__ __forceinline__ bool skip(int q0, int rows, int k0) const {
+    __device__ __forceinline__ bool skip(int q0, int k0) const {
+        const int rows = min(BQ, T_len - q0);
         const int q_first = q0 + q_offset, q_last = q0 + rows - 1 + q_offset;
         const int k_last = min(k0 + BK, S_len) - 1;
         return (causal && k0 > q_last) || (window > 0 && k_last <= q_first - window);
     }
 };
 
-// rows x HD floats from global (row stride `stride`) into shared memory
-// (row stride RS); rows past `valid` are zero.
-template <int HD>
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+                 "r"(valid ? 16 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+                 "r"(valid ? 4 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// 64 rows x HD floats from global (row stride `stride`) into a q/do tile
+// (swizzled) or a k/v tile (PADDED), by cp.async; rows past `valid` are
+// zero-filled (nothing is read).
+template <int HD, bool PADDED>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, long long stride,
                                           int valid) {
-    for (int i = threadIdx.x; i < 64 * HD; i += NT) {
-        const int r = i / HD, c = i % HD;
-        dst[r * Layout<HD>::RS + c] = r < valid ? src[r * stride + c] : 0.f;
+    constexpr int CH = HD / 4;
+#pragma unroll
+    for (int id = threadIdx.x; id < 64 * CH; id += NT) {
+        const int r = id / CH, c = id % CH;
+        const bool ok = r < valid;
+        cp_async16(dst + (PADDED ? r * KS<HD> + 4 * c : q_at<HD>(r, 4 * c)),
+                   ok ? src + r * stride + 4 * c : src, ok);
     }
 }
 
-// acc[r][c] += sum_d A[4ty + r][d] * B[tx + 16c][d]: a 64 x 64 product of
-// two row-major tiles, each thread making a 4 x 4 micro-tile.
+// lse[64] then D[64] of a query tile's rows; rows past `rows` are zero
+// (the mask gives them no weight).
+__device__ __forceinline__ void load_row_stats(float* dst, const float* lse, const float* delta,
+                                               int rows) {
+    const int t = threadIdx.x;
+    if (t < 2 * BQ) {
+        const int r = t % BQ;
+        const float* src = t < BQ ? lse : delta;
+        cp_async4(dst + t, r < rows ? src + r : src, r < rows);
+    }
+}
+
+// acc[r][c] += sum_d A[ty + 16r][d] * B[tx + 16c][d], A a q/do tile, B a
+// k/v tile: a 64 x 64 product by the 256 threads of one half, 4 x 4 each.
+// The lanes read the same d-chunk at once: the swizzle spreads A's 4 rows,
+// the padding B's 8, over the banks. The thread's A rows share one swizzle
+// (16r = 0 mod 8). B is read one row at a time, which keeps the product
+// within 128 registers without spills.
 template <int HD>
 __device__ __forceinline__ void rows_dot_rows(float (&acc)[4][4], const float* A,
                                               const float* Bm, int ty, int tx) {
-    constexpr int RS = Layout<HD>::RS;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-        float a[4], b[4];
+    const float* a_row = A + ty * HD;
+    const int sa4 = (ty & 7) << 2;
+    const float* b_row = Bm + tx * KS<HD>;
+#pragma unroll 2
+    for (int m = 0; m < HD / 32; ++m) {
 #pragma unroll
-        for (int r = 0; r < 4; ++r) a[r] = A[(4 * ty + r) * RS + d];
+        for (int u = 0; u < 8; ++u) {
+            float4 a[4];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) b[c] = Bm[(tx + 16 * c) * RS + d];
+            for (int r = 0; r < 4; ++r)
+                a[r] = *reinterpret_cast<const float4*>(a_row + ((u << 2) ^ sa4) + 16 * r * HD +
+                                                        32 * m);
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+            for (int c = 0; c < 4; ++c) {
+                const float4 b =
+                    *reinterpret_cast<const float4*>(b_row + 16 * c * KS<HD> + 32 * m + 4 * u);
 #pragma unroll
-            for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-    }
-}
-
-// S = q k^T and dP = do v^T for a (query tile, key tile) pair, then
-// P = exp(scale * S - lse) and dS = P * (dP - D) where visible (else 0), at
-// rows 4ty + r, keys tx + 16c. The caller stores what it needs.
-template <int HD>
-__device__ __forceinline__ void scores(float (&p)[4][4], float (&ds)[4][4], const float* smem,
-                                       const Mask& mask, int q0, int k0, float scale, int ty,
-                                       int tx) {
-    using L = Layout<HD>;
-    float s[4][4] = {}, dp[4][4] = {};
-    rows_dot_rows<HD>(s, smem + L::q, smem + L::k, ty, tx);
-    rows_dot_rows<HD>(dp, smem + L::dout, smem + L::v, ty, tx);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-        const int row = 4 * ty + r;
-        const float lse = smem[L::lse + row], delta = smem[L::delta + row];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-            const bool ok = mask.visible(q0 + row, k0 + tx + 16 * c);
-            p[r][c] = ok ? expf(s[r][c] * scale - lse) : 0.f;
-            ds[r][c] = p[r][c] * (dp[r][c] - delta);
+                for (int r = 0; r < 4; ++r) {
+                    float x = acc[r][c];
+                    x = fmaf(a[r].x, b.x, x);
+                    x = fmaf(a[r].y, b.y, x);
+                    x = fmaf(a[r].z, b.z, x);
+                    acc[r][c] = fmaf(a[r].w, b.w, x);
+                }
+            }
         }
     }
 }
 
-// lse and D of the query tile's rows; rows past T get no weight.
-template <int HD>
-__device__ __forceinline__ void load_row_stats(float* smem, const float* lse,
-                                               const float* delta, int rows) {
-    using L = Layout<HD>;
-    for (int r = threadIdx.x; r < BQ; r += NT) {
-        smem[L::lse + r] = r < rows ? lse[r] : CUDART_INF_F;
-        smem[L::delta + r] = r < rows ? delta[r] : 0.f;
+// N contiguous floats (N = 1, 2, 4 or 8; 4-aligned groups stay together in
+// every layout here) from shared memory.
+template <int N>
+__device__ __forceinline__ void load_vec(float (&out)[N], const float* src) {
+    if constexpr (N == 1) {
+        out[0] = src[0];
+    } else if constexpr (N == 2) {
+        const float2 x = *reinterpret_cast<const float2*>(src);
+        out[0] = x.x, out[1] = x.y;
+    } else {
+#pragma unroll
+        for (int h = 0; h < N / 4; ++h) {
+            const float4 x = *reinterpret_cast<const float4*>(src + 4 * h);
+            out[4 * h] = x.x, out[4 * h + 1] = x.y, out[4 * h + 2] = x.z, out[4 * h + 3] = x.w;
+        }
+    }
+}
+
+// acc[m][n] += sum_k A[k][a0 + m] * B[k][4 td + n], k = 0..63: A a score
+// tile (P, dS: [i][j] with j at j ^ 8 (i & 3); TRANSPOSED, dS^T: [j][i]
+// with i at i ^ 4 (j & 7)), B a q/do tile or (PADDED) a k tile. All lanes
+// read row k together, so every load is of one row.
+template <int HD, int M, bool TRANSPOSED, bool PADDED>
+__device__ __forceinline__ void cols_by_rows(float (&acc)[M][4], const float* A, const float* Bm,
+                                             int a0, int td) {
+    constexpr int BS = PADDED ? KS<HD> : HD;
+    int oa[8], ob[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+        oa[u] = u * 64 + (TRANSPOSED ? (a0 ^ (u << 2)) : (a0 ^ ((u & 3) << 3)));
+        ob[u] = u * BS + (PADDED ? 4 * td : (td ^ u) << 2);
+    }
+#pragma unroll 2
+    for (int k8 = 0; k8 < 64; k8 += 8) {
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+            float a[M];
+            load_vec<M>(a, A + oa[u] + k8 * 64);
+            const float4 b = *reinterpret_cast<const float4*>(Bm + ob[u] + k8 * BS);
+#pragma unroll
+            for (int m = 0; m < M; ++m) {
+                acc[m][0] = fmaf(a[m], b.x, acc[m][0]);
+                acc[m][1] = fmaf(a[m], b.y, acc[m][1]);
+                acc[m][2] = fmaf(a[m], b.z, acc[m][2]);
+                acc[m][3] = fmaf(a[m], b.w, acc[m][3]);
+            }
+        }
     }
 }
 
@@ -159,184 +282,287 @@ flash_bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ do
     }
 }
 
+// blockIdx.x, read anew at each use: the offsets derived from it are
+// recomputed (a few integer instructions a pass) rather than held in
+// registers through the pass loop, which leaves the products 128 registers
+// a thread without spills.
+__device__ __forceinline__ int block_x() {
+    int x;
+    asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(x));
+    return x;
+}
+
+// The first pass at or after p (pass = group head * nq + query tile) whose
+// query tile sees a key of the tile at k0; n_pass when none is left.
+__device__ __forceinline__ int next_pass(int p, int n_pass, int nq, const Mask& mask, int k0) {
+    while (p < n_pass && mask.skip((p % nq) * BQ, k0)) ++p;
+    return p;
+}
+
 template <int HD>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
 flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       float* __restrict__ dk, float* __restrict__ dv, int H, int KV,
                       Mask mask, float scale) {
-    using L = Layout<HD>;
-    constexpr int DPT = HD / 16;         // output dims per thread
-    extern __shared__ float smem[];
-    const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-    const int b = blockIdx.y / KV, kvh = blockIdx.y % KV, group = H / KV;
+    using L = DkdvLayout<HD>;
+    constexpr int M = HD / 16;           // keys per thread in the dv / dk product
+    extern __shared__ __align__(16) float smem[];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int role = warp >> 3, rw = warp & 7;  // role 0: S, P, dv; role 1: dP, dS, dk
+    const int ty = (rw >> 1) * 4 + (lane >> 3), tx = (rw & 1) * 8 + (lane & 7);
+    const int tj = (rw / (HD / 32)) * 4 + (lane >> 3), td = (rw % (HD / 32)) * 8 + (lane & 7);
     const int T_len = mask.T_len, S_len = mask.S_len;
-    const int k0 = blockIdx.x * BK, keys = min(BK, S_len - k0);
+    const int k0 = blockIdx.y * BK, nq = (T_len + BQ - 1) / BQ, n_pass = (H / KV) * nq;
     const long long q_stride = static_cast<long long>(H) * HD;
     const long long kv_stride = static_cast<long long>(KV) * HD;
-    const long long kv_off = (static_cast<long long>(b) * S_len + k0) * kv_stride + kvh * HD;
+    auto kv_off = [&]() {                // of key k0 in k, v, dk and dv
+        const int bx = block_x();
+        return (static_cast<long long>(bx / KV) * S_len + k0) * kv_stride + (bx % KV) * HD;
+    };
 
-    load_tile<HD>(smem + L::k, k + kv_off, kv_stride, keys);
-    load_tile<HD>(smem + L::v, v + kv_off, kv_stride, keys);
+    auto load_pass = [&](int p, int buf) {
+        const int bx = block_x(), b = bx / KV;
+        const int h = (bx % KV) * (H / KV) + p / nq, q0 = (p % nq) * BQ;
+        const int rows = min(BQ, T_len - q0);
+        const long long q_off = (static_cast<long long>(b) * T_len + q0) * q_stride + h * HD;
+        const long long stats = (static_cast<long long>(b) * H + h) * T_len + q0;
+        load_tile<HD, false>(smem + L::q + buf * L::qtile, q + q_off, q_stride, rows);
+        load_tile<HD, false>(smem + L::dout + buf * L::qtile, dout + q_off, q_stride, rows);
+        load_row_stats(smem + L::stats + buf * 2 * BQ, lse + stats, delta + stats, rows);
+    };
 
-    float dk_acc[4][DPT] = {}, dv_acc[4][DPT] = {};
-    for (int g = 0; g < group; ++g) {
-        const int h = kvh * group + g;
-        const long long row_stats = (static_cast<long long>(b) * H + h) * T_len;
-        for (int q0 = 0; q0 < T_len; q0 += BQ) {
-            const int rows = min(BQ, T_len - q0);
-            if (mask.skip(q0, rows, k0)) continue;
-            const long long q_off = (static_cast<long long>(b) * T_len + q0) * q_stride + h * HD;
-            __syncthreads();                 // the last tile's readers are done
-            load_tile<HD>(smem + L::q, q + q_off, q_stride, rows);
-            load_tile<HD>(smem + L::dout, dout + q_off, q_stride, rows);
-            load_row_stats<HD>(smem, lse + row_stats + q0, delta + row_stats + q0, rows);
-            __syncthreads();
+    load_tile<HD, true>(smem + L::k, k + kv_off(), kv_stride, min(BK, S_len - k0));
+    load_tile<HD, true>(smem + L::v, v + kv_off(), kv_stride, min(BK, S_len - k0));
+    int p = next_pass(0, n_pass, nq, mask, k0);
+    if (p < n_pass) load_pass(p, 0);
+    cp_async_commit();
 
-            float p[4][4], ds[4][4];
-            scores<HD>(p, ds, smem, mask, q0, k0, scale, ty, tx);
+    float acc[M][4] = {};                // role 0: dv, role 1: dk (unscaled)
+    for (int buf = 0; p < n_pass; buf ^= 1) {
+        cp_async_wait_all();
+        __syncthreads();                 // pass p landed; pass p - 1's readers are done
+        const int pn = next_pass(p + 1, n_pass, nq, mask, k0);
+        if (pn < n_pass) load_pass(pn, buf ^ 1);
+        cp_async_commit();
+
+        const int q0 = (p % nq) * BQ;
+        const float* qt = smem + L::q + buf * L::qtile;
+        const float* dot = smem + L::dout + buf * L::qtile;
+        const float* stats = smem + L::stats + buf * 2 * BQ;
+        float* ps = smem + L::p;
+        float* dss = smem + L::ds;
+
+        // A: S = q k^T (role 0) or dP = do v^T (role 1), rows ty + 16r,
+        // keys tx + 16c.
+        float s[4][4] = {};
+        rows_dot_rows<HD>(s, role ? dot : qt, smem + (role ? L::v : L::k), ty, tx);
+
+        // B: role 1 stores dP - D; role 0 turns it into dS = P (dP - D) and
+        // stores P beside it.
+        if (role) {
 #pragma unroll
             for (int r = 0; r < 4; ++r)
 #pragma unroll
+                for (int c = 0; c < 4; ++c)
+                    dss[p_at(ty + 16 * r, tx + 16 * c)] = s[r][c] - stats[BQ + ty + 16 * r];
+        }
+        __syncthreads();
+        if (!role) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+                const int i = ty + 16 * r;
+                const float row_lse = stats[i];
+#pragma unroll
                 for (int c = 0; c < 4; ++c) {
-                    smem[L::p + (4 * ty + r) * L::SS + tx + 16 * c] = p[r][c];
-                    smem[L::ds + (4 * ty + r) * L::SS + tx + 16 * c] = ds[r][c];
+                    const int j = tx + 16 * c, at = p_at(i, j);
+                    const float pr =
+                        mask.visible(q0 + i, k0 + j) ? expf(s[r][c] * scale - row_lse) : 0.f;
+                    ps[at] = pr;
+                    dss[at] = pr * dss[at];
                 }
-            __syncthreads();
-
-            // dv[j][d] += P[i][j] do[i][d]; dk[j][d] += dS[i][j] q[i][d], at keys
-            // j = 4ty + r and dims d = tx + 16c.
-#pragma unroll 4
-            for (int i = 0; i < BQ; ++i) {
-                float pv[4], dsv[4], dov[DPT], qv[DPT];
-#pragma unroll
-                for (int r = 0; r < 4; ++r) {
-                    pv[r] = smem[L::p + i * L::SS + 4 * ty + r];
-                    dsv[r] = smem[L::ds + i * L::SS + 4 * ty + r];
-                }
-#pragma unroll
-                for (int c = 0; c < DPT; ++c) {
-                    dov[c] = smem[L::dout + i * L::RS + tx + 16 * c];
-                    qv[c] = smem[L::q + i * L::RS + tx + 16 * c];
-                }
-#pragma unroll
-                for (int r = 0; r < 4; ++r)
-#pragma unroll
-                    for (int c = 0; c < DPT; ++c) {
-                        dv_acc[r][c] = fmaf(pv[r], dov[c], dv_acc[r][c]);
-                        dk_acc[r][c] = fmaf(dsv[r], qv[c], dk_acc[r][c]);
-                    }
             }
         }
-    }
+        __syncthreads();
 
+        // C: dv[j][d] += P[i][j] do[i][d] (role 0), dk[j][d] += dS[i][j] q[i][d]
+        // (role 1), at keys tj * M + m and dims 4 td + n.
+        cols_by_rows<HD, M, false, false>(acc, role ? dss : ps, role ? qt : dot, tj * M, td);
+        p = pn;
+    }
+    cp_async_wait_all();                 // a block with no pass still has k and v in flight
+
+    float* out = (role ? dk : dv) + kv_off();
+    const float mul = role ? scale : 1.f;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-        const int j = 4 * ty + r;
-        if (j >= keys) continue;
-#pragma unroll
-        for (int c = 0; c < DPT; ++c) {
-            const long long at = kv_off + j * kv_stride + tx + 16 * c;
-            dk[at] = dk_acc[r][c] * scale;
-            dv[at] = dv_acc[r][c];
-        }
+    for (int m = 0; m < M; ++m) {
+        const int j = tj * M + m;
+        if (j < min(BK, S_len - k0))
+            *reinterpret_cast<float4*>(out + j * kv_stride + 4 * td) =
+                make_float4(acc[m][0] * mul, acc[m][1] * mul, acc[m][2] * mul, acc[m][3] * mul);
     }
 }
 
+// The first key tile at or after kt that the query tile at q0 sees; nk when
+// none is left.
+__device__ __forceinline__ int next_key_tile(int kt, int nk, const Mask& mask, int q0) {
+    while (kt < nk && mask.skip(q0, kt * BK)) {
+        if (mask.causal && kt * BK > q0 + min(BQ, mask.T_len - q0) - 1 + mask.q_offset)
+            return nk;                   // every later tile is past the causal edge
+        ++kt;
+    }
+    return kt;
+}
+
 template <int HD>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     float* __restrict__ dq, int H, int KV, Mask mask, float scale) {
-    using L = Layout<HD>;
-    constexpr int DPT = HD / 16;
-    extern __shared__ float smem[];
-    const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-    const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / (H / KV);
+    using L = DqLayout<HD>;
+    constexpr int M = HD / 32;           // query rows per thread in the dq product
+    extern __shared__ __align__(16) float smem[];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int role = warp >> 3, rw = warp & 7;  // role 0: S, P, dS; role 1: dP
+    const int ty = (rw >> 1) * 4 + (lane >> 3), tx = (rw & 1) * 8 + (lane & 7);
+    const int ti = (warp / (HD / 32)) * 4 + (lane >> 3), td = (warp % (HD / 32)) * 8 + (lane & 7);
     const int T_len = mask.T_len, S_len = mask.S_len;
-    const int q0 = blockIdx.x * BQ, rows = min(BQ, T_len - q0);
+    const int nqt = (T_len + BQ - 1) / BQ, q0 = (nqt - 1 - blockIdx.y) * BQ;
+    const int rows = min(BQ, T_len - q0), nk = (S_len + BK - 1) / BK;
     const long long q_stride = static_cast<long long>(H) * HD;
     const long long kv_stride = static_cast<long long>(KV) * HD;
-    const long long q_off = (static_cast<long long>(b) * T_len + q0) * q_stride + h * HD;
-    const long long row_stats = (static_cast<long long>(b) * H + h) * T_len + q0;
+    auto q_off = [&]() {                 // of row q0 in q, do and dq
+        const int bx = block_x();
+        return (static_cast<long long>(bx / H) * T_len + q0) * q_stride + (bx % H) * HD;
+    };
+    const long long stats = static_cast<long long>(blockIdx.x) * T_len + q0;
 
-    load_tile<HD>(smem + L::q, q + q_off, q_stride, rows);
-    load_tile<HD>(smem + L::dout, dout + q_off, q_stride, rows);
-    load_row_stats<HD>(smem, lse + row_stats, delta + row_stats, rows);
+    auto load_keys = [&](int kt, int buf) {
+        const int bx = block_x(), k0 = kt * BK;
+        const long long kv_off = (static_cast<long long>(bx / H) * S_len + k0) * kv_stride +
+                                 (bx % H) / (H / KV) * HD;
+        load_tile<HD, true>(smem + L::k + buf * L::ktile, k + kv_off, kv_stride, min(BK, S_len - k0));
+        load_tile<HD, true>(smem + L::v + buf * L::ktile, v + kv_off, kv_stride, min(BK, S_len - k0));
+    };
 
-    float dq_acc[4][DPT] = {};
-    for (int k0 = 0; k0 < S_len; k0 += BK) {
-        if (mask.causal && k0 > q0 + rows - 1 + mask.q_offset) break;
-        if (mask.skip(q0, rows, k0)) continue;
-        const long long kv_off = (static_cast<long long>(b) * S_len + k0) * kv_stride + kvh * HD;
-        __syncthreads();                     // the last tile's readers are done
-        load_tile<HD>(smem + L::k, k + kv_off, kv_stride, min(BK, S_len - k0));
-        load_tile<HD>(smem + L::v, v + kv_off, kv_stride, min(BK, S_len - k0));
-        __syncthreads();
+    load_tile<HD, false>(smem + L::q, q + q_off(), q_stride, rows);
+    load_tile<HD, false>(smem + L::dout, dout + q_off(), q_stride, rows);
+    load_row_stats(smem + L::stats, lse + stats, delta + stats, rows);
+    int kt = next_key_tile(0, nk, mask, q0);
+    if (kt < nk) load_keys(kt, 0);
+    cp_async_commit();
 
-        float p[4][4], ds[4][4];
-        scores<HD>(p, ds, smem, mask, q0, k0, scale, ty, tx);
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) smem[L::ds + (4 * ty + r) * L::SS + tx + 16 * c] = ds[r][c];
-        __syncthreads();
+    const float* st = smem + L::stats;
+    float* dst = smem + L::dst;
+    float acc[M][4] = {};
+    for (int buf = 0; kt < nk; buf ^= 1) {
+        cp_async_wait_all();
+        __syncthreads();                 // key tile kt landed; the last tile's readers are done
+        const int ktn = next_key_tile(kt + 1, nk, mask, q0);
+        if (ktn < nk) load_keys(ktn, buf ^ 1);
+        cp_async_commit();
 
-        // dq[i][d] += dS[i][j] k[j][d], at rows i = 4ty + r and dims d = tx + 16c.
-#pragma unroll 4
-        for (int j = 0; j < BK; ++j) {
-            float dsv[4], kv[DPT];
-#pragma unroll
-            for (int r = 0; r < 4; ++r) dsv[r] = smem[L::ds + (4 * ty + r) * L::SS + j];
-#pragma unroll
-            for (int c = 0; c < DPT; ++c) kv[c] = smem[L::k + j * L::RS + tx + 16 * c];
+        const int k0 = kt * BK;
+        const float* kt_s = smem + L::k + buf * L::ktile;
+
+        // A: S (role 0) or dP (role 1) at rows ty + 16r, keys tx + 16c.
+        float s[4][4] = {};
+        rows_dot_rows<HD>(s, smem + (role ? L::dout : L::q),
+                          role ? smem + L::v + buf * L::ktile : kt_s, ty, tx);
+
+        // B: role 1 stores dP - D transposed; role 0 turns it into dS^T.
+        if (role) {
 #pragma unroll
             for (int r = 0; r < 4; ++r)
 #pragma unroll
-                for (int c = 0; c < DPT; ++c) dq_acc[r][c] = fmaf(dsv[r], kv[c], dq_acc[r][c]);
+                for (int c = 0; c < 4; ++c)
+                    dst[dst_at(tx + 16 * c, ty + 16 * r)] = s[r][c] - st[BQ + ty + 16 * r];
         }
+        __syncthreads();
+        if (!role) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+                const int i = ty + 16 * r;
+                const float row_lse = st[i];
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                    const int j = tx + 16 * c, at = dst_at(j, i);
+                    const float pr =
+                        mask.visible(q0 + i, k0 + j) ? expf(s[r][c] * scale - row_lse) : 0.f;
+                    dst[at] = pr * dst[at];
+                }
+            }
+        }
+        __syncthreads();
+
+        // C: dq[i][d] += dS[i][j] k[j][d], all 16 warps, at rows ti * M + m
+        // and dims 4 td + n.
+        cols_by_rows<HD, M, true, true>(acc, dst, kt_s, ti * M, td);
+        kt = ktn;
     }
+    cp_async_wait_all();
 
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-        const int i = 4 * ty + r;
-        if (i >= rows) continue;
-#pragma unroll
-        for (int c = 0; c < DPT; ++c) dq[q_off + i * q_stride + tx + 16 * c] = dq_acc[r][c] * scale;
+    for (int m = 0; m < M; ++m) {
+        const int i = ti * M + m;
+        if (i < rows)
+            *reinterpret_cast<float4*>(dq + q_off() + i * q_stride + 4 * td) =
+                make_float4(acc[m][0] * scale, acc[m][1] * scale, acc[m][2] * scale,
+                            acc[m][3] * scale);
     }
+}
+
+template <int HD>
+cudaError_t set_smem() {
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(DkdvLayout<HD>::bytes));
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(flash_bwd_dq_kernel<HD>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   static_cast<int>(DqLayout<HD>::bytes));
+    return err;
 }
 
 template <int HD>
 int launch(const float* q, const float* k, const float* v, const float* o, const float* lse,
            const float* dout, float* dq, float* dk, float* dv, float* delta, int B, int H,
            int KV, Mask mask, float scale, cudaStream_t s) {
-    constexpr size_t smem = Layout<HD>::bytes;
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<HD>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(flash_bwd_dq_kernel<HD>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(smem));
+    const cudaError_t err = set_smem<HD>();
     if (err != cudaSuccess) return static_cast<int>(err);
     const long long n_rows = static_cast<long long>(B) * mask.T_len * H;
     flash_bwd_delta_kernel<HD><<<static_cast<unsigned>((n_rows + WARPS - 1) / WARPS), NT, 0, s>>>(
         o, dout, delta, n_rows, mask.T_len, H);
-    dim3 kv_grid((mask.S_len + BK - 1) / BK, B * KV);
-    flash_bwd_dkdv_kernel<HD><<<kv_grid, NT, smem, s>>>(q, k, v, dout, lse, delta, dk, dv, H, KV,
-                                                        mask, scale);
-    dim3 q_grid((mask.T_len + BQ - 1) / BQ, B * H);
-    flash_bwd_dq_kernel<HD><<<q_grid, NT, smem, s>>>(q, k, v, dout, lse, delta, dq, H, KV, mask,
-                                                     scale);
+    const dim3 kv_grid(B * KV, (mask.S_len + BK - 1) / BK);
+    flash_bwd_dkdv_kernel<HD><<<kv_grid, NT, DkdvLayout<HD>::bytes, s>>>(
+        q, k, v, dout, lse, delta, dk, dv, H, KV, mask, scale);
+    const dim3 q_grid(B * H, (mask.T_len + BQ - 1) / BQ);
+    flash_bwd_dq_kernel<HD><<<q_grid, NT, DqLayout<HD>::bytes, s>>>(q, k, v, dout, lse, delta,
+                                                                   dq, H, KV, mask, scale);
     return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int occupancy(int* out) {
+    cudaError_t err = set_smem<HD>();
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 1, flash_bwd_dkdv_kernel<HD>, NT,
+                                                            DkdvLayout<HD>::bytes);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 3, flash_bwd_dq_kernel<HD>, NT,
+                                                            DqLayout<HD>::bytes);
+    out[0] = static_cast<int>(DkdvLayout<HD>::bytes);
+    out[2] = static_cast<int>(DqLayout<HD>::bytes);
+    return static_cast<int>(err);
 }
 
 }  // namespace
 
 // q, o, dout, dq: [B,T,H,hd]; k, v, dk, dv: [B,S,KV,hd]; lse (from
-// flash_attention_fwd) and delta (scratch): [B,H,T]; all contiguous fp32.
+// flash_attention_fwd) and delta (scratch): [B,H,T]; all contiguous fp32,
+// the six [B,*,*,hd] tensors 16-byte aligned.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* lse, const void* dout, void* dq, void* dk,
                                    void* dv, void* delta, int B, int T_len, int S_len, int H,
@@ -355,6 +581,17 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
                                    w(delta), B, H, KV, mask, scale, s);
         case 128: return launch<128>(f(q), f(k), f(v), f(o), f(lse), f(dout), w(dq), w(dk),
                                      w(dv), w(delta), B, H, KV, mask, scale, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+// out[0..3] = dynamic shared memory of the dk/dv kernel (bytes), its blocks
+// per SM, the same two of the dq kernel, at head dim hd.
+extern "C" int flash_attention_bwd_occupancy(int hd, int* out) {
+    switch (hd) {
+        case 32: return occupancy<32>(out);
+        case 64: return occupancy<64>(out);
+        case 128: return occupancy<128>(out);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

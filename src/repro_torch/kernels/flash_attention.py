@@ -34,8 +34,9 @@ _ENTRY = {torch.float32: "flash_attention_fwd",          # CUDA cores
 _ARGTYPES = {"flash_attention_fwd": (ctypes.c_void_p,) * 5 + _SCALARS,  # + lse
              "flash_attention_sm90_fwd": (ctypes.c_void_p,) * 4 + _SCALARS}
 _BWD_ARGTYPES = (ctypes.c_void_p,) * 10 + _SCALARS
+_BWD_OCC_ARGTYPES = (ctypes.c_int, ctypes.c_void_p)
 BF16_BACKWARD = ("the bf16 flash_attention backward is not written yet "
-                 "(ROADMAP.md queue 2 item 3); train in fp32")
+                 "(ROADMAP.md queue 2 item 4); train in fp32")
 
 
 def visible(T: int, S: int, q_offset: int, causal: bool, window: int, device):
@@ -173,9 +174,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     ``o``, its fp32 ``lse`` [B,H,T] and the output's gradient ``do``.
 
     A CPU tensor takes ``flash_attention_bwd_ref``; an fp32 CUDA tensor the
-    kernels of ``csrc/flash_attention_bwd.cu`` (three per call: D = rowsum(do
-    * o), dk/dv, dq; ``LAUNCHES["flash_attention_bwd"]`` counts the call
-    once); a bf16 one raises ``NotImplementedError``.
+    kernels of ``csrc/flash_attention_bwd.cu`` (three per call:
+    D = rowsum(do * o), then dk/dv and dq, each of 16 warps and one block
+    per SM, with cp.async double-buffered tiles and no atomics, so the
+    result is the same on every call; ``LAUNCHES["flash_attention_bwd"]``
+    counts the call once); a bf16 one raises ``NotImplementedError``. q, k,
+    v and do must be 16-byte aligned (the kernels copy them in 16-byte
+    pieces).
     """
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
@@ -194,6 +199,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                 or t.device != q.device or not t.is_contiguous()):
             raise ValueError(f"flash_attention_bwd: {name} must be a "
                              f"contiguous fp32 {tuple(shape)} on {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_bwd: {name} at "
+                             f"{t.data_ptr():#x} is not 16-byte aligned")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
     fn = build.function("flash_attention_bwd", _BWD_ARGTYPES)
@@ -238,6 +247,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window, q_offset)
     return _forward(q, k, v, causal, window, q_offset, with_lse=False)[0]
+
+
+def bwd_occupancy(hd: int) -> dict:
+    """Dynamic shared memory per block and blocks per SM of the backward's
+    dk/dv and dq kernels at head dim ``hd`` on the current card."""
+    out = (ctypes.c_int * 4)()
+    fn = build.function("flash_attention_bwd_occupancy", _BWD_OCC_ARGTYPES)
+    build.check(fn(hd, ctypes.addressof(out)), "flash_attention_bwd_occupancy")
+    return {"dkdv_smem_bytes": out[0], "dkdv_blocks_per_sm": out[1],
+            "dq_smem_bytes": out[2], "dq_blocks_per_sm": out[3]}
 
 
 def sm90_smem_bytes(hd: int) -> int:

@@ -34,7 +34,7 @@ _BWD_ARGTYPES = ((ctypes.c_void_p,) * 6
 _MAX_GROUP = 256          # threads per row at most (one block)
 _BWD_BLOCKS_PER_SM = 4    # rows of dg partial sums stay a small share of bytes
 BF16_BACKWARD = ("the bf16 rmsnorm backward is not written yet (ROADMAP.md "
-                 "queue 2 item 3); train in fp32")
+                 "queue 2 item 4); train in fp32")
 
 
 def _pow2(n: int) -> int:

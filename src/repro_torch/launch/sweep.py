@@ -33,13 +33,13 @@ def member_config(arch: str = "qwen3-0.6b"):
 
 def loss_and_grads(params, cfg, batch):
     """(loss, grads): ``forward_loss`` and its gradient with respect to every
-    param leaf, in the params' tree. Marks the leaves as requiring grad."""
-    leaves = tree_leaves(params)
-    for leaf in leaves:
-        leaf.requires_grad_(True)
+    param leaf, in the params' tree. It differentiates detached aliases of
+    the leaves (the same storage), so the caller's params stay as they were:
+    none requires grad, and serving them afterwards records no graph."""
+    alias = tree_map(lambda t: t.detach().requires_grad_(True), params)
     with torch.enable_grad():
-        loss, _ = forward_loss(params, cfg, batch)
-        grads = iter(torch.autograd.grad(loss, leaves))
+        loss, _ = forward_loss(alias, cfg, batch)
+        grads = iter(torch.autograd.grad(loss, tree_leaves(alias)))
     return loss.detach(), tree_map(lambda _: next(grads), params)
 
 

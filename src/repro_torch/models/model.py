@@ -135,10 +135,14 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=None, device="cuda"):
                        for kind, count in pattern_stages(cfg)]}
 
 
+@torch.no_grad()
 def prefill(p, cfg, tokens, *, pad: int = 64):
     """Process the prompt; returns (last-position logits [B, V], cache).
 
     ``pad`` — extra KV slots reserved for tokens generated after prefill.
+    Runs without autograd, as ``decode_step`` does: JAX keeps no tape, and
+    params left requiring grad must not chain each step's graph onto the
+    cache.
     """
     _check_ported(cfg)
     B, T = tokens.shape
@@ -156,6 +160,7 @@ def prefill(p, cfg, tokens, *, pad: int = 64):
     return logits[:, 0], {"stages": caches}
 
 
+@torch.no_grad()
 def decode_step(p, cfg, token, cache, cache_len):
     """One token for every sequence. token: [B]; cache_len: a scalar or a
     per-row [B] tensor. Updates ``cache`` in place; returns (logits [B, V],

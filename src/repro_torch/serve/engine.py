@@ -12,7 +12,8 @@ are not active still decode (cache_len 0, a stale token) and their output is
 ignored; admission overwrites the whole slot. PyTorch runs eagerly, so there
 is no per-length compile cache to keep. ``stats`` adds the wall seconds
 spent in prefill and in decode (each ends when the chosen tokens reach the
-host, so the device work is inside them).
+host, so the device work is inside them). Admission and decoding run under
+``torch.no_grad``, so params that require grad record no graph.
 """
 from __future__ import annotations
 
@@ -79,6 +80,7 @@ class ServeEngine:
                                   submitted_at=time.monotonic()))
         return rid
 
+    @torch.no_grad()
     def _admit(self):
         for slot in range(self.slots):
             if self.active[slot] is not None or not self.queue:
@@ -111,6 +113,7 @@ class ServeEngine:
         return torch.multinomial(probs, 1, generator=self.generator)[:, 0]
 
     # ------------------------------------------------------------------
+    @torch.no_grad()
     def tick(self):
         """Admit + one decode step across all active slots."""
         self._admit()

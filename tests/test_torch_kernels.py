@@ -770,6 +770,8 @@ def test_backward_wrappers_raise_on_other_devices():
      flash_module._ARGTYPES["flash_attention_sm90_fwd"]),
     ("flash_attention_bwd", "flash_attention_bwd.cu",
      flash_module._BWD_ARGTYPES),
+    ("flash_attention_bwd_occupancy", "flash_attention_bwd.cu",
+     flash_module._BWD_OCC_ARGTYPES),
     ("rmsnorm_fwd", "rmsnorm.cu", rms_module._ARGTYPES),
     ("rmsnorm_bwd", "rmsnorm_bwd.cu", rms_module._BWD_ARGTYPES),
 ])
@@ -789,6 +791,20 @@ def test_backward_kernels_are_deterministic_and_write_lse():
         assert "atomic" not in code
     fwd = (build.CSRC / "flash_attention.cu").read_text()
     assert "l[rr] == 0.f ? CUDART_INF_F : m[rr] + logf(l[rr])" in fwd
+
+
+def test_flash_bwd_kernels_copy_tiles_asynchronously():
+    """The backward's tiles come in by 16-byte cp.async, double-buffered and
+    waited for before the block barrier; each kernel is one block of 16
+    warps per SM; the products stay on the CUDA cores (no mma, no wgmma)."""
+    src = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    for used in ("cp.async.cg.shared.global", "cp.async.commit_group",
+                 "cp.async.wait_group 0", "constexpr int NT = 512;",
+                 "__launch_bounds__(NT, 1)", "buf ^ 1"):
+        assert used in code
+    for gone in ("mma", "wgmma", "tf32", "atomic"):
+        assert gone not in code.lower()
 
 
 @pytest.mark.parametrize("rows,d,sms", [(2048, 1024, 132), (32768, 128, 132),
