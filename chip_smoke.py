@@ -9,7 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. Build the hand-written kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, all at once); log ptxas's registers, shared memory
    and spills, the tensor-core flash kernel's dynamic shared memory, and the
-   flash backward kernels' shared memory and blocks per SM.
+   fp32 flash forward and backward kernels' shared memory and blocks per
+   SM.
 3. The serve paths' bf16 GEMMs (prefill and decode rows) against the fp32
    product of the same operands rounded to bf16, with
    ``allow_bf16_reduced_precision_reduction`` at its default and False:
@@ -41,7 +42,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    at the larger T, one q_offset > 0 and one window case, one hd 64 case;
    the fp32 forward's output beside it; a run without the first key tile
    must fail the check; two calls at T=512 and T=137, hd 128, must give the
-   same bits; the delta, dk/dv and dq kernels also timed apart)
+   same bits; the delta, dk/dv and dq kernels also timed apart; the fp32
+   forward's lse against the plain lse in every case and in the run without
+   the first key tile, whose first 64 rows see no key: within 1e-5 as
+   above, +inf rows identical; two forward calls at T=512 the same bits;
+   the forward timed at T=512, B=3 T=1000 and B=8 T=32 hd 32)
    and rmsnorm_bwd (every norm shape of both training paths and a view off
    16-byte alignment, the scalar path); a bf16 backward must raise. Each is
    timed beside its bound, its plain backward and the backward of
@@ -113,8 +118,8 @@ from repro_torch.kernels import (LAUNCHES, build, flash_attention,  # noqa: E402
                                  rmsnorm_bwd, rmsnorm_bwd_ref, rmsnorm_ref,
                                  slstm_scan, slstm_scan_ref, ssd_scan,
                                  ssd_scan_ref)
-from repro_torch.kernels.flash_attention import (bwd_occupancy,  # noqa: E402
-                                                  sm90_smem_bytes)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    _forward as flash_forward, bwd_occupancy, fwd_occupancy, sm90_smem_bytes)
 from repro_torch.kernels.rmsnorm import plan as rmsnorm_plan  # noqa: E402
 from repro_torch.kernels.slstm_scan import (slstm_max_clusters,  # noqa: E402
                                             slstm_plan)
@@ -487,6 +492,8 @@ FLASH_BWD_CASES = [   # B, T, S, H, KV, hd, window, q_offset
 ]
 FLASH_BWD_REPORT = (4, 512, 16, 8, 128)    # B, T, H, KV, hd: the member step
 FLASH_BWD_REPEAT = ((4, 512, 16, 8, 128), (2, 137, 16, 8, 128))  # bit-identical
+FLASH_FWD_TIMED = ((3, 1000, 16, 8, 128), (8, 32, 4, 2, 32))  # + the report
+LSE_TOL = 1e-5        # the fp32 forward's lse, as |err| <= tol + tol * |want|
 RMS_BWD_REPORT = "rows=2048 d=1024"                    # ln1 / ln2 / final
 
 
@@ -566,10 +573,14 @@ def check_flash_bwd(gen):
                 f"window={window} q_offset={off}")
         fwd_err = compare("flash_attention", f"{name}, forward with lse",
                           (out,), (ref_out,))
+        check_flash_lse(q, k, v, kw, name)
         err = check_grads("flash_attention_bwd", name, got, want)
         if (B, T, H, KV, hd) in FLASH_BWD_REPEAT:
             check_flash_bwd_repeats(q, k, v, do, name)
+        if (B, T, H, KV, hd) in FLASH_FWD_TIMED:
+            time_flash_fwd(q, k, v, fwd_err)
         if (B, T, H, KV, hd) == FLASH_BWD_REPORT:
+            check_flash_fwd_repeats(q, k, v, name)
             rows = time_flash_bwd(q, k, v, do, err, fwd_err)
         if (B, T, hd, window, off) == (2, 137, 128, 0, 0):
             check_flash_bwd_dropped_tile(q, k, v, do, want)
@@ -583,6 +594,39 @@ def check_flash_bwd(gen):
     else:
         require(False, "a bf16 flash backward ran on the card")
     return rows
+
+
+def check_flash_lse(q, k, v, kw, name):
+    """The fp32 forward's lse against the plain version's: rows with a
+    visible key within ``LSE_TOL``, the rows without one +inf in both.
+    Returns the number of +inf rows."""
+    _, got = flash_forward(q, k, v, kw["causal"], kw["window"],
+                           kw["q_offset"], with_lse=True)
+    _, want = flash_attention_ref(q, k, v, with_lse=True, **kw)
+    inf = torch.isinf(want)
+    same_inf = torch.equal(got[inf], want[inf])
+    finite = got[~inf]
+    err = (finite - want[~inf]).abs()
+    ok = (same_inf and bool(torch.isfinite(finite).all())
+          and bool((err <= LSE_TOL + LSE_TOL * want[~inf].abs()).all()))
+    log(f"flash_attention {name}, lse: max_abs_err="
+        f"{float(err.max()) if err.numel() else 0.0:.3e} over "
+        f"{finite.numel()} rows, {int(inf.sum())} +inf rows "
+        f"{'identical' if same_inf else 'DIFFER'}, tol {LSE_TOL:.0e} "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, f"flash_attention lse disagrees with the plain lse: {name}")
+    return int(inf.sum())
+
+
+def check_flash_fwd_repeats(q, k, v, name):
+    """Two calls of the fp32 forward on the same inputs give the same bits
+    in the output and the lse (every sum runs in a fixed order)."""
+    first = flash_forward(q, k, v, True, 0, 0, with_lse=True)
+    second = flash_forward(q, k, v, True, 0, 0, with_lse=True)
+    same = [torch.equal(a, b) for a, b in zip(first, second)]
+    log(f"flash_attention {name}: two forward calls bit-identical in out, "
+        f"lse: {same}")
+    require(all(same), f"the fp32 flash forward is not deterministic: {name}")
 
 
 def check_flash_bwd_repeats(q, k, v, do, name):
@@ -621,8 +665,13 @@ def check_flash_bwd_dropped_tile(q, k, v, do, want):
     """The kernels run without the first 64 keys (k, v from key 64 on at
     q_offset -64: rows 0..63 see no key) must fail ``check_grads``."""
     T = q.shape[1]
-    _, dq, dk, dv = flash_grads(q, k[:, 64:].contiguous(),
-                                v[:, 64:].contiguous(), do, flash_attention,
+    k64, v64 = k[:, 64:].contiguous(), v[:, 64:].contiguous()
+    kw = dict(causal=True, window=0, q_offset=-64)
+    n_inf = check_flash_lse(q, k64, v64, kw, f"T={T}, first key tile "
+                            "dropped, q_offset -64")
+    require(n_inf == q.shape[0] * q.shape[2] * 64,
+            "the rows without a visible key are not the first 64")
+    _, dq, dk, dv = flash_grads(q, k64, v64, do, flash_attention,
                                 q_offset=-64)
     pad = lambda t: F.pad(t, (0, 0, 0, 0, 64, 0))
     try:
@@ -679,26 +728,52 @@ def time_flash_bwd(q, k, v, do, err, fwd_err):
         f"{sum(by_name.values()):.4f}")
     require(all(ms > 0 for ms in split.values()),
             f"a backward kernel is missing from the trace: {dict(by_name)}")
-    fwd_bound = {"operations": flops / 2.5 / PEAK_F32 * 1e3,
-                 "bytes": 4 * (2 * q.numel() + 2 * k.numel()) / HBM * 1e3}
-    fwd = {
-        "max_abs_err": fwd_err,
-        "ms": device_ms(lambda: flash_attention(q, k, v), 5),
-        "plain_ms": device_ms(lambda: flash_attention_ref(q, k, v), 2),
-        "library_ms": device_ms(lambda: sdpa(qt, kt, vt), 5),
-        "bound_by": max(fwd_bound, key=fwd_bound.get),
-        "bound_ms": max(fwd_bound.values()),
-        "shape": f"B={B} T=S={T} H={H} KV={KV} hd={hd} fp32 causal",
-    }
+    fwd = time_flash_fwd(q, k, v, fwd_err)
     log(f"  device time {row['shape']}: backward kernels {row['ms']:.4f} ms, "
         f"plain {row['plain_ms']:.4f} ms, SDPA backward (fp32, GQA) "
         f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
         f"({row['bound_by']}); {row['bound_ms'] / row['ms']:.1%} of the "
         f"bound, {flops / row['ms'] / 1e9:.1f} TFLOP/s; one call from Python "
-        f"{host_ms(kernel, 5):.4f} ms; forward (fp32, CUDA cores) "
-        f"{fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.4f}, SDPA "
-        f"{fwd['library_ms']:.4f}, bound {fwd['bound_ms']:.4f}")
+        f"{host_ms(kernel, 5):.4f} ms")
     return row, fwd
+
+
+def time_flash_fwd(q, k, v, err):
+    """The fp32 forward (CUDA cores) beside its bound, its plain version and
+    SDPA's forward (fp32, GQA, on inputs that require grad, as in training);
+    logs its rate on the tile products and the kernel's occupancy."""
+    B, T, H, hd = q.shape
+    KV = k.shape[2]
+    flops = 4 * B * H * hd * (T * (T + 1) // 2)   # visible pairs, causal
+    bound = {"operations": flops / PEAK_F32 * 1e3,
+             "bytes": 4 * (2 * q.numel() + 2 * k.numel()) / HBM * 1e3}
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    row = {
+        "max_abs_err": err,
+        "ms": device_ms(lambda: flash_attention(q, k, v), 5),
+        "plain_ms": device_ms(lambda: flash_attention_ref(q, k, v), 2),
+        "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 5),
+        "bound_by": max(bound, key=bound.get),
+        "bound_ms": max(bound.values()),
+        "shape": f"B={B} T=S={T} H={H} KV={KV} hd={hd} fp32 causal",
+    }
+    # the kernel runs 64 x 64 tiles: S and P V per visible tile pair
+    n = -(-T // 64)
+    row["tile_tflops"] = (2 * 2 * 64 * 64 * hd * n * (n + 1) // 2 * B * H
+                          / row["ms"] / 1e9)
+    occ = fwd_occupancy(hd)
+    log(f"  device time {row['shape']}: forward (fp32, CUDA cores) "
+        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, SDPA (fp32, "
+        f"GQA) {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}); kernel / SDPA "
+        f"{row['ms'] / row['library_ms']:.3f}, "
+        f"{row['bound_ms'] / row['ms']:.1%} of the bound, "
+        f"{row['tile_tflops']:.1f} TFLOP/s on its tile products; "
+        f"{occ['smem_bytes']} bytes of shared memory, "
+        f"{occ['blocks_per_sm']} block(s) of 16 warps per SM")
+    return row
 
 
 def rmsnorm_bwd_cases(gen):
@@ -1422,6 +1497,12 @@ def main():
     log("flash_fwd_sm90_kernel dynamic shared memory per block: " + ", ".join(
         f"hd={hd} {sm90_smem_bytes(hd)} bytes" for hd in (32, 64, 128)))
     for hd in (32, 64, 128):
+        fwd_occ = fwd_occupancy(hd)
+        log(f"flash_attention_fwd hd={hd}: {fwd_occ['smem_bytes']} bytes of "
+            f"shared memory, {fwd_occ['blocks_per_sm']} block(s) of 16 warps "
+            f"per SM")
+        require(fwd_occ["blocks_per_sm"] >= 1,
+                f"the fp32 flash forward does not fit an SM at hd={hd}")
         occ = bwd_occupancy(hd)
         log(f"flash_attention_bwd hd={hd}: dk/dv kernel "
             f"{occ['dkdv_smem_bytes']} bytes of shared memory, "

@@ -15,228 +15,255 @@
 // here run in no order, so one block owns one (batch*head, query tile) and
 // loops over the KV tiles itself, staging each in shared memory. Unlike the
 // TPU wrapper (which asserts T % block_q == 0), any T and S are taken: rows
-// past T are neither loaded nor written, keys past S are masked.
+// past T are zero-filled and never written, keys past S are masked.
 //
 // Masked scores take no part in the softmax (p = 0), so a row with no valid
 // key ends with l == 0 and gives 0 whatever the tiling; for every row with a
 // valid key the result equals the TPU kernel's.
 //
 // For training, the fp32 entry also writes each row's log-sum-exp, lse =
-// m + log(l) in scaled-score units, fp32 [B,H,T], which the backward
-// (flash_attention_bwd.cu) reads to rebuild P = exp(s - lse). The pointer may
-// be null (serving passes null and writes nothing more). A row with no valid
-// key writes +inf: exp(s - inf) = 0, so the backward gives it no weight.
+// m + log(l) in scaled-score natural-log units, fp32 [B,H,T], which the
+// backward (flash_attention_bwd.cu) reads to rebuild P = exp(s - lse). The
+// pointer may be null (serving passes null and writes nothing more). A row
+// with no valid key writes +inf: exp(s - inf) = 0, so the backward gives it
+// no weight.
 //
 // What bounds it on the H100: operations. At T = S ~ 1000 and hd = 128 it
 // does ~T/2 * 4 flops per byte of q, k, v and o, far above the card's ~295
 // flops/byte, and in fp32 there are no tensor cores to spend them on: the
-// bound is 67 TFLOP/s of FMAs. A 64x64 score tile is built from register
-// micro-tiles read out of padded (bank-conflict-free) shared memory, and each
-// warp then owns 8 query rows for the softmax and the P*V update, so the two
-// phases need only a warp barrier between them.
+// bound is 67 TFLOP/s of FMAs, where every instruction other than an FMA,
+// and every stall, is lost FMA time. The design is the backward dq kernel's
+// (flash_tiles.cuh holds what they share) without its dP product:
+// - One block of 16 warps per (batch * head, 64-row query tile), one block
+//   per SM (212.5 KB of shared memory at hd 128), 128 registers a thread.
+//   The grid puts the query tile in y, last tile first, so the blocks that
+//   see the most key tiles under the causal mask start first.
+// - Loads never stall a product: the q tile (swizzled) and each visible k/v
+//   tile (rows padded to hd + 4) come in by 16-byte cp.async, k and v
+//   double-buffered, so the next visible tile is in flight while the
+//   current one's products run.
+// - Three barriers a key tile. A: S = q k^T, both halves of the block on
+//   the same 4x4 register micro-tiles, each over half of d (16-byte chunks
+//   0-3 and 4-7 of every 32 floats), and each stores its partial. B: each
+//   warp owns 4 rows (8 lanes a row, 8 keys a lane): S = (partial 0 +
+//   partial 1) * scale, masked, the running max m, P = exp(S - m), the row
+//   sum l and alpha = exp(m_old - m), m and l kept in the lanes' registers;
+//   P is stored transposed, alpha in shared memory. C: all 16 warps run
+//   acc = alpha acc + P V on 4x4 (hd 128) micro-tiles of o, each thread's
+//   accumulator [hd/32][4]. The sums run in a fixed order: two calls give
+//   the same bits.
 
-#include "common.cuh"
+#include "flash_tiles.cuh"
 
 namespace {
 
-constexpr int BQ = 64;                   // query rows per block
-constexpr int BK = 64;                   // keys per KV tile
-constexpr int NT = 256;                  // threads per block (8 warps)
-constexpr int RPW = BQ / (NT / 32);      // query rows owned by one warp
 constexpr float NEG_INF = -1e30f;        // as the TPU kernel's NEG_INF
 
 template <int HD>
-struct Layout {                          // shared-memory layout, in floats
-    static constexpr int QS = HD + 1;    // padded row strides
-    static constexpr int KS = HD + 1;
-    static constexpr int VS = HD;
-    static constexpr int SS = BK + 1;
+struct FwdLayout {                       // shared memory, in floats
+    static constexpr int qtile = BQ * HD, ktile = BK * KS<HD>;
     static constexpr int q = 0;
-    static constexpr int k = q + BQ * QS;
-    static constexpr int v = k + BK * KS;
-    static constexpr int s = v + BK * VS;
-    static constexpr size_t bytes = (s + BQ * SS) * sizeof(float);
+    static constexpr int k = qtile, v = k + 2 * ktile;        // 2 buffers each
+    static constexpr int s = v + 2 * ktile;                   // the halves' partial S
+    static constexpr int pt = s + 2 * BQ * BK;                // P^T
+    static constexpr int stats = pt + BQ * BK;                // alpha[64], l[64]
+    static constexpr size_t bytes = (stats + 2 * BQ) * sizeof(float);
 };
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int T_len, int S_len, int H,
-                 int KV, int causal, int window, int q_offset, float scale) {
-    using L = Layout<HD>;
-    constexpr int DPL = HD / 32;         // output dims owned by one lane
-    extern __shared__ float smem[];
-    float* Qs = smem + L::q;
-    float* Ks = smem + L::k;
-    float* Vs = smem + L::v;
-    float* Ss = smem + L::s;
+// Max and sum over the 8 lanes that hold one row in phase B.
+__device__ __forceinline__ float max8(float x) {
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+    return x;
+}
 
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int b = blockIdx.y / H, h = blockIdx.y % H;
-    const int kvh = h / (H / KV);
-    const int q0 = blockIdx.x * BQ;
-    const int rows = min(BQ, T_len - q0);
-    const long long q_stride = static_cast<long long>(H) * HD;    // between positions
+__device__ __forceinline__ float sum8(float x) {
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+    return x;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NT, 1)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                 int H, int KV, Mask mask, float scale) {
+    using L = FwdLayout<HD>;
+    constexpr int M = HD / 32;           // query rows per thread in the P V product
+    extern __shared__ __align__(16) float smem[];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int role = warp >> 3, rw = warp & 7;  // role r sums S over its half of d
+    const int ty = (rw >> 1) * 4 + (lane >> 3), tx = (rw & 1) * 8 + (lane & 7);
+    const int si = warp * 4 + (lane >> 3), sj = lane & 7;  // phase B: row si, keys sj + 8c
+    const int ti = (warp / (HD / 32)) * 4 + (lane >> 3), td = (warp % (HD / 32)) * 8 + (lane & 7);
+    const int T_len = mask.T_len, S_len = mask.S_len;
+    const int nqt = (T_len + BQ - 1) / BQ, q0 = (nqt - 1 - blockIdx.y) * BQ;
+    const int rows = min(BQ, T_len - q0), nk = (S_len + BK - 1) / BK;
+    const long long q_stride = static_cast<long long>(H) * HD;
     const long long kv_stride = static_cast<long long>(KV) * HD;
-    const T* qb = q + (static_cast<long long>(b) * T_len * H + h) * HD;
-    const T* kb = k + (static_cast<long long>(b) * S_len * KV + kvh) * HD;
-    const T* vb = v + (static_cast<long long>(b) * S_len * KV + kvh) * HD;
-    T* ob = o + (static_cast<long long>(b) * T_len * H + h) * HD;
+    auto q_off = [&]() {                 // of row q0 in q and o
+        const int bx = block_x();
+        return (static_cast<long long>(bx / H) * T_len + q0) * q_stride + (bx % H) * HD;
+    };
 
-    for (int i = tid; i < BQ * HD; i += NT) {
-        const int r = i / HD, c = i % HD;
-        Qs[r * L::QS + c] = r < rows ? to_float(qb[(q0 + r) * q_stride + c]) : 0.f;
-    }
+    auto load_keys = [&](int kt, int buf) {
+        const int bx = block_x(), k0 = kt * BK;
+        const long long kv_off = (static_cast<long long>(bx / H) * S_len + k0) * kv_stride +
+                                 (bx % H) / (H / KV) * HD;
+        load_tile<HD, true>(smem + L::k + buf * L::ktile, k + kv_off, kv_stride, min(BK, S_len - k0));
+        load_tile<HD, true>(smem + L::v + buf * L::ktile, v + kv_off, kv_stride, min(BK, S_len - k0));
+    };
 
-    // Per-row state of this warp's rows; every lane holds the same values.
-    float m[RPW], l[RPW], acc[RPW][DPL];
-#pragma unroll
-    for (int rr = 0; rr < RPW; ++rr) {
-        m[rr] = NEG_INF;
-        l[rr] = 0.f;
-#pragma unroll
-        for (int dd = 0; dd < DPL; ++dd) acc[rr][dd] = 0.f;
-    }
+    load_tile<HD, false>(smem + L::q, q + q_off(), q_stride, rows);
+    int kt = next_key_tile(0, nk, mask, q0);
+    if (kt < nk) load_keys(kt, 0);
+    cp_async_commit();
 
-    const int q_first = q0 + q_offset;               // absolute positions
-    const int q_last = q0 + rows - 1 + q_offset;
-    const int n_tiles = (S_len + BK - 1) / BK;
-    for (int kt = 0; kt < n_tiles; ++kt) {
+    const float* part = smem + L::s;     // role r's partial at part + r * BQ * BK
+    float* pt = smem + L::pt;
+    float* alpha_s = smem + L::stats;
+    float* l_s = alpha_s + BQ;
+    float m_row = NEG_INF, l_row = 0.f;  // row si's running max and sum
+    float acc[M][4] = {};
+    for (int buf = 0; kt < nk; buf ^= 1) {
+        cp_async_wait_all();
+        __syncthreads();                 // key tile kt landed; the last tile's readers are done
+        const int ktn = next_key_tile(kt + 1, nk, mask, q0);
+        if (ktn < nk) load_keys(ktn, buf ^ 1);
+        cp_async_commit();
+
         const int k0 = kt * BK;
-        const int k_last = min(k0 + BK, S_len) - 1;
-        // Tile-level pruning, the TPU kernel's `live` (the same for the block).
-        if (causal && k0 > q_last) break;
-        if (window > 0 && k_last <= q_first - window) continue;
 
-        __syncthreads();                             // last tile's readers are done
-        for (int i = tid; i < BK * HD; i += NT) {
-            const int r = i / HD, c = i % HD;
-            const bool in = k0 + r < S_len;
-            Ks[r * L::KS + c] = in ? to_float(kb[(k0 + r) * kv_stride + c]) : 0.f;
-            Vs[r * L::VS + c] = in ? to_float(vb[(k0 + r) * kv_stride + c]) : 0.f;
-        }
-        __syncthreads();
-
-        // Scores: thread (ty, tx) makes rows 4ty..4ty+3 x columns tx + 16c.
+        // A: role r's partial S over chunks 4r..4r+3 of every 32 floats of d,
+        // at rows ty + 16r', keys tx + 16c.
         {
-            const int ty = tid >> 4, tx = tid & 15;
-            float sacc[4][4];
+            float s[4][4] = {};
+            rows_dot_rows<HD, 4>(s, smem + L::q, smem + L::k + buf * L::ktile, ty, tx, 4 * role);
+            float* mine = smem + L::s + role * BQ * BK;
 #pragma unroll
             for (int r = 0; r < 4; ++r)
 #pragma unroll
-                for (int c = 0; c < 4; ++c) sacc[r][c] = 0.f;
-#pragma unroll 8
-            for (int d = 0; d < HD; ++d) {
-                float qv[4], kv[4];
-#pragma unroll
-                for (int r = 0; r < 4; ++r) qv[r] = Qs[(4 * ty + r) * L::QS + d];
-#pragma unroll
-                for (int c = 0; c < 4; ++c) kv[c] = Ks[(tx + 16 * c) * L::KS + d];
-#pragma unroll
-                for (int r = 0; r < 4; ++r)
-#pragma unroll
-                    for (int c = 0; c < 4; ++c) sacc[r][c] = fmaf(qv[r], kv[c], sacc[r][c]);
-            }
-#pragma unroll
-            for (int r = 0; r < 4; ++r)
-#pragma unroll
-                for (int c = 0; c < 4; ++c) Ss[(4 * ty + r) * L::SS + tx + 16 * c] = sacc[r][c] * scale;
+                for (int c = 0; c < 4; ++c) mine[p_at(ty + 16 * r, tx + 16 * c)] = s[r][c];
         }
         __syncthreads();
 
-        // Online softmax and P*V, each warp on its own RPW rows.
+        // B: online softmax of row si over keys sj + 8c; P^T and alpha out.
+        {
+            float sv[8];
+            float mx = -CUDART_INF_F;
 #pragma unroll
-        for (int rr = 0; rr < RPW; ++rr) {
-            const int r = warp * RPW + rr;
-            const int qpos = q0 + r + q_offset;
-            float sv[2];
-            bool ok[2];
-            float mx = NEG_INF;
-#pragma unroll
-            for (int c = 0; c < 2; ++c) {
-                const int j = lane + 32 * c, kpos = k0 + j;
-                ok[c] = kpos < S_len && (!causal || kpos <= qpos) &&
-                        (window <= 0 || kpos > qpos - window);
-                sv[c] = Ss[r * L::SS + j];
-                if (ok[c]) mx = fmaxf(mx, sv[c]);
+            for (int c = 0; c < 8; ++c) {
+                const int j = sj + 8 * c, at = p_at(si, j);
+                const float x = (part[at] + part[BQ * BK + at]) * scale;
+                sv[c] = mask.visible(q0 + si, k0 + j) ? x : -CUDART_INF_F;
+                mx = fmaxf(mx, sv[c]);
             }
-            mx = warp_max(mx);
-            const float m_new = fmaxf(m[rr], mx);
+            const float m_new = fmaxf(m_row, max8(mx));   // finite: m_row >= NEG_INF
             float psum = 0.f;
 #pragma unroll
-            for (int c = 0; c < 2; ++c) {
-                const float p = ok[c] ? expf(sv[c] - m_new) : 0.f;
-                Ss[r * L::SS + lane + 32 * c] = p;
+            for (int c = 0; c < 8; ++c) {
+                const float p = expf(sv[c] - m_new);     // 0 where masked
+                pt[dst_at(sj + 8 * c, si)] = p;
                 psum += p;
             }
-            psum = warp_sum(psum);
-            const float alpha = expf(m[rr] - m_new);
-            m[rr] = m_new;
-            l[rr] = alpha * l[rr] + psum;
-#pragma unroll
-            for (int dd = 0; dd < DPL; ++dd) acc[rr][dd] *= alpha;
+            const float alpha = expf(m_row - m_new);
+            m_row = m_new;
+            l_row = alpha * l_row + sum8(psum);
+            if (sj == 0) alpha_s[si] = alpha;
         }
-        __syncwarp();                                // P rows written by this warp
+        __syncthreads();
 
-        for (int j = 0; j < BK; ++j) {
-            float vv[DPL];
+        // C: acc = alpha acc + P V, all 16 warps, at rows ti * M + m and
+        // dims 4 td + n.
+        {
+            float al[M];
+            load_vec<M>(al, alpha_s + ti * M);
 #pragma unroll
-            for (int dd = 0; dd < DPL; ++dd) vv[dd] = Vs[j * L::VS + lane + 32 * dd];
+            for (int m = 0; m < M; ++m)
 #pragma unroll
-            for (int rr = 0; rr < RPW; ++rr) {
-                const float p = Ss[(warp * RPW + rr) * L::SS + j];
-#pragma unroll
-                for (int dd = 0; dd < DPL; ++dd) acc[rr][dd] = fmaf(p, vv[dd], acc[rr][dd]);
-            }
+                for (int n = 0; n < 4; ++n) acc[m][n] *= al[m];
+            cols_by_rows<HD, M, true, true>(acc, pt, smem + L::v + buf * L::ktile, ti * M, td);
         }
+        kt = ktn;
     }
+    cp_async_wait_all();                 // a block with no visible tile still has q in flight
 
+    if (sj == 0) {
+        l_s[si] = l_row;
+        if (lse != nullptr && si < rows)
+            lse[static_cast<long long>(blockIdx.x) * T_len + q0 + si] =
+                l_row == 0.f ? CUDART_INF_F : m_row + logf(l_row);
+    }
+    __syncthreads();
 #pragma unroll
-    for (int rr = 0; rr < RPW; ++rr) {
-        const int r = warp * RPW + rr;
-        if (r >= rows) continue;
-        const float safe = l[rr] == 0.f ? 1.f : l[rr];
-#pragma unroll
-        for (int dd = 0; dd < DPL; ++dd)
-            ob[(q0 + r) * q_stride + lane + 32 * dd] = from_float<T>(acc[rr][dd] / safe);
-        if (lse != nullptr && lane == 0)
-            lse[static_cast<long long>(blockIdx.y) * T_len + q0 + r] =
-                l[rr] == 0.f ? CUDART_INF_F : m[rr] + logf(l[rr]);
+    for (int m = 0; m < M; ++m) {
+        const int i = ti * M + m;
+        if (i < rows) {
+            const float safe = l_s[i] == 0.f ? 1.f : l_s[i];
+            *reinterpret_cast<float4*>(o + q_off() + i * q_stride + 4 * td) =
+                make_float4(acc[m][0] / safe, acc[m][1] / safe, acc[m][2] / safe,
+                            acc[m][3] / safe);
+        }
     }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int T_len,
-           int S_len, int H, int KV, int causal, int window, int q_offset, float scale,
-           cudaStream_t stream) {
-    auto kernel = flash_fwd_kernel<T, HD>;
-    constexpr size_t smem = Layout<HD>::bytes;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
+template <int HD>
+cudaError_t set_smem() {
+    return cudaFuncSetAttribute(flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(FwdLayout<HD>::bytes));
+}
+
+template <int HD>
+int launch(const float* q, const float* k, const float* v, float* o, float* lse, int B, int H,
+           int KV, Mask mask, float scale, cudaStream_t stream) {
+    const cudaError_t err = set_smem<HD>();
     if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((T_len + BQ - 1) / BQ, B * H);
-    kernel<<<grid, NT, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                       static_cast<const T*>(v), static_cast<T*>(o), lse, T_len,
-                                       S_len, H, KV, causal, window, q_offset, scale);
+    const dim3 grid(B * H, (mask.T_len + BQ - 1) / BQ);
+    flash_fwd_kernel<HD><<<grid, NT, FwdLayout<HD>::bytes, stream>>>(q, k, v, o, lse, H, KV,
+                                                                     mask, scale);
     return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int occupancy(int* out) {
+    cudaError_t err = set_smem<HD>();
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 1, flash_fwd_kernel<HD>, NT,
+                                                            FwdLayout<HD>::bytes);
+    out[0] = static_cast<int>(FwdLayout<HD>::bytes);
+    return static_cast<int>(err);
 }
 
 }  // namespace
 
-// q, o: [B,T,H,hd]; k, v: [B,S,KV,hd]; all contiguous fp32. lse: fp32
-// [B,H,T] or null.
+// q, o: [B,T,H,hd]; k, v: [B,S,KV,hd]; all contiguous fp32, q, k, v and o
+// 16-byte aligned. lse: fp32 [B,H,T] or null.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int B, int T_len, int S_len, int H, int KV, int hd,
                                    int causal, int window, int q_offset, float scale,
                                    void* stream) {
-    if (B <= 0 || T_len <= 0 || S_len <= 0 || KV <= 0 || H % KV != 0 || B * H > 65535)
+    if (B <= 0 || T_len <= 0 || S_len <= 0 || KV <= 0 || H % KV != 0 || B * H > 65535 ||
+        (T_len + BQ - 1) / BQ > 65535)
         return static_cast<int>(cudaErrorInvalidValue);
+    const Mask mask{T_len, S_len, causal, window, q_offset};
+    auto f = [](const void* p) { return static_cast<const float*>(p); };
+    auto w = [](void* p) { return static_cast<float*>(p); };
     auto s = static_cast<cudaStream_t>(stream);
-    auto l = static_cast<float*>(lse);
     switch (hd) {
-        case 32: return launch<float, 32>(q, k, v, o, l, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
-        case 64: return launch<float, 64>(q, k, v, o, l, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
-        case 128: return launch<float, 128>(q, k, v, o, l, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
+        case 32: return launch<32>(f(q), f(k), f(v), w(o), w(lse), B, H, KV, mask, scale, s);
+        case 64: return launch<64>(f(q), f(k), f(v), w(o), w(lse), B, H, KV, mask, scale, s);
+        case 128: return launch<128>(f(q), f(k), f(v), w(o), w(lse), B, H, KV, mask, scale, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+// out[0..1] = dynamic shared memory of the forward kernel (bytes) and its
+// blocks per SM, at head dim hd.
+extern "C" int flash_attention_fwd_occupancy(int hd, int* out) {
+    switch (hd) {
+        case 32: return occupancy<32>(out);
+        case 64: return occupancy<64>(out);
+        case 128: return occupancy<128>(out);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

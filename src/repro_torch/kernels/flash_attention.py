@@ -4,8 +4,9 @@ Function and their plain versions.
 ``flash_attention`` runs ``flash_attention_ref`` on a CPU tensor. On a CUDA
 tensor the dtype alone picks the forward kernel: bf16 launches the
 tensor-core kernel of ``csrc/flash_attention_sm90.cu`` (wgmma, TMA), fp32
-the CUDA-core kernel of ``csrc/flash_attention.cu`` (TF32 would break fp32's
-tolerance). Both replace the Pallas TPU kernel
+the CUDA-core kernel of ``csrc/flash_attention.cu`` (16 warps, cp.async
+double-buffered tiles; TF32 would break fp32's tolerance). Both take q, k
+and v 16-byte aligned and replace the Pallas TPU kernel
 ``repro/kernels/flash_attention.py`` (see the notes at the top of the CUDA
 sources for what bounds them and how).
 
@@ -34,7 +35,7 @@ _ENTRY = {torch.float32: "flash_attention_fwd",          # CUDA cores
 _ARGTYPES = {"flash_attention_fwd": (ctypes.c_void_p,) * 5 + _SCALARS,  # + lse
              "flash_attention_sm90_fwd": (ctypes.c_void_p,) * 4 + _SCALARS}
 _BWD_ARGTYPES = (ctypes.c_void_p,) * 10 + _SCALARS
-_BWD_OCC_ARGTYPES = (ctypes.c_int, ctypes.c_void_p)
+_OCC_ARGTYPES = (ctypes.c_int, ctypes.c_void_p)
 BF16_BACKWARD = ("the bf16 flash_attention backward is not written yet "
                  "(ROADMAP.md queue 2 item 4); train in fp32")
 
@@ -121,10 +122,11 @@ def _check(q, k, v):
         if t.dim() != 4 or not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be a contiguous "
                              f"4-d tensor, got shape {tuple(t.shape)}")
-        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: bf16 {name} at "
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {str(t.dtype)[6:]} {name} at "
                              f"{t.data_ptr():#x} is not 16-byte aligned "
-                             "(the tensor-core kernel loads it by TMA)")
+                             "(the kernels load it by TMA or 16-byte "
+                             "cp.async)")
     B, T, H, hd = q.shape
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
@@ -199,10 +201,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                 or t.device != q.device or not t.is_contiguous()):
             raise ValueError(f"flash_attention_bwd: {name} must be a "
                              f"contiguous fp32 {tuple(shape)} on {q.device}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention_bwd: {name} at "
-                             f"{t.data_ptr():#x} is not 16-byte aligned")
+    if do.data_ptr() % 16:                   # q, k, v: _check
+        raise ValueError(f"flash_attention_bwd: do at {do.data_ptr():#x} "
+                         "is not 16-byte aligned")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
     fn = build.function("flash_attention_bwd", _BWD_ARGTYPES)
@@ -249,11 +250,20 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return _forward(q, k, v, causal, window, q_offset, with_lse=False)[0]
 
 
+def fwd_occupancy(hd: int) -> dict:
+    """Dynamic shared memory per block and blocks per SM of the fp32
+    forward kernel at head dim ``hd`` on the current card."""
+    out = (ctypes.c_int * 2)()
+    fn = build.function("flash_attention_fwd_occupancy", _OCC_ARGTYPES)
+    build.check(fn(hd, ctypes.addressof(out)), "flash_attention_fwd_occupancy")
+    return {"smem_bytes": out[0], "blocks_per_sm": out[1]}
+
+
 def bwd_occupancy(hd: int) -> dict:
     """Dynamic shared memory per block and blocks per SM of the backward's
     dk/dv and dq kernels at head dim ``hd`` on the current card."""
     out = (ctypes.c_int * 4)()
-    fn = build.function("flash_attention_bwd_occupancy", _BWD_OCC_ARGTYPES)
+    fn = build.function("flash_attention_bwd_occupancy", _OCC_ARGTYPES)
     build.check(fn(hd, ctypes.addressof(out)), "flash_attention_bwd_occupancy")
     return {"dkdv_smem_bytes": out[0], "dkdv_blocks_per_sm": out[1],
             "dq_smem_bytes": out[2], "dq_blocks_per_sm": out[3]}

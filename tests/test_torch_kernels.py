@@ -162,6 +162,88 @@ def test_flash_sm90_bf16_arithmetic_vs_pallas(B, T, S, H, KV, hd):
     _close(got, want, TOL["bfloat16"])
 
 
+def _cuda_core_emulation(q, k, v, *, causal, window=0, q_offset=0,
+                         block_k=64):
+    """The fp32 CUDA-core kernel's arithmetic (``csrc/flash_attention.cu``)
+    written out in fp32: 64-key tiles, S as the sum of two partials, one
+    over the first 16 floats of every 32 of d and one over the other 16
+    (the block's two halves), times the scale, then masked; the running
+    max from -1e30, P = exp(S - m), alpha = exp(m_old - m), fp32 row sums;
+    lse = m + log(l), +inf where l == 0. Returns (out, lse [B,H,T])."""
+    B, T, H, hd = q.shape
+    S, group = k.shape[1], H // k.shape[2]
+    qf = q.float().transpose(1, 2)
+    kf = k.float().repeat_interleave(group, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(group, dim=2).transpose(1, 2)
+    first = (torch.arange(hd) % 32) < 16         # role 0's half of d
+    ok = flash_module.visible(T, S, q_offset, causal, window, q.device)
+    m = torch.full((B, H, T, 1), flash_module.NEG_INF)
+    l = torch.zeros(B, H, T, 1)
+    acc = torch.zeros(B, H, T, hd)
+    for k0 in range(0, S, block_k):
+        kt = kf[:, :, k0:k0 + block_k]
+        s = (qf[..., first] @ kt[..., first].transpose(-1, -2)
+             + qf[..., ~first] @ kt[..., ~first].transpose(-1, -2))
+        s = torch.where(ok[:, k0:k0 + block_k], s * (1.0 / math.sqrt(hd)),
+                        -math.inf)
+        new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - new)
+        alpha = torch.exp(m - new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = alpha * acc + p @ vf[:, :, k0:k0 + block_k]
+        m = new
+    out = acc / torch.where(l == 0, 1.0, l)
+    lse = torch.where(l == 0, math.inf, m + torch.log(l))[..., 0]
+    return out.transpose(1, 2).to(q.dtype), lse
+
+
+def _lse_close(got, want, tol=1e-5):
+    """Rows with a visible key within tol + tol * |want|; the +inf rows
+    (no visible key) identical."""
+    inf = torch.isinf(want)
+    assert torch.equal(torch.isinf(got), inf) and bool((got[inf] > 0).all())
+    err = (got[~inf] - want[~inf]).abs()
+    assert bool((err <= tol + tol * want[~inf].abs()).all()), float(err.max())
+
+
+@pytest.mark.parametrize("B,T,S,H,KV,hd", [
+    (1, 128, 128, 4, 4, 64), (2, 128, 128, 4, 2, 64), (1, 256, 256, 8, 1, 32),
+    (1, 128, 384, 4, 4, 64), (2, 384, 384, 2, 2, 128),
+])                                       # the grid of tests/test_kernels.py
+def test_flash_fp32_kernel_arithmetic_vs_pallas(B, T, S, H, KV, hd):
+    """The fp32 kernel's split sum of S and its online softmax stay inside
+    fp32's tolerance of the Pallas kernel, and its lse within 1e-5 of the
+    plain version's."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(8, (B, T, H, hd), (B, S, KV, hd),
+                                         (B, S, KV, hd))
+    off = S - T
+    want = jax_flash(jq, jk, jv, causal=True, q_offset=off, block_q=128,
+                     block_k=128, interpret=True)
+    got, lse = _cuda_core_emulation(tq, tk, tv, causal=True, q_offset=off)
+    _close(got, want, TOL["float32"])
+    _, want_lse = flash_attention_ref(tq, tk, tv, q_offset=off, with_lse=True)
+    _lse_close(lse, want_lse)
+
+
+@pytest.mark.parametrize("T,S,causal,window,q_offset", [
+    (256, 256, True, 64, 0), (128, 128, False, 0, 0), (1, 77, True, 0, 76),
+    (37, 100, True, 0, 63), (137, 73, True, 0, -64),
+])
+def test_flash_fp32_kernel_arithmetic_masks_and_empty_rows(T, S, causal,
+                                                           window, q_offset):
+    """Window, non-causal and ragged cases against the plain version; at
+    q_offset -64 the first 64 rows see no key: 0 out, +inf lse."""
+    _, (q, k, v) = _inputs(9, (1, T, 4, 32), (1, S, 2, 32), (1, S, 2, 32))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got, lse = _cuda_core_emulation(q, k, v, **kw)
+    want, want_lse = flash_attention_ref(q, k, v, with_lse=True, **kw)
+    _close(got, want, TOL["float32"])
+    _lse_close(lse, want_lse)
+    if q_offset < 0:
+        assert torch.isinf(lse[..., :-q_offset]).all()
+        assert torch.all(got[:, :-q_offset] == 0)
+
+
 def _chip_smoke():
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
@@ -567,6 +649,21 @@ def test_other_devices_raise():
         rmsnorm(q, torch.empty(32, device="meta"))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_check_rejects_a_view_off_16_byte_alignment(dtype):
+    """Both kernels copy q, k and v in 16-byte pieces (cp.async, TMA): a
+    contiguous view one element into its buffer raises, never falls back."""
+    flat = torch.zeros(1 + 2 * 8 * 4 * 32, dtype=dtype)
+    aligned = flat[:-1].view(2, 8, 4, 32)
+    off = flat[1:].view(2, 8, 4, 32)
+    assert aligned.data_ptr() % 16 == 0 and off.is_contiguous()
+    flash_module._check(aligned, aligned, aligned)
+    for args in ((off, aligned, aligned), (aligned, off, aligned),
+                 (aligned, aligned, off)):
+        with pytest.raises(ValueError, match="not 16-byte aligned"):
+            flash_module._check(*args)
+
+
 def test_build_compiles_every_source_for_sm90a(monkeypatch):
     """One nvcc per source (run in parallel), then one link of the objects."""
     monkeypatch.setattr(build, "nvcc", lambda: "nvcc")
@@ -771,9 +868,11 @@ def test_backward_wrappers_raise_on_other_devices():
     ("flash_attention_bwd", "flash_attention_bwd.cu",
      flash_module._BWD_ARGTYPES),
     ("flash_attention_bwd_occupancy", "flash_attention_bwd.cu",
-     flash_module._BWD_OCC_ARGTYPES),
+     flash_module._OCC_ARGTYPES),
     ("rmsnorm_fwd", "rmsnorm.cu", rms_module._ARGTYPES),
     ("rmsnorm_bwd", "rmsnorm_bwd.cu", rms_module._BWD_ARGTYPES),
+    ("flash_attention_fwd_occupancy", "flash_attention.cu",
+     flash_module._OCC_ARGTYPES),
 ])
 def test_c_entries_take_what_the_wrappers_pass(entry, source, argtypes):
     """Each C entry is defined by its source and takes as many arguments as
@@ -782,29 +881,61 @@ def test_c_entries_take_what_the_wrappers_pass(entry, source, argtypes):
     assert _c_params((build.CSRC / source).read_text(), entry) == len(argtypes)
 
 
+def _code(name):
+    """A CUDA source without its comments."""
+    return "\n".join(line.split("//")[0] for line in
+                     (build.CSRC / name).read_text().splitlines())
+
+
 def test_backward_kernels_are_deterministic_and_write_lse():
     """No float atomics in the backward kernels (fixed summation order),
-    and the fp32 forward writes +inf lse for a row with no visible key."""
+    and the fp32 forward writes +inf lse for a row with no visible key
+    (l == 0), m + log(l) otherwise, from the row's running max and sum."""
     for name in ("flash_attention_bwd.cu", "rmsnorm_bwd.cu"):
-        code = "\n".join(line.split("//")[0] for line in
-                         (build.CSRC / name).read_text().splitlines())
-        assert "atomic" not in code
-    fwd = (build.CSRC / "flash_attention.cu").read_text()
-    assert "l[rr] == 0.f ? CUDART_INF_F : m[rr] + logf(l[rr])" in fwd
+        assert "atomic" not in _code(name)
+    assert ("l_row == 0.f ? CUDART_INF_F : m_row + logf(l_row)"
+            in _code("flash_attention.cu"))
 
 
 def test_flash_bwd_kernels_copy_tiles_asynchronously():
     """The backward's tiles come in by 16-byte cp.async, double-buffered and
     waited for before the block barrier; each kernel is one block of 16
-    warps per SM; the products stay on the CUDA cores (no mma, no wgmma)."""
-    src = (build.CSRC / "flash_attention_bwd.cu").read_text()
-    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    warps per SM; the products stay on the CUDA cores (no mma, no wgmma).
+    The copies and NT live in the header the source includes."""
+    code = _code("flash_attention_bwd.cu") + _code("flash_tiles.cuh")
     for used in ("cp.async.cg.shared.global", "cp.async.commit_group",
                  "cp.async.wait_group 0", "constexpr int NT = 512;",
                  "__launch_bounds__(NT, 1)", "buf ^ 1"):
         assert used in code
     for gone in ("mma", "wgmma", "tf32", "atomic"):
         assert gone not in code.lower()
+
+
+def test_flash_fwd_kernel_copies_tiles_asynchronously():
+    """The fp32 forward's tiles come in by 16-byte cp.async, k and v
+    double-buffered; one block of 16 warps per SM; the products stay on the
+    CUDA cores, with no atomics; the two halves each sum S over chunks
+    4r..4r+3 of every 32 floats of d, as the emulation above does; both
+    flash sources build on the shared header; the kernel keeps the name
+    that chip_smoke.py finds in its traces."""
+    code = _code("flash_attention.cu")
+    for used in ("cp_async_commit()", "cp_async_wait_all()",
+                 "load_tile<HD, true>", "load_tile<HD, false>",
+                 "__launch_bounds__(NT, 1)", "buf ^ 1",
+                 "rows_dot_rows<HD, 4>(", "4 * role)",
+                 "cols_by_rows<HD, M, true, true>", "expf(sv[c] - m_new)",
+                 "flash_fwd_kernel<HD><<<"):
+        assert used in code, used
+    for gone in ("mma", "wgmma", "tf32", "atomic", "exp2"):
+        assert gone not in code.lower()
+    tiles = _code("flash_tiles.cuh")
+    for used in ("cp.async.cg.shared.global", "cp.async.commit_group",
+                 "cp.async.wait_group 0", "constexpr int NT = 512;"):
+        assert used in tiles
+    for name in ("flash_attention.cu", "flash_attention_bwd.cu"):
+        assert '#include "flash_tiles.cuh"' in _code(name)
+    smoke = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
+    assert smoke.count('"flash_fwd_kernel') >= 2
 
 
 @pytest.mark.parametrize("rows,d,sms", [(2048, 1024, 132), (32768, 128, 132),
