@@ -85,9 +85,30 @@ Phases, in order; any failure raises and the script exits non-zero:
      on the last member's trained params: no param leaf requires grad, no
      cache leaf carries autograd state, and the tokens equal an engine's on
      a detached copy.
-6. Print the kernels' JSON line (the fp32 forward and both backward kernels
-   with their training launches beside the serving kernels), the card
-   line, and as the last line ``{"ok": true, "device": {...}}``.
+5c. The sweep's command line (``repro_torch.launch.sweep``: preposition,
+   supervisor, one task array of members on the inline backend):
+   - ``python -m repro_torch.launch.sweep`` as a user runs it (16 members
+     x 5 steps on the card) in a subprocess with ``PYTHONPATH=<root>/src``
+     under a timeout, finding phase 2's library: exit 0 and ``launched
+     16/16 members``; its process wall time, ``prepositioned in`` and
+     members/s are logged;
+   - ``run_sweep`` with the same defaults in this process: warm cache
+     ``{warms 1, hits 16, misses 0}``, 16 of 16 ok, exactly 81 member
+     steps' launches (the warm step and 16 x 5), the prepositioned params
+     bit-equal to a fresh seed-0 init after the sweep, the final losses
+     within 1e-6 of 5b's hand-run sweep (bit-equality logged); member
+     launch times logged;
+   - the supervisor at full width (qwen3-0.6b fp32, 28 layers, 5b's
+     seed-0 params and 4 x 512 batch): prepositioned through the warm
+     cache (``build_s``, ``first_step_s`` logged), then 3 members x 3 steps
+     at lr 1e-3, 1e-3, 3e-4, launched one at a time under the quota of one
+     card: 3 hits, exactly 10 steps' launches, members 0 and 1 the same
+     losses bit for bit, every first loss 5b's step-0 loss within 1e-6;
+     launch times, step times and the peak memory logged.
+6. Print the kernels' JSON line (the fp32 forward and both backward
+   kernels with their training and sweep launches beside the serving
+   kernels), the card line, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and cuDNN, so fp32 comparisons are full fp32.
 """
@@ -97,6 +118,8 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -111,6 +134,8 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import SHAPES  # noqa: E402
+from repro_torch.core import SweepSupervisor  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels import (LAUNCHES, build, flash_attention,  # noqa: E402
                                  flash_attention_bwd, flash_attention_bwd_ref,
@@ -126,7 +151,7 @@ from repro_torch.kernels.slstm_scan import (slstm_max_clusters,  # noqa: E402
 from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
 from repro_torch.launch.sweep import (build_member_step,  # noqa: E402
                                       loss_and_grads, member_config,
-                                      to_batch)
+                                      run_sweep, to_batch)
 from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
 from repro_torch.optim import adamw_init, adamw_update  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
@@ -1474,6 +1499,183 @@ def train_sweep():
                       "wall_s": wall, "final_losses": finals}
 
 
+# --------------------------------------------------------------------------
+# phase 5c: the sweep's command line (preposition, supervisor, task array)
+# --------------------------------------------------------------------------
+SWEEP_CLI_TIMEOUT = 300         # seconds; the CLI takes well under a minute
+FULL_GRID = ({"lr": 1e-3}, {"lr": 1e-3}, {"lr": 3e-4})
+FULL_STEPS = 3
+SWEEP_LOSS_RTOL = 1e-6
+
+
+def sweep_cli():
+    """``python -m repro_torch.launch.sweep`` as a user runs it (qwen3-0.6b,
+    16 members x 5 steps on the card), in a fresh process that finds the
+    kernels' library phase 2 built. Returns its metrics."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.sweep"],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=SWEEP_CLI_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for line in (proc.stdout + proc.stderr).splitlines():
+        log(f"  cli| {line}")
+    require(proc.returncode == 0, f"the sweep CLI exited {proc.returncode}")
+    want = f"launched {SWEEP_MEMBERS}/{SWEEP_MEMBERS} members"
+    require(want in proc.stdout, f"the sweep CLI did not print {want!r}")
+    prep = re.search(r"prepositioned in ([0-9.]+)s", proc.stdout)
+    rate = re.search(r"members x \d+ steps in ([0-9.]+)s \(([0-9.]+)/s",
+                     proc.stdout)
+    require(prep and rate, "the sweep CLI's lines did not parse")
+    metrics = {"process_wall_s": wall,
+               "prepositioned_s": float(prep.group(1)),
+               "sweep_s": float(rate.group(1)),
+               "members_per_s": float(rate.group(2))}
+    log("sweep cli metrics: " + json.dumps(metrics))
+    return metrics
+
+
+def sweep_in_process(want_finals):
+    """``run_sweep`` with the CLI's defaults in this process: the warm cache
+    holds one entry hit once per member, the array runs 16 of 16, the
+    launches are exactly one warm step and 80 member steps, the
+    prepositioned params come out as they went in, and the final losses are
+    ``train_sweep``'s (same seed, batches and kernels). Returns (launches,
+    metrics)."""
+    cfg = member_config("qwen3-0.6b")
+    LAUNCHES.clear()
+    run = run_sweep(cfg, SWEEP_MEMBERS, SWEEP_STEPS, device="cuda")
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    sup, arr = run.supervisor, run.result["sweep"]
+    stats = dict(sup.warmer.stats)
+    devices = sup.devices[:1]                 # run_sweep's member devices
+    entry = sup.warmer.get(cfg, SHAPES["train_4k"], devices)
+    want = {k: v * (1 + SWEEP_MEMBERS * SWEEP_STEPS)
+            for k, v in train_launches(len(cfg.block_pattern)).items()}
+    finals = [m["loss"] for m in run.members]
+    errs = [abs(a - b) / abs(b) for a, b in zip(finals, want_finals)]
+    base = sup.weights.get(cfg, devices, 0)
+    fresh = init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                        device="cuda")
+    unchanged = all(torch.equal(a, b) for a, b in
+                    zip(tree_leaves(base), tree_leaves(fresh)))
+    launch_ms = [1e3 * m["launch_s"] for m in run.members]
+    metrics = {"members": SWEEP_MEMBERS, "steps": SWEEP_STEPS,
+               "preposition_s": run.preposition_s,
+               "build_s": entry.build_s, "first_step_s": entry.first_step_s,
+               "sweep_s": run.wall_s,
+               "members_per_s": SWEEP_MEMBERS / run.wall_s,
+               "member_step_ms": run.wall_s / (SWEEP_MEMBERS * SWEEP_STEPS)
+               * 1e3,
+               "launch_ms": launch_ms, "report": sup.launch_report()}
+    log(f"sweep in process: {arr.summary}; warm cache {stats}; launches "
+        f"{launches} (expected {want}); base params "
+        f"{'unchanged' if unchanged else 'CHANGED'}; final losses vs "
+        f"train_sweep's: worst rel {max(errs):.2e} (tol "
+        f"{SWEEP_LOSS_RTOL:.0e}), "
+        f"{'bit-equal' if finals == want_finals else 'not bit-equal'}")
+    log("sweep in process metrics: " + json.dumps(metrics))
+    require(stats == {"warms": 1, "hits": SWEEP_MEMBERS, "misses": 0},
+            f"warm cache stats {stats}")
+    require(arr.summary.ok == SWEEP_MEMBERS and arr.summary.failed == 0,
+            f"sweep array {arr.summary}")
+    require(launches == want, f"sweep launch counts {launches} != {want}")
+    require(unchanged, "the sweep changed the prepositioned params")
+    require(max(errs) <= SWEEP_LOSS_RTOL,
+            "the in-process sweep's losses differ from train_sweep's")
+    return launches, metrics
+
+
+def sweep_full_width(step0_loss):
+    """The supervisor at full width: qwen3-0.6b fp32, 28 layers, seed-0
+    params and phase 5b's fixed batch, prepositioned through the warm cache,
+    then 3 members of 3 steps launched one at a time under the default quota
+    of one card, each from its own clone. Returns (launches, metrics)."""
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), param_dtype="float32",
+                              remat="none")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                               TRAIN_BATCH)
+    batch = to_batch({"tokens": tokens, "labels": tokens}, "cuda")
+    shape = SHAPES["train_4k"]
+    sup = SweepSupervisor()
+    devices = sup.devices[:1]
+
+    def seeded(seed):
+        return init_params(cfg, torch.Generator("cuda").manual_seed(seed),
+                           device="cuda")
+
+    def build():
+        def make_args():
+            params = seeded(1)
+            return params, adamw_init(params), batch, TRAIN_LR
+        return build_member_step(cfg, device="cuda"), make_args
+
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    entry = sup.preposition(cfg, shape, devices, build,
+                            init=lambda: seeded(0))
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    base = sup.weights.get(cfg, devices, 0)
+
+    def run_member(entry, member):
+        params = tree_map(torch.clone, base)
+        opt = adamw_init(params)
+        losses, ms = [], []
+        for _ in range(FULL_STEPS):
+            t = time.perf_counter()
+            params, opt, loss = entry.step(params, opt, batch,
+                                           member.hparams["lr"])
+            losses.append(float(loss))
+            ms.append((time.perf_counter() - t) * 1e3)
+        return {"losses": losses, "step_ms": ms}
+
+    members = []
+    for hp in FULL_GRID:
+        [m] = sup.launch_sweep(cfg, shape, devices, [hp], run_member)
+        require(m.state == "running", f"full-width member {m.mid} {m.state}:"
+                f" {m.result}")
+        sup.release(m)
+        members.append(m)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    want = {k: v * (1 + len(FULL_GRID) * FULL_STEPS)
+            for k, v in train_launches(cfg.n_layers).items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for m in members:
+        log(f"full-width member {m.mid} lr {m.hparams['lr']:.0e}: losses "
+            f"{m.result['losses']}, step ms "
+            f"{[round(x, 1) for x in m.result['step_ms']]}, launch "
+            f"{1e3 * m.launch_time:.1f} ms")
+    first_errs = [abs(m.result["losses"][0] - step0_loss) / step0_loss
+                  for m in members]
+    metrics = {"preposition_s": prep_s, "build_s": entry.build_s,
+               "first_step_s": entry.first_step_s,
+               "launch_ms": [1e3 * m.launch_time for m in members],
+               "step_ms": [m.result["step_ms"] for m in members],
+               "peak_mem_gib": peak, "warm_cache": dict(sup.warmer.stats),
+               "first_loss_rel_err": max(first_errs)}
+    log(f"sweep full width: launches {launches} (expected {want}); step-0 "
+        f"loss of phase 5b {step0_loss:.6f}; " + json.dumps(metrics))
+    require(sup.warmer.stats["hits"] == len(FULL_GRID),
+            f"warm cache stats {sup.warmer.stats}")
+    require(launches == want, f"full-width launch counts {launches} != "
+            f"{want}")
+    require(members[0].result["losses"] == members[1].result["losses"],
+            "two members at one lr from one base trained differently")
+    require(max(first_errs) <= SWEEP_LOSS_RTOL,
+            "a member's first loss is not phase 5b's step-0 loss")
+    require(all(math.isfinite(x) for m in members
+                for x in m.result["losses"]), "non-finite loss")
+    return launches, metrics
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA card visible; this script runs only "
@@ -1529,12 +1731,19 @@ def main():
                      {"ssd_scan": XLSTM_MLSTM, "slstm_scan": XLSTM_SLSTM,
                       "rmsnorm": XLSTM_NORMS},
                      {"rmsnorm": XLSTM_NORMS})
-    train, _ = train_full_width()                            # phase 5b
-    sweep, _ = train_sweep()
+    train, train_metrics = train_full_width()                # phase 5b
+    sweep, sweep_metrics = train_sweep()
+    torch.cuda.empty_cache()
+
+    sweep_cli()                                              # phase 5c
+    cli, _ = sweep_in_process(sweep_metrics["final_losses"])
+    full, _ = sweep_full_width(train_metrics["loss_first"])
 
     serving = {"qwen3-0.6b serve": qwen, "xlstm-1.3b serve": xlstm}
     training = {"qwen3-0.6b train (fp32, full width)": train,
-                "sweep member (qwen3-0.6b reduced, fp32)": sweep}
+                "sweep member (qwen3-0.6b reduced, fp32)": sweep,
+                "sweep CLI run_sweep (qwen3-0.6b reduced, fp32)": cli,
+                "sweep supervisor (qwen3-0.6b fp32, full width)": full}
 
     def launches(name, paths):                               # phase 6
         by_path = {path: counts.get(name, 0) for path, counts in paths.items()}

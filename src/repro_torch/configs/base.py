@@ -5,7 +5,8 @@ defaults and ``reduced()``, so a config built on one side can be rebuilt on
 the other with ``ArchConfig(**dataclasses.asdict(cfg))``. The port reads
 only the fields its ported block kinds use; the rest are kept so the two
 stay field-for-field equal. The JAX class's parameter-count methods have no
-caller in the port and are left out.
+caller in the port and are left out. ``ShapeConfig`` and ``SHAPES`` are
+copied too: the sweep's warm cache is keyed by a shape cell.
 """
 from __future__ import annotations
 
@@ -159,3 +160,20 @@ class ArchConfig:
             seq_parallel=False,
         )
 
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell from the assignment table."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k":   ShapeConfig("long_500k", 524288, 1, "decode"),
+}
