@@ -10,7 +10,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    (one nvcc per source, all at once); log ptxas's registers, shared memory
    and spills, the tensor-core flash kernel's dynamic shared memory, and the
    fp32 flash forward and backward kernels' shared memory and blocks per
-   SM.
+   SM (the forwards at hd 32, 64, 80 and 128, the backward at 32, 64 and
+   128; each must fit at least one block on an SM).
 3. The serve paths' bf16 GEMMs (prefill and decode rows) against the fp32
    product of the same operands rounded to bf16, with
    ``allow_bf16_reduced_precision_reduction`` at its default and False:
@@ -26,13 +27,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    and in bf16, the tensor-core kernel: causal, three windows, non-causal,
    T=1 at q_offset 76, T=37/S=100 at q_offset 63, then bf16 prefill
    lengths, each also held per row against the fp32 result relative to
-   the row's RMS), rmsnorm (both dtypes, the vector path and the scalar
+   the row's RMS; then hd 80, zamba2's shared block, in both dtypes:
+   B=1 T=S=137 / 1000 / 1291 H=KV=32, GQA, a window, non-causal and T=1 at
+   q_offset 76, the three prefill shapes also held per row in bf16 and
+   timed in both dtypes), rmsnorm (both dtypes, the vector path and the scalar
    one: d=100 and a view 16-byte misaligned, the q_norm decode rows
    64 x 128, and in fp32 every norm shape of both training paths),
    ssd_scan (outputs and final states, with and without an initial state,
    with the mLSTM normalizer, and one path case drawn like the served
    model: slow forgetting, exponential input gates; timed at each path
-   length), slstm_scan (outputs and final states; path cases at every
+   length; then zamba2's Mamba-2 shape, b=1 H=80 N=64 P=64 without the
+   normalizer, drawn like that model: dt = softplus(N(0, 1) + dt_bias),
+   dt_bias the inverse softplus of a log-uniform draw in [1e-3, 1e-1],
+   A = -(1..80), at T = 137 / 1000 / 1291, each timed), slstm_scan (outputs and final states; path cases at every
    path length, fp32 r at dh=512 whose rows beyond shared memory come from
    L2, and B=4; each timed, in µs per step too; the cluster shape and how
    many such clusters the card holds at once). Then the member step's
@@ -53,13 +60,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``F.scaled_dot_product_attention`` (fp32, GQA) or ``F.rms_norm``.
 5. Serve: ``ServeEngine`` at full width, bf16 weights drawn from a seeded
    generator, 4 slots, 8 requests (prompt lengths from ``default_rng(0)`` in
-   [100, 1500], 32 new tokens each), for two models in turn:
+   [100, 1500], 32 new tokens each), for three models in turn:
    - qwen3-0.6b (28 layers, 2048 positions): 28 flash launches per prefill,
      113 rmsnorm launches per prefill and per decode step;
    - xlstm-1.3b (48 blocks, 42 mLSTM + 6 sLSTM): 42 ssd_scan and 6
      slstm_scan launches per prefill (one ssd_scan call, its two kernels,
      computes an mLSTM layer's output and normalizer), 55 rmsnorm launches
-     per prefill and per decode step.
+     per prefill and per decode step;
+   - zamba2-2.7b (54 Mamba-2 layers, one shared ATTN block applied after
+     every 6, 9 times, hd 80): 54 ssd_scan and 9 flash_attention launches
+     per prefill, 127 rmsnorm launches per prefill and per decode step
+     (ln1 and the mixer's norm per Mamba-2 layer, ln1 and ln2 per shared
+     application, final_norm).
    Each checks every request finished, the exact launch counts (set to 0
    just before the phase and read just after), and teacher-forced logits of
    one request against the same model run through the plain versions on the
@@ -165,6 +177,9 @@ QWEN_LAYERS = 28
 QWEN_NORMS = 4 * QWEN_LAYERS + 1   # ln1, q_norm, k_norm, ln2 per layer + final
 XLSTM_MLSTM, XLSTM_SLSTM = 42, 6
 XLSTM_NORMS = XLSTM_MLSTM + 2 * XLSTM_SLSTM + 1   # ln1s, sLSTM ff_ln, final
+ZAMBA_LAYERS, ZAMBA_APPS = 54, 9                   # Mamba-2 layers, shared
+ZAMBA_NORMS = 2 * ZAMBA_LAYERS + 2 * ZAMBA_APPS + 1   # ln1 + mixer norm,
+                                                      # ln1 + ln2, final
 
 
 def log(*a):
@@ -334,6 +349,8 @@ RMS_EXTRA = ((64, 128), (4, 100), (1000, 100))   # q_norm decode rows; tails
 TRAIN_NORM_SHAPES = [  # rows, d: every norm of both training paths (fp32)
     (2048, 1024), (2048 * 16, 128), (2048 * 8, 128),   # full width, B.T=2048
     (256, 128), (256 * 4, 32), (256 * 2, 32)]         # sweep member, B.T=256
+ZAMBA_FLASH = (1, 32, 32, 80)                # B, H, KV, hd of zamba2's prefill
+ZAMBA_T = (137, 1000, 1291)                  # its prefill lengths here
 REPORT_T = 1000                              # the JSON line's flash shape
 REPORT_RMS = "rows=16000 d=128 bfloat16"     # q_norm rows at T=1000
 
@@ -352,6 +369,14 @@ def check_flash(gen):
                   (1, 37, 100, 4, 2, 64, dtype, True, 0, 63)]
     for T in PATH_T:
         cases.append((1, T, T, 16, 8, 128, torch.bfloat16, True, 0, 0))
+    B, H, KV, hd = ZAMBA_FLASH
+    for dtype in (torch.float32, torch.bfloat16):
+        cases += [(B, T, T, H, KV, hd, dtype, True, 0, 0)
+                  for T in ZAMBA_T]
+        cases += [(2, 128, 128, 4, 2, hd, dtype, True, 0, 0),
+                  (1, 256, 256, 4, 4, hd, dtype, True, 64, 0),
+                  (2, 128, 128, 2, 2, hd, dtype, False, 0, 0),
+                  (1, 1, 77, 4, 2, hd, dtype, True, 0, 76)]
     path = {}
     for B, T, S, H, KV, hd, dtype, causal, window, off in cases:
         q = randn(gen, B, T, H, hd, dtype=dtype)
@@ -371,6 +396,12 @@ def check_flash(gen):
                 and T == S and causal and off == 0:
             check_flash_rows(q, k, v, got, name)
             path[T] = time_flash(q, k, v, err)
+        if (B, H, KV, hd) == ZAMBA_FLASH and T in ZAMBA_T:
+            if dtype == torch.bfloat16:
+                check_flash_rows(q, k, v, got, name)
+                path[hd, T] = time_flash(q, k, v, err)
+            else:
+                path[hd, T, "fp32"] = time_flash_fwd(q, k, v, err)
     return path
 
 
@@ -867,6 +898,7 @@ SSD_GRID = [(1, 128, 4, 1, 16, 32), (2, 256, 2, 2, 8, 64),
             (1, 512, 8, 1, 16, 32)]          # tests/test_kernels.py:124-128
 SSD_PATH = (1, 4, 512, 1024)                 # mLSTM: b, H, N=dqk, P=dv
 SSD_PATH_T = (137, 1000, 1291)
+SSD_MAMBA = (1, 80, 64, 64)                  # Mamba-2 (zamba2): b, H, N, P
 SLSTM_GRID = [(2, 64, 2, 16), (1, 128, 4, 32),
               (3, 128, 1, 64)]               # tests/test_kernels.py:197-201
 SLSTM_PATH = (1, 4, 512)                     # sLSTM: B, nh, dh
@@ -885,6 +917,23 @@ def model_like_ssd(gen, b, T, H, N, P):
     x = randn(gen, b, T, H, P) * w[..., None]
     return x, a, randn(gen, b, T, H, N, scale=1 / math.sqrt(N)), \
         randn(gen, b, T, H, N), w
+
+
+def mamba2_like_ssd(gen, b, T, H, N, P):
+    """Mamba-2 inputs drawn as zamba2 makes them at random init:
+    dt = softplus(N(0, 1) + dt_bias), dt_bias the inverse softplus of a
+    per-head log-uniform draw in [1e-3, 1e-1], A = -(1..H), a = dt * A
+    (per-step decays down to e^-8 and beyond on the fast heads: exp(a_cum)
+    underflows to 0 within a chunk), x = silu(N(0, 1)) * dt, B and C the
+    one group's silu(N(0, 1)) expanded to every head, all fp32."""
+    u = torch.rand(H, generator=gen, device="cuda")
+    dt0 = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    dt = F.softplus(randn(gen, b, T, H) + torch.log(torch.expm1(dt0)))
+    a = dt * -torch.arange(1, H + 1, dtype=torch.float32, device="cuda")
+    x = F.silu(randn(gen, b, T, H, P)) * dt[..., None]
+    B, C = (F.silu(randn(gen, b, T, 1, N)).expand(b, T, H, N).contiguous()
+            for _ in range(2))
+    return x, a, B, C
 
 
 def check_ssd(gen):
@@ -925,31 +974,45 @@ def check_ssd(gen):
     compare("ssd_scan", f"b={b} T={T} H={H} N={N} P={P} fp32 normalizer "
             "initial_state=True, drawn like the model", got,
             ssd_scan_ref(x, a, B, C, **kw))
+    b, H, N, P = SSD_MAMBA
+    for T in ZAMBA_T:
+        x, a, B, C = mamba2_like_ssd(gen, b, T, H, N, P)
+        got = ssd_scan(x, a, B, C)
+        torch.cuda.synchronize()
+        err = compare("ssd_scan", f"b={b} T={T} H={H} N={N} P={P} fp32, "
+                      "drawn like Mamba-2 (zamba2)", got,
+                      ssd_scan_ref(x, a, B, C))
+        path["mamba2", T] = time_ssd(x, a, B, C, None, err)
     return path
 
 
 def time_ssd(x, a, B, C, w, err):
+    """The bound counts the kernel's inputs as they are given: B and C
+    with their groups already expanded to every head."""
     b, T, H, P = x.shape
     N = B.shape[-1]
-    flops = 4 * b * T * H * N * (P + 1)    # update + output, P columns + n
+    cols = P + (w is not None)             # P columns, + n with a normalizer
+    flops = 4 * b * T * H * N * cols       # update + output
     nbytes = 4 * (2 * x.numel() + a.numel() + B.numel() + C.numel()
-                  + 2 * w.numel() + b * H * N * (P + 1))
+                  + (0 if w is None else 2 * w.numel()) + b * H * N * cols)
     bound = {"operations": flops / PEAK_F32 * 1e3,
              "bytes": nbytes / HBM * 1e3}
-    kernel = lambda: ssd_scan(x, a, B, C, norm_weights=w)
+    kw = {} if w is None else {"norm_weights": w}
+    kernel = lambda: ssd_scan(x, a, B, C, **kw)
     row = {
         "max_abs_err": err,
         "ms": device_ms(kernel, 5),
-        "plain_ms": device_ms(lambda: ssd_scan_ref(x, a, B, C,
-                                                   norm_weights=w), 1),
+        "plain_ms": device_ms(lambda: ssd_scan_ref(x, a, B, C, **kw), 1),
         "library_ms": None,
         "bound_by": max(bound, key=bound.get),
         "bound_ms": max(bound.values()),
-        "shape": f"b={b} T={T} H={H} N={N} P={P} fp32 + normalizer",
+        "shape": f"b={b} T={T} H={H} N={N} P={P} fp32"
+                 + ("" if w is None else " + normalizer"),
     }
-    log(f"  device time T={T}: kernel {row['ms']:.4f} ms, plain "
+    log(f"  device time {row['shape']}: kernel {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, no one-call PyTorch equivalent, bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']}); kernel reaches "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}; operations "
+        f"{bound['operations']:.4f}, bytes {bound['bytes']:.4f}); kernel reaches "
         f"{flops / row['ms'] / 1e9:.1f} TFLOP/s, "
         f"{row['bound_ms'] / row['ms']:.1%} of the bound; one call from "
         f"Python {host_ms(kernel, 5):.4f} ms")
@@ -1073,9 +1136,13 @@ def serve(arch: str, n_layers: int, per_prefill: dict, per_step: dict):
                          device="cuda")
     eng = ServeEngine(cfg, params, slots=4, max_seq=2048, device="cuda")
     torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
     log(f"serve: {arch} full width ({cfg.n_layers} layers "
         f"{dict(Counter(cfg.block_pattern))}, d_model {cfg.d_model}, vocab "
-        f"{cfg.vocab_size}), weights+cache set up in "
+        f"{cfg.vocab_size}; {n_params / 1e9:.3f} B params, "
+        f"{n_bytes / 2**30:.2f} GiB), weights+cache set up in "
         f"{time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(0)
     lens = rng.integers(100, 1501, size=8)
@@ -1192,7 +1259,8 @@ def profile_serving(eng, prompts):
                  "ssd_scan" if "ssd_scan" in name else
                  "slstm_scan" if "slstm_scan_kernel" in name else
                  "matmul" if any(w in name for w in ("gemm", "cutlass",
-                                                      "xmma", "sm90_"))
+                                                      "xmma", "sm90_",
+                                                      "nvjet"))
                  else "other")
         groups[group] += e.self_device_time_total / 1e3
     cuda_core = [e.key for e in kernels if "flash_fwd_kernel" in e.key]
@@ -1347,7 +1415,8 @@ def profile_train_step(step, params, opt, batch, n_layers):
                  "rmsnorm bwd" if "rmsnorm_bwd" in name else
                  "rmsnorm fwd" if "rmsnorm_kernel" in name else
                  "matmul" if any(w in name for w in ("gemm", "cutlass",
-                                                      "xmma", "sm90_"))
+                                                      "xmma", "sm90_",
+                                                      "nvjet"))
                  else "other")
         groups[group] += e.self_device_time_total / 1e3
     require(kernels, "the traced step shows no device time")
@@ -1697,14 +1766,16 @@ def main():
         if any(w in line for w in ("registers", "spill", "Compiling", "smem")):
             log(f"  {line.strip()}")
     log("flash_fwd_sm90_kernel dynamic shared memory per block: " + ", ".join(
-        f"hd={hd} {sm90_smem_bytes(hd)} bytes" for hd in (32, 64, 128)))
-    for hd in (32, 64, 128):
+        f"hd={hd} {sm90_smem_bytes(hd)} bytes" for hd in (32, 64, 80, 128)))
+    for hd in (32, 64, 80, 128):
         fwd_occ = fwd_occupancy(hd)
         log(f"flash_attention_fwd hd={hd}: {fwd_occ['smem_bytes']} bytes of "
             f"shared memory, {fwd_occ['blocks_per_sm']} block(s) of 16 warps "
             f"per SM")
         require(fwd_occ["blocks_per_sm"] >= 1,
                 f"the fp32 flash forward does not fit an SM at hd={hd}")
+        if hd == 80:                         # the backward takes 32, 64, 128
+            continue
         occ = bwd_occupancy(hd)
         log(f"flash_attention_bwd hd={hd}: dk/dv kernel "
             f"{occ['dkdv_smem_bytes']} bytes of shared memory, "
@@ -1731,6 +1802,11 @@ def main():
                      {"ssd_scan": XLSTM_MLSTM, "slstm_scan": XLSTM_SLSTM,
                       "rmsnorm": XLSTM_NORMS},
                      {"rmsnorm": XLSTM_NORMS})
+    zamba, _ = serve("zamba2-2.7b", ZAMBA_LAYERS,
+                     {"ssd_scan": ZAMBA_LAYERS, "flash_attention": ZAMBA_APPS,
+                      "rmsnorm": ZAMBA_NORMS},
+                     {"rmsnorm": ZAMBA_NORMS})
+    torch.cuda.empty_cache()
     train, train_metrics = train_full_width()                # phase 5b
     sweep, sweep_metrics = train_sweep()
     torch.cuda.empty_cache()
@@ -1739,7 +1815,8 @@ def main():
     cli, _ = sweep_in_process(sweep_metrics["final_losses"])
     full, _ = sweep_full_width(train_metrics["loss_first"])
 
-    serving = {"qwen3-0.6b serve": qwen, "xlstm-1.3b serve": xlstm}
+    serving = {"qwen3-0.6b serve": qwen, "xlstm-1.3b serve": xlstm,
+               "zamba2-2.7b serve": zamba}
     training = {"qwen3-0.6b train (fp32, full width)": train,
                 "sweep member (qwen3-0.6b reduced, fp32)": sweep,
                 "sweep CLI run_sweep (qwen3-0.6b reduced, fp32)": cli,

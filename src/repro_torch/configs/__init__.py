@@ -9,7 +9,7 @@ import importlib
 
 from .base import ArchConfig  # noqa: F401
 
-ARCH_IDS = ["qwen3_0_6b", "xlstm_1_3b"]
+ARCH_IDS = ["qwen3_0_6b", "xlstm_1_3b", "zamba2_2_7b"]
 
 
 def get_config(name: str) -> ArchConfig:

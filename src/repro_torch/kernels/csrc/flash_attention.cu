@@ -52,6 +52,13 @@
 //   acc = alpha acc + P V on 4x4 (hd 128) micro-tiles of o, each thread's
 //   accumulator [hd/32][4]. The sums run in a fixed order: two calls give
 //   the same bits.
+// - hd 80 (zamba2's shared block) does not split into the warps' 32-float
+//   groups, so it runs in hd 128's tiles and warp map (flash_tiles.cuh, LW):
+//   20 of 32 chunks a row are copied in, the other 12 zeroed once before the
+//   loop in q and in both k/v buffers, S summed over the first 96 floats of
+//   d only, P V over all 128 (the pad columns of o are never stored). The
+//   global strides stay H*80 and KV*80; the shared memory and the one block
+//   per SM are hd 128's.
 
 #include "flash_tiles.cuh"
 
@@ -61,7 +68,7 @@ constexpr float NEG_INF = -1e30f;        // as the TPU kernel's NEG_INF
 
 template <int HD>
 struct FwdLayout {                       // shared memory, in floats
-    static constexpr int qtile = BQ * HD, ktile = BK * KS<HD>;
+    static constexpr int qtile = BQ * LW<HD>, ktile = BK * KS<HD>;
     static constexpr int q = 0;
     static constexpr int k = qtile, v = k + 2 * ktile;        // 2 buffers each
     static constexpr int s = v + 2 * ktile;                   // the halves' partial S
@@ -89,13 +96,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
                  int H, int KV, Mask mask, float scale) {
     using L = FwdLayout<HD>;
-    constexpr int M = HD / 32;           // query rows per thread in the P V product
+    constexpr int W = LW<HD>;            // floats of a tile row
+    constexpr int M = W / 32;            // query rows per thread in the P V product
     extern __shared__ __align__(16) float smem[];
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int role = warp >> 3, rw = warp & 7;  // role r sums S over its half of d
     const int ty = (rw >> 1) * 4 + (lane >> 3), tx = (rw & 1) * 8 + (lane & 7);
     const int si = warp * 4 + (lane >> 3), sj = lane & 7;  // phase B: row si, keys sj + 8c
-    const int ti = (warp / (HD / 32)) * 4 + (lane >> 3), td = (warp % (HD / 32)) * 8 + (lane & 7);
+    const int ti = (warp / (W / 32)) * 4 + (lane >> 3), td = (warp % (W / 32)) * 8 + (lane & 7);
     const int T_len = mask.T_len, S_len = mask.S_len;
     const int nqt = (T_len + BQ - 1) / BQ, q0 = (nqt - 1 - blockIdx.y) * BQ;
     const int rows = min(BQ, T_len - q0), nk = (S_len + BK - 1) / BK;
@@ -114,6 +122,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         load_tile<HD, true>(smem + L::v + buf * L::ktile, v + kv_off, kv_stride, min(BK, S_len - k0));
     };
 
+    zero_pad<HD, false>(smem + L::q);
+    for (int b = 0; b < 2; ++b) {
+        zero_pad<HD, true>(smem + L::k + b * L::ktile);
+        zero_pad<HD, true>(smem + L::v + b * L::ktile);
+    }
     load_tile<HD, false>(smem + L::q, q + q_off(), q_stride, rows);
     int kt = next_key_tile(0, nk, mask, q0);
     if (kt < nk) load_keys(kt, 0);
@@ -198,7 +211,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int m = 0; m < M; ++m) {
         const int i = ti * M + m;
-        if (i < rows) {
+        if (i < rows && 4 * td < HD) {
             const float safe = l_s[i] == 0.f ? 1.f : l_s[i];
             *reinterpret_cast<float4*>(o + q_off() + i * q_stride + 4 * td) =
                 make_float4(acc[m][0] / safe, acc[m][1] / safe, acc[m][2] / safe,
@@ -252,6 +265,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     switch (hd) {
         case 32: return launch<32>(f(q), f(k), f(v), w(o), w(lse), B, H, KV, mask, scale, s);
         case 64: return launch<64>(f(q), f(k), f(v), w(o), w(lse), B, H, KV, mask, scale, s);
+        case 80: return launch<80>(f(q), f(k), f(v), w(o), w(lse), B, H, KV, mask, scale, s);
         case 128: return launch<128>(f(q), f(k), f(v), w(o), w(lse), B, H, KV, mask, scale, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -263,6 +277,7 @@ extern "C" int flash_attention_fwd_occupancy(int hd, int* out) {
     switch (hd) {
         case 32: return occupancy<32>(out);
         case 64: return occupancy<64>(out);
+        case 80: return occupancy<80>(out);
         case 128: return occupancy<128>(out);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }

@@ -66,6 +66,7 @@ namespace {
 
 template <int HD>
 struct DkdvLayout {                      // shared memory, in floats
+    static_assert(LW<HD> == HD, "the backward takes hd 32, 64 or 128");
     static constexpr int qtile = BQ * HD, ktile = BK * KS<HD>;
     static constexpr int k = 0, v = ktile;
     static constexpr int q = 2 * ktile, dout = q + 2 * qtile;  // 2 buffers each

@@ -5,7 +5,7 @@
 // (wrapper `flash_attention`, pallas_call at flash_attention.py:121) for bf16
 // tensors; fp32 tensors keep the CUDA-core kernel of flash_attention.cu, since
 // TF32 would not hold fp32's tolerance. Same contract: q [B,T,H,hd], k/v
-// [B,S,KV,hd], hd in {32, 64, 128}, query row t at absolute position
+// [B,S,KV,hd], hd in {32, 64, 80, 128}, query row t at absolute position
 // t + q_offset, KV head = h / (H/KV), scale 1/sqrt(hd), online softmax with an
 // fp32 (acc, m, l) state, KV tiles fully masked for the block are skipped (the
 // TPU kernel's `live`), a row whose l stays 0 gives 0. Any T and S: query rows
@@ -41,6 +41,14 @@
 //   along x), so the long rows do not land in the last wave.
 // - KV tiles masked for every row of the block are neither loaded nor
 //   computed: the loop runs over [kt_begin, kt_end) only.
+// - hd 80 (zamba2's shared block) is not a whole number of 64-column swizzle
+//   atoms, so it runs hd 128's layout: two atoms of Q, K and V in shared
+//   memory. The tensor maps keep the true extent (80 columns, rows H*80*2
+//   and KV*80*2 bytes apart), so the second atom's box reads 16 real columns
+//   and TMA fills the other 48 with zeros; its full box still counts on the
+//   barrier, as rows past T do. Q K^T runs 5 k16 slices (the zeros past
+//   column 80 would add nothing), P V is m64n128k16 and only 80 columns of o
+//   are stored: 1.6x the tensor-core work of P V that hd 80 needs.
 // Rounding P to bf16 before P V is the one departure from the TPU kernel,
 // which keeps P in fp32: about one bf16 ulp of the output.
 //
@@ -60,11 +68,13 @@ constexpr int STAGES = 2;   // K/V ring depth
 
 template <int HD>
 struct Cfg {
-    static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;  // swizzle = atom row bytes
+    static constexpr int W = HD == 80 ? 128 : HD;           // columns of a tile in shared memory
+    static constexpr int SW = W * 2 < 128 ? W * 2 : 128;    // swizzle = atom row bytes
     static constexpr int ATOM = SW / 2;                     // columns per atom
-    static constexpr int NATOM = HD / ATOM;
-    static constexpr int Q_BYTES = BQ * HD * 2;
-    static constexpr int KV_BYTES = BK * HD * 2;            // one K or V tile
+    static constexpr int NATOM = W / ATOM;
+    static constexpr int KSLICES = (HD + 15) / 16;          // k16 slices of Q K^T
+    static constexpr int Q_BYTES = BQ * W * 2;
+    static constexpr int KV_BYTES = BK * W * 2;             // one K or V tile
     static constexpr int q = 0;                             // byte offsets, 1024-aligned
     static constexpr int k = q + Q_BYTES;
     static constexpr int v = k + STAGES * KV_BYTES;
@@ -133,9 +143,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     const int p0 = q0 + r0 + q_offset, p1 = p0 + 8;
     const int col = 2 * (lane & 3);
 
-    float acc[HD / 2];
+    float acc[C::W / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < C::W / 2; ++i) acc[i] = 0.f;
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // m in log2 units
 
     mbar_wait(qbar, 0);
@@ -146,7 +156,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
         float s[32];
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
+        for (int kk = 0; kk < C::KSLICES; ++kk) {
             const int atom = kk * 16 / C::ATOM;        // K-major: 32 bytes per k16
             const uint32_t off = (kk * 16 % C::ATOM) * 2;
             const uint64_t da = smem_desc<C::SW>(
@@ -214,7 +224,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
         }
         reg_fence(acc);
 #pragma unroll
-        for (int i = 0; i < HD / 8; ++i) {
+        for (int i = 0; i < C::W / 8; ++i) {
             acc[4 * i] *= alpha0;
             acc[4 * i + 1] *= alpha0;
             acc[4 * i + 2] *= alpha1;
@@ -333,6 +343,7 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
     switch (hd) {
         case 32: return launch<32>(q, k, v, o, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
         case 64: return launch<64>(q, k, v, o, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
+        case 80: return launch<80>(q, k, v, o, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
         case 128: return launch<128>(q, k, v, o, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -343,6 +354,7 @@ extern "C" int flash_attention_sm90_smem_bytes(int hd) {
     switch (hd) {
         case 32: return Cfg<32>::bytes;
         case 64: return Cfg<64>::bytes;
+        case 80: return Cfg<80>::bytes;
         case 128: return Cfg<128>::bytes;
         default: return -1;
     }

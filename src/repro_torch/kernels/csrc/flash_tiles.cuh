@@ -16,18 +16,26 @@ constexpr int BK = 64;                   // keys per tile
 constexpr int NT = 512;                  // threads per block: 16 warps
 constexpr int WARPS = NT / 32;
 
-// 64 x HD tiles of q and do: row r's 16-byte chunk c sits at chunk c ^ (r & 7).
+// Floats a tile row holds at head dim HD: HD itself where it is 32, 64 or
+// 128 (the warp maps split a row into 32-float groups that divide 16 warps),
+// else the next of those widths: hd 80 runs in hd 128's tiles. Only HD
+// columns are copied in; the forward zeroes the rest once (zero_pad), so they
+// add nothing to q . k, and never stores them.
+template <int HD>
+constexpr int LW = HD <= 32 ? 32 : HD <= 64 ? 64 : 128;
+
+// 64 x LW tiles of q and do: row r's 16-byte chunk c sits at chunk c ^ (r & 7).
 // Returns the float offset of column col (a multiple of 4).
 template <int HD>
 __device__ __forceinline__ int q_at(int r, int col) {
-    return r * HD + (((col >> 2) ^ (r & 7)) << 2);
+    return r * LW<HD> + (((col >> 2) ^ (r & 7)) << 2);
 }
 
-// k and v tiles: rows padded to HD + 4 floats, so consecutive rows start 4
+// k and v tiles: rows padded to LW + 4 floats, so consecutive rows start 4
 // banks apart (8 rows read at one column hit 32 banks) and a thread's k and
 // v rows are read at constant offsets.
 template <int HD>
-constexpr int KS = HD + 4;
+constexpr int KS = LW<HD> + 4;
 
 // 64 x 64 score tiles. [i][j] (P and dS of the dk/dv kernel, the forward's
 // partial scores): column j at j ^ 8 (i & 3); [j][i] (dS^T of the dq
@@ -99,10 +107,11 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // 64 rows x HD floats from global (row stride `stride`) into a q/do tile
 // (swizzled) or a k/v tile (PADDED), by cp.async; rows past `valid` are
-// zero-filled (nothing is read).
+// zero-filled (nothing is read). Columns HD..LW-1 are not written.
 template <int HD, bool PADDED>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, long long stride,
                                           int valid) {
+    static_assert(HD % 4 == 0 && HD <= 128, "rows are copied in 16-byte chunks");
     constexpr int CH = HD / 4;
 #pragma unroll
     for (int id = threadIdx.x; id < 64 * CH; id += NT) {
@@ -113,6 +122,21 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, long lon
     }
 }
 
+// Zero columns HD..LW-1 of the 64 rows of a q/do tile (swizzled) or a k/v
+// tile (PADDED); nothing when the tile is HD wide. load_tile never writes
+// them, so once per buffer is enough.
+template <int HD, bool PADDED>
+__device__ __forceinline__ void zero_pad(float* dst) {
+    constexpr int CH = HD / 4, PAD = LW<HD> / 4 - CH;
+    if constexpr (PAD > 0) {
+        for (int id = threadIdx.x; id < 64 * PAD; id += NT) {
+            const int r = id / PAD, c = CH + id % PAD;
+            *reinterpret_cast<float4*>(dst + (PADDED ? r * KS<HD> + 4 * c : q_at<HD>(r, 4 * c))) =
+                make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+    }
+}
+
 // acc[r][c] += sum_d A[ty + 16r][d] * B[tx + 16c][d], A a q/do tile, B a
 // k/v tile: a 64 x 64 product by the 256 threads of one half, 4 x 4 each.
 // The lanes read the same d-chunk at once: the swizzle spreads A's 4 rows,
@@ -120,21 +144,24 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, long lon
 // (16r = 0 mod 8). B is read one row at a time, which keeps the product
 // within 128 registers without spills. With NU = 4, the sum runs over the
 // 16-byte chunks u0 .. u0 + 3 (u0 = 0 or 4) of every 32 floats of d only:
-// half of d, which the forward's two halves split.
+// half of d, which the forward's two halves split. Where the tile is wider
+// than HD, the sum stops after the 32-float group that holds column HD - 1:
+// the groups past it are zeros.
 template <int HD, int NU = 8>
 __device__ __forceinline__ void rows_dot_rows(float (&acc)[4][4], const float* A,
                                               const float* Bm, int ty, int tx, int u0 = 0) {
-    const float* a_row = A + ty * HD;
+    constexpr int W = LW<HD>;
+    const float* a_row = A + ty * W;
     const int sa4 = ((ty & 7) ^ u0) << 2;          // chunk u0 + u sits at (u ^ u0 ^ (ty & 7))
     const float* b_row = Bm + tx * KS<HD> + 4 * u0;
 #pragma unroll 2
-    for (int m = 0; m < HD / 32; ++m) {
+    for (int m = 0; m < (HD + 31) / 32; ++m) {
 #pragma unroll
         for (int u = 0; u < NU; ++u) {
             float4 a[4];
 #pragma unroll
             for (int r = 0; r < 4; ++r)
-                a[r] = *reinterpret_cast<const float4*>(a_row + ((u << 2) ^ sa4) + 16 * r * HD +
+                a[r] = *reinterpret_cast<const float4*>(a_row + ((u << 2) ^ sa4) + 16 * r * W +
                                                         32 * m);
 #pragma unroll
             for (int c = 0; c < 4; ++c) {
@@ -178,7 +205,7 @@ __device__ __forceinline__ void load_vec(float (&out)[N], const float* src) {
 template <int HD, int M, bool TRANSPOSED, bool PADDED>
 __device__ __forceinline__ void cols_by_rows(float (&acc)[M][4], const float* A, const float* Bm,
                                              int a0, int td) {
-    constexpr int BS = PADDED ? KS<HD> : HD;
+    constexpr int BS = PADDED ? KS<HD> : LW<HD>;
     int oa[8], ob[8];
 #pragma unroll
     for (int u = 0; u < 8; ++u) {

@@ -16,7 +16,8 @@ log-sum-exp, and the backward launches ``csrc/flash_attention_bwd.cu``
 (``flash_attention_bwd``). On CPU tensors the same Function runs the plain
 forward and the plain backward ``flash_attention_bwd_ref``, explicit
 formulas rather than autograd of the plain forward. A bf16 backward on the
-card is not written yet and raises.
+card is not written yet and raises, and so does one at head_dim 80: both
+forwards take hd 32, 64, 80 and 128, the backward 32, 64 and 128.
 """
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ import torch
 from . import build
 
 NEG_INF = -1e30
-_HEAD_DIMS = (32, 64, 128)
+_FWD_HEAD_DIMS = (32, 64, 80, 128)
+_BWD_HEAD_DIMS = (32, 64, 128)
 _SCALARS = (ctypes.c_int,) * 9 + (ctypes.c_float, ctypes.c_void_p)
 _ENTRY = {torch.float32: "flash_attention_fwd",          # CUDA cores
           torch.bfloat16: "flash_attention_sm90_fwd"}    # tensor cores
@@ -38,6 +40,8 @@ _BWD_ARGTYPES = (ctypes.c_void_p,) * 10 + _SCALARS
 _OCC_ARGTYPES = (ctypes.c_int, ctypes.c_void_p)
 BF16_BACKWARD = ("the bf16 flash_attention backward is not written yet "
                  "(ROADMAP.md queue 2 item 4); train in fp32")
+BWD_HEAD_DIM = ("the flash_attention backward at head_dim {} is not written "
+                "yet (ROADMAP.md queue 2 item 1); it takes {}")
 
 
 def visible(T: int, S: int, q_offset: int, causal: bool, window: int, device):
@@ -111,7 +115,10 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
             per_kv_head(dv).to(v.dtype))
 
 
-def _check(q, k, v):
+def _check(q, k, v, backward: bool = False):
+    """Raises for what the kernels cannot take: ValueError for bad
+    arguments, NotImplementedError (``backward``) for a head dim that only
+    the forwards take."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} is on {t.device}, "
@@ -132,8 +139,11 @@ def _check(q, k, v):
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
     S, KV = k.shape[1], k.shape[2]
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {hd} not in {_HEAD_DIMS}")
+    if hd not in _FWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {hd} not in "
+                         f"{_FWD_HEAD_DIMS}")
+    if backward and hd not in _BWD_HEAD_DIMS:
+        raise NotImplementedError(BWD_HEAD_DIM.format(hd, _BWD_HEAD_DIMS))
     if T == 0 or S == 0 or KV == 0 or H % KV or B * H > 65535:
         raise ValueError(f"flash_attention: cannot take T={T} S={S} H={H} "
                          f"KV={KV} B={B}")
@@ -180,9 +190,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     D = rowsum(do * o), then dk/dv and dq, each of 16 warps and one block
     per SM, with cp.async double-buffered tiles and no atomics, so the
     result is the same on every call; ``LAUNCHES["flash_attention_bwd"]``
-    counts the call once); a bf16 one raises ``NotImplementedError``. q, k,
-    v and do must be 16-byte aligned (the kernels copy them in 16-byte
-    pieces).
+    counts the call once); a bf16 one, or one at head_dim 80, raises
+    ``NotImplementedError`` before any launch. q, k, v and do must be
+    16-byte aligned (the kernels copy them in 16-byte pieces).
     """
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
@@ -192,7 +202,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                          f"{q.device}")
     if q.dtype != torch.float32:
         raise NotImplementedError(BF16_BACKWARD)
-    _check(q, k, v)
+    _check(q, k, v, backward=True)
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     for name, t, shape in (("o", o, q.shape), ("do", do, q.shape),

@@ -5,7 +5,8 @@ requests (counterpart of ``repro/launch/serve.py``; same flags plus
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         --requests 16 [--slots 4] [--device cpu]
 
-``--arch`` takes any id the port's registry lists (qwen3-0.6b, xlstm-1.3b);
+``--arch`` takes any id the port's registry lists (qwen3-0.6b, xlstm-1.3b,
+zamba2-2.7b);
 the launcher serves its reduced config in fp32.
 """
 from __future__ import annotations

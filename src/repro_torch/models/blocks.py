@@ -1,6 +1,7 @@
 """Blocks of the port: init / forward / prefill / decode / cache-init
 (counterpart of ``repro/models/blocks.py``). Ported kinds: ATTN (attention
-+ dense MLP), MLSTM and SLSTM (xLSTM); other kinds raise.
++ dense MLP, also zamba2's shared block), MAMBA2, MLSTM and SLSTM; other
+kinds raise.
 
 Forwards return (x, aux) like the JAX package, aux being the MoE balance
 loss there and always 0 here. Decode updates the cache in place.
@@ -10,16 +11,21 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import ssm as S
 from . import xlstm as X
 from .attention import attn_decode, attn_prefill, init_attn_params, init_kv_cache
 from .common import rms_norm, tree_map
 from .mlp import init_mlp_params, mlp_forward
 
 # the recurrent kinds: a mixer after ln1, with a residual around it
-_INIT = {"mlstm": X.init_mlstm_params, "slstm": X.init_slstm_params}
-_FORWARD = {"mlstm": X.mlstm_forward, "slstm": X.slstm_forward}
-_DECODE = {"mlstm": X.mlstm_decode, "slstm": X.slstm_decode}
-_CACHE = {"mlstm": X.init_mlstm_cache, "slstm": X.init_slstm_cache}
+_INIT = {"mamba2": S.init_mamba2_params, "mlstm": X.init_mlstm_params,
+         "slstm": X.init_slstm_params}
+_FORWARD = {"mamba2": S.mamba2_forward, "mlstm": X.mlstm_forward,
+            "slstm": X.slstm_forward}
+_DECODE = {"mamba2": S.mamba2_decode, "mlstm": X.mlstm_decode,
+           "slstm": X.slstm_decode}
+_CACHE = {"mamba2": S.init_mamba2_cache, "mlstm": X.init_mlstm_cache,
+          "slstm": X.init_slstm_cache}
 
 
 def _check_kind(kind: str):
@@ -56,17 +62,28 @@ def block_forward(kind: str, p, cfg, x, *, pos):
     return _attn_mlp(p, cfg, x, pos)[0], zero
 
 
+def _conv_state(xb, cfg):
+    """The last K-1 inputs of the causal conv, zero-padded on the left for a
+    prompt shorter than that (the conv's own padding)."""
+    K1 = cfg.ssm_conv - 1
+    return F.pad(xb[:, -K1:], (0, 0, max(K1 - xb.shape[1], 0), 0))
+
+
+def _recurrent_prefill_mamba2(p, cfg, x):
+    """Forward + final (conv, ssm) state (``repro/models/blocks.py:173``)."""
+    out, conv_in, state = S.mamba2_scan(p, cfg, x)
+    return out, {"conv": _conv_state(conv_in, cfg), "ssm": state}
+
+
 def _recurrent_prefill_mlstm(p, cfg, x):
     """Forward + final (conv, ssm, ssm_n) state (``repro/models/blocks.py:206``).
     The conv state is the last K-1 inputs, zero-padded on the left for a
     prompt shorter than that (the causal conv's own padding)."""
     Bsz, T, _ = x.shape
     xb, z, q, k, v, i_log, f_log, _ = X._mlstm_qkvif(p, cfg, x)
-    K1 = cfg.ssm_conv - 1
-    conv_state = F.pad(xb[:, -K1:], (0, 0, max(K1 - T, 0), 0))
     y, n, state, nstate = X._mlstm_recurrence(q, k, v, i_log, f_log)
     out = X._mlstm_output(p, cfg, y, n, z, Bsz, T)
-    return out, {"conv": conv_state, "ssm": state, "ssm_n": nstate}
+    return out, {"conv": _conv_state(xb, cfg), "ssm": state, "ssm_n": nstate}
 
 
 def _recurrent_prefill_slstm(p, cfg, x):
@@ -76,7 +93,8 @@ def _recurrent_prefill_slstm(p, cfg, x):
                                                   "h": h}
 
 
-_PREFILLS = {"mlstm": _recurrent_prefill_mlstm,
+_PREFILLS = {"mamba2": _recurrent_prefill_mamba2,
+             "mlstm": _recurrent_prefill_mlstm,
              "slstm": _recurrent_prefill_slstm}
 
 

@@ -1,6 +1,6 @@
 """Model assembly of the port: stages, init, forward, prefill and decode
 (counterpart of ``repro/models/model.py`` for decoder-only stacks of ATTN,
-MLSTM and SLSTM blocks: qwen3, xlstm).
+MAMBA2, MLSTM and SLSTM blocks: qwen3, xlstm, zamba2).
 
 Params keep the JAX package's tree: ``{"embed", "final_norm", "stages":
 [...]}`` with each stage's blocks stacked on a leading layer axis, so
@@ -8,7 +8,12 @@ Params keep the JAX package's tree: ``{"embed", "final_norm", "stages":
 JAX scans a stage, the port loops over its layers. The serving cache is
 ``{"stages": [...]}``, one tree per stage whose leaves put the layer axis
 first and batch at dim 1: ``{"kv": (k, v)}`` of ``[L, B, S, KV, hd]`` for
-ATTN, the recurrent state (``[L, B, ...]``) for MLSTM and SLSTM.
+ATTN, the recurrent state (``[L, B, ...]``) for MAMBA2, MLSTM and SLSTM.
+
+zamba2 adds one shared ATTN block, ``p["shared"]`` (unstacked: its weights
+serve every application), applied after every stage (stages are cut at
+multiples of ``shared_attn_every``). Its cache ``cache["shared"]`` holds one
+KV cache per application, ``{"kv": (k, v)}`` of ``[n_app, B, S, KV, hd]``.
 """
 from __future__ import annotations
 
@@ -35,10 +40,18 @@ def pattern_stages(cfg) -> List[Tuple[str, int]]:
     return stages
 
 
+def n_shared_applications(cfg) -> int:
+    """Shared attention applies once after every stage (stages are cut at
+    multiples of shared_attn_every), so count = number of stages."""
+    if not cfg.shared_attn_every:
+        return 0
+    return len(pattern_stages(cfg))
+
+
 def _check_ported(cfg):
-    if cfg.shared_attn_every or cfg.enc_dec or cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: shared blocks, encoders and "
-                                  "frontends are not ported yet")
+    if cfg.enc_dec or cfg.frontend != "none":
+        raise NotImplementedError(f"{cfg.name}: encoders and frontends are "
+                                  "not ported yet")
 
 
 def _layer(tree, i: int):
@@ -74,6 +87,8 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> Dict[str, Any
     p["stages"] = [init_block(kind, generator, cfg, dtype, device,
                               lead=(count,))
                    for kind, count in pattern_stages(cfg)]
+    if cfg.shared_attn_every:
+        p["shared"] = init_block("attn", generator, cfg, dtype, device)
     return p
 
 
@@ -103,6 +118,9 @@ def forward_hidden(p, cfg, tokens, *, pos=None):
         for layer in _layers(stage, count):
             h, a = block_forward(kind, layer, cfg, h, pos=pos)
             aux = aux + a
+        if cfg.shared_attn_every:
+            h, a = block_forward("attn", p["shared"], cfg, h, pos=pos)
+            aux = aux + a
     return h, aux
 
 
@@ -130,9 +148,14 @@ def forward_loss(p, cfg, batch):
 def init_cache(cfg, batch: int, seq_len: int, dtype=None, device="cuda"):
     _check_ported(cfg)
     dtype = dtype or dtype_of(cfg.param_dtype)
-    return {"stages": [init_block_cache(kind, cfg, batch, seq_len, dtype,
-                                        device, lead=(count,))
-                       for kind, count in pattern_stages(cfg)]}
+    cache = {"stages": [init_block_cache(kind, cfg, batch, seq_len, dtype,
+                                         device, lead=(count,))
+                        for kind, count in pattern_stages(cfg)]}
+    if cfg.shared_attn_every:
+        cache["shared"] = init_block_cache(
+            "attn", cfg, batch, seq_len, dtype, device,
+            lead=(n_shared_applications(cfg),))
+    return cache
 
 
 @torch.no_grad()
@@ -148,29 +171,42 @@ def prefill(p, cfg, tokens, *, pad: int = 64):
     B, T = tokens.shape
     pos = _positions(B, T, tokens.device)
     h = embed_tokens(p, cfg, tokens)
-    caches = []
+    stack = lambda caches: tree_map(lambda *xs: torch.stack(xs), *caches)
+    caches, shared = [], []
     for (kind, count), stage in zip(pattern_stages(cfg), p["stages"]):
         layer_caches = []
         for i in range(count):
             h, c = block_prefill(kind, _layer(stage, i), cfg, h, pos=pos,
                                  cache_size=T + pad)
             layer_caches.append(c)
-        caches.append(tree_map(lambda *xs: torch.stack(xs), *layer_caches))
+        caches.append(stack(layer_caches))
+        if cfg.shared_attn_every:
+            h, c = block_prefill("attn", p["shared"], cfg, h, pos=pos,
+                                 cache_size=T + pad)
+            shared.append(c)
+    cache = {"stages": caches}
+    if shared:
+        cache["shared"] = stack(shared)
     logits = lm_logits(p, cfg, h[:, -1:])
-    return logits[:, 0], {"stages": caches}
+    return logits[:, 0], cache
 
 
 @torch.no_grad()
 def decode_step(p, cfg, token, cache, cache_len):
     """One token for every sequence. token: [B]; cache_len: a scalar or a
     per-row [B] tensor. Updates ``cache`` in place; returns (logits [B, V],
-    cache)."""
+    cache). The shared block's applications write their own KV caches
+    through views of ``cache["shared"]``."""
     _check_ported(cfg)
     h = embed_tokens(p, cfg, token[:, None])
-    for (kind, count), stage, stage_cache in zip(pattern_stages(cfg),
-                                                 p["stages"], cache["stages"]):
+    for app, ((kind, count), stage, stage_cache) in enumerate(zip(
+            pattern_stages(cfg), p["stages"], cache["stages"])):
         for i in range(count):
             h, _ = block_decode(kind, _layer(stage, i), cfg, h,
                                 _layer(stage_cache, i), cache_len=cache_len)
+        if cfg.shared_attn_every:
+            h, _ = block_decode("attn", p["shared"], cfg, h,
+                                _layer(cache["shared"], app),
+                                cache_len=cache_len)
     logits = lm_logits(p, cfg, h)
     return logits[:, 0], cache

@@ -1,6 +1,5 @@
-"""The SSD linear-recurrence engine and the causal depthwise conv
-(counterpart of the engine half of ``repro/models/ssm.py``; the Mamba-2
-block itself is not ported yet).
+"""The SSD linear-recurrence engine, the causal depthwise conv and the
+Mamba-2 block (counterpart of ``repro/models/ssm.py``).
 
 For per-step scalar log-decays ``a`` and rank-N state updates
 
@@ -11,13 +10,26 @@ For per-step scalar log-decays ``a`` and rank-N state updates
 tests; the serving path runs the recurrence through the port's
 ``ssd_scan`` kernel (``kernels.ops.ssd``), whose plain version is
 ``ssd_scan_ref``. Decode advances one step with ``ssd_decode_step``.
+
+The Mamba-2 block (zamba2) runs its recurrence through the same kernel at
+any T, its groups expanded to heads and B, C in fp32 as ``ssd_chunked``
+takes them; JAX's prefill falls back to the sequential ``ssd_scan_ref``
+where T is not a multiple of its chunk. Decode stays plain torch
+(``conv_decode_step``, ``ssd_decode_step``), as in the JAX package: no TPU
+kernel covers it. ``A_log``, ``D`` and ``dt_bias`` are fp32 in every model,
+as in JAX.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import ssd_scan_ref as _scan_ref
+
+from .common import dense_init, matmul, normal_init, rms_norm
 
 F32 = torch.float32
 
@@ -145,3 +157,112 @@ def conv_decode_step(conv_state, x_t, w, b):
     y = torch.einsum("bkd,dk->bd", window.float(), w.float())
     y = (y + b.float()).to(x_t.dtype)[:, None]
     return y, window[:, 1:]
+
+
+# --------------------------------------------------------------------------
+# Mamba-2 block
+# --------------------------------------------------------------------------
+def mamba2_dims(cfg):
+    d_in = cfg.ssm_expand * cfg.d_model
+    nheads = d_in // cfg.ssm_head_dim
+    conv_dim = d_in + 2 * cfg.ssm_groups * cfg.ssm_state
+    return d_in, nheads, conv_dim
+
+
+def init_mamba2_params(generator, cfg, dtype, device, lead=()):
+    """Separate input projections (w_z / w_x / w_B / w_C / w_dt), as the JAX
+    package keeps them, with its distributions."""
+    d, K = cfg.d_model, cfg.ssm_conv
+    d_in, nheads, conv_dim = mamba2_dims(cfg)
+    GN = cfg.ssm_groups * cfg.ssm_state
+    dense = lambda i, o: dense_init(generator, i, o, dtype, device, lead=lead)
+    u = torch.rand((*lead, nheads), generator=generator, dtype=F32,
+                   device=generator.device).to(device)
+    dt0 = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
+    heads = torch.arange(1, nheads + 1, dtype=F32, device=device)
+    return {
+        "w_z": dense(d, d_in),
+        "w_x": dense(d, d_in),
+        "w_B": dense(d, GN),
+        "w_C": dense(d, GN),
+        "w_dt": dense(d, nheads),
+        "conv_w": normal_init(generator, (*lead, conv_dim, K),
+                              1.0 / math.sqrt(K), dtype, device),
+        "conv_b": torch.zeros(*lead, conv_dim, dtype=dtype, device=device),
+        "A_log": torch.log(heads).expand(*lead, nheads).clone(),
+        "D": torch.ones(*lead, nheads, dtype=F32, device=device),
+        "dt_bias": torch.log(torch.expm1(dt0)),      # softplus^-1(dt0)
+        "norm": torch.ones(*lead, d_in, dtype=dtype, device=device),
+        "out_proj": dense(d_in, d),
+    }
+
+
+def _mamba2_proj(p, x):
+    """x: [B, T, d] -> (z, dt, conv_in [B, T, conv_dim]) through the
+    separate projections; conv_in is [x | B | C]."""
+    conv_in = torch.cat([matmul(x, p["w_x"]), matmul(x, p["w_B"]),
+                         matmul(x, p["w_C"])], dim=-1)
+    return matmul(x, p["w_z"]), matmul(x, p["w_dt"]), conv_in
+
+
+def _mamba2_heads(p, cfg, conv_y, dt, dtype):
+    """The conv's output (before silu) and the dt projection -> (xh
+    [..., H, P] in ``dtype``, x_scaled fp32, a fp32 [..., H], B and C
+    [..., G, N] in ``dtype``)."""
+    d_in, nheads, _ = mamba2_dims(cfg)
+    G, N = cfg.ssm_groups, cfg.ssm_state
+    conv_y = F.silu(conv_y.float()).to(dtype)
+    xc, Bc, Cc = torch.split(conv_y, [d_in, G * N, G * N], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    a = dt * -torch.exp(p["A_log"])                       # log decay
+    xh = xc.reshape(*xc.shape[:-1], nheads, cfg.ssm_head_dim)
+    x_scaled = xh.float() * dt[..., None]
+    return (xh, x_scaled, a, Bc.reshape(*Bc.shape[:-1], G, N),
+            Cc.reshape(*Cc.shape[:-1], G, N))
+
+
+def _mamba2_output(p, cfg, y, xh, z):
+    """y: [..., H, P] fp32 from the recurrence -> the block's output."""
+    d_in = mamba2_dims(cfg)[0]
+    y = y + xh.float() * p["D"][:, None]
+    y = y.reshape(*y.shape[:-2], d_in).to(z.dtype)
+    y = rms_norm(y * F.silu(z.float()).to(z.dtype), p["norm"], cfg.norm_eps)
+    return matmul(y, p["out_proj"])
+
+
+def mamba2_scan(p, cfg, x):
+    """x: [B, T, d] -> (out [B, T, d], conv_in [B, T, conv_dim], final ssm
+    state [B, H, N, P] fp32): the recurrence over the whole sequence in one
+    ``ssd_scan`` launch on the card."""
+    z, dt, conv_in = _mamba2_proj(p, x)
+    conv_y = causal_conv1d(conv_in, p["conv_w"], p["conv_b"])
+    xh, x_scaled, a, Bm, Cm = _mamba2_heads(p, cfg, conv_y, dt, x.dtype)
+    Bf, Cf = _expand_groups(Bm, Cm, xh.shape[2])
+    y, state = ops.ssd(x_scaled, a, Bf, Cf)
+    return _mamba2_output(p, cfg, y, xh, z), conv_in, state
+
+
+def mamba2_forward(p, cfg, x):
+    """x: [B, T, d] -> [B, T, d] (training / prefill path; any T)."""
+    return mamba2_scan(p, cfg, x)[0]
+
+
+def init_mamba2_cache(cfg, batch: int, dtype, device, lead=()):
+    d_in, nheads, conv_dim = mamba2_dims(cfg)
+    return {"conv": torch.zeros(*lead, batch, cfg.ssm_conv - 1, conv_dim,
+                                dtype=dtype, device=device),
+            "ssm": torch.zeros(*lead, batch, nheads, cfg.ssm_state,
+                               cfg.ssm_head_dim, dtype=F32, device=device)}
+
+
+def mamba2_decode(p, cfg, x, cache):
+    """x: [B, 1, d]; cache {conv, ssm} -> (y [B, 1, d], new cache)."""
+    z, dt, conv_in = _mamba2_proj(p, x)
+    conv_y, new_conv = conv_decode_step(cache["conv"], conv_in, p["conv_w"],
+                                        p["conv_b"])
+    xh, x_scaled, a, Bm, Cm = _mamba2_heads(p, cfg, conv_y, dt, x.dtype)
+    Bf, Cf = _expand_groups(Bm, Cm, xh.shape[2])
+    y, new_ssm = ssd_decode_step(cache["ssm"], x_scaled[:, 0], a[:, 0],
+                                 Bf[:, 0], Cf[:, 0])
+    out = _mamba2_output(p, cfg, y[:, None], xh, z)
+    return out, {"conv": new_conv, "ssm": new_ssm}

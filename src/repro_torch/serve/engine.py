@@ -42,7 +42,8 @@ class Request:
 
 def _insert_slot(cache, slot_cache, idx: int):
     """Copy a single-request cache (B=1) into slot ``idx`` of the batched
-    cache, in place. Every leaf has batch at dim 1 ([L, B, ...])."""
+    cache, in place. Every leaf has batch at dim 1: [L, B, ...] for a
+    stage, [n_app, B, ...] for zamba2's shared block."""
     tree_map(lambda big, one: big[:, idx].copy_(one[:, 0]), cache, slot_cache)
 
 

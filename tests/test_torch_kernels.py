@@ -17,6 +17,7 @@ from __future__ import annotations
 import importlib
 import importlib.util
 import math
+import re
 from pathlib import Path
 
 import jax
@@ -149,6 +150,7 @@ def _sm90_emulation(q, k, v, *, causal, q_offset=0, block_k=64):
 @pytest.mark.parametrize("B,T,S,H,KV,hd", [
     (1, 128, 128, 4, 4, 64), (2, 128, 128, 4, 2, 64), (1, 256, 256, 8, 1, 32),
     (1, 128, 384, 4, 4, 64), (2, 384, 384, 2, 2, 128),
+    (1, 128, 128, 4, 2, 80),             # zamba2's shared-block head dim
 ])                                       # the bf16 grid of tests/test_kernels.py
 def test_flash_sm90_bf16_arithmetic_vs_pallas(B, T, S, H, KV, hd):
     """Rounding P to bf16 before P V stays inside the bf16 tolerance."""
@@ -209,6 +211,7 @@ def _lse_close(got, want, tol=1e-5):
 @pytest.mark.parametrize("B,T,S,H,KV,hd", [
     (1, 128, 128, 4, 4, 64), (2, 128, 128, 4, 2, 64), (1, 256, 256, 8, 1, 32),
     (1, 128, 384, 4, 4, 64), (2, 384, 384, 2, 2, 128),
+    (1, 128, 128, 4, 2, 80),             # zamba2's shared-block head dim
 ])                                       # the grid of tests/test_kernels.py
 def test_flash_fp32_kernel_arithmetic_vs_pallas(B, T, S, H, KV, hd):
     """The fp32 kernel's split sum of S and its online softmax stay inside
@@ -662,6 +665,43 @@ def test_check_rejects_a_view_off_16_byte_alignment(dtype):
                  (aligned, aligned, off)):
         with pytest.raises(ValueError, match="not 16-byte aligned"):
             flash_module._check(*args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_check_takes_head_dim_80_for_the_forward_only(dtype):
+    """Both forwards take hd 32, 64, 80 and 128; the backward only 32, 64
+    and 128, and at hd 80 it raises NotImplementedError naming the ROADMAP
+    item before any launch (the C switch never sees the call); any other hd
+    is a ValueError."""
+    def qkv(hd):
+        q = torch.zeros(1, 8, 4, hd, dtype=dtype)
+        kv = torch.zeros(1, 8, 2, hd, dtype=dtype)
+        return q, kv, kv
+    for hd in (32, 64, 80, 128):
+        flash_module._check(*qkv(hd))
+    for hd in (32, 64, 128):
+        flash_module._check(*qkv(hd), backward=True)
+    with pytest.raises(NotImplementedError,
+                       match="head_dim 80 .*ROADMAP.md queue 2 item 1"):
+        flash_module._check(*qkv(80), backward=True)
+    with pytest.raises(ValueError, match="head_dim 96 not in"):
+        flash_module._check(*qkv(96))
+
+
+def test_c_switches_take_the_head_dims_the_wrapper_takes():
+    """Each forward's C entries have a case for every hd of
+    ``_FWD_HEAD_DIMS``; the backward's for those of ``_BWD_HEAD_DIMS``
+    only (its kernels assert a tile width equal to hd)."""
+    for name, dims in (("flash_attention.cu", flash_module._FWD_HEAD_DIMS),
+                       ("flash_attention_sm90.cu",
+                        flash_module._FWD_HEAD_DIMS),
+                       ("flash_attention_bwd.cu",
+                        flash_module._BWD_HEAD_DIMS)):
+        code = _code(name)
+        cases = {int(n) for n in re.findall(r"case (\d+):", code)}
+        assert cases == set(dims), (name, cases)
+        for hd in dims:
+            assert code.count(f"case {hd}:") == 2, (name, hd)
 
 
 def test_build_compiles_every_source_for_sm90a(monkeypatch):
