@@ -33,14 +33,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    timed in both dtypes), rmsnorm (both dtypes, the vector path and the scalar
    one: d=100 and a view 16-byte misaligned, the q_norm decode rows
    64 x 128, and in fp32 every norm shape of both training paths),
-   ssd_scan (outputs and final states, with and without an initial state,
-   with the mLSTM normalizer, and one path case drawn like the served
-   model: slow forgetting, exponential input gates; timed at each path
-   length; then zamba2's Mamba-2 shape, b=1 H=80 N=64 P=64 without the
-   normalizer, drawn like that model: dt = softplus(N(0, 1) + dt_bias),
-   dt_bias the inverse softplus of a log-uniform draw in [1e-3, 1e-1],
-   A = -(1..80), at T = 137 / 1000 / 1291, each timed), slstm_scan (outputs and final states; path cases at every
-   path length, fp32 r at dh=512 whose rows beyond shared memory come from
+   ssd_scan (outputs and final states, B and C per group, both paths in
+   both dtypes with the path each case took logged: the grid, one case
+   also with its group expanded to G = H, one N = 128 case on the ordered
+   walk; with and without an initial state, with the mLSTM normalizer,
+   and one path case drawn like the served model: slow forgetting,
+   exponential input gates; timed at each path length; then zamba2's
+   Mamba-2 shape on the chunk-parallel path, b=1 H=80 G=1 N=64 P=64
+   without the normalizer, drawn like that model: dt = softplus(N(0, 1) +
+   dt_bias), dt_bias the inverse softplus of a log-uniform draw in
+   [1e-3, 1e-1], A = -(1..80), at T = 137 / 1000 / 1291, each timed and
+   called twice for the same bits, the ordered walk also held and timed
+   at T=1000, and once from an initial state; the small grid cases timed
+   on both paths), slstm_scan (outputs and final states; path cases at
+   every path length, fp32 r at dh=512 whose rows beyond shared memory come from
    L2, and B=4; each timed, in µs per step too; the cluster shape and how
    many such clusters the card holds at once). Then the member step's
    backward kernels, in fp32, against autograd of the plain versions, each
@@ -64,21 +70,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    - qwen3-0.6b (28 layers, 2048 positions): 28 flash launches per prefill,
      113 rmsnorm launches per prefill and per decode step;
    - xlstm-1.3b (48 blocks, 42 mLSTM + 6 sLSTM): 42 ssd_scan and 6
-     slstm_scan launches per prefill (one ssd_scan call, its two kernels,
-     computes an mLSTM layer's output and normalizer), 55 rmsnorm launches
-     per prefill and per decode step;
+     slstm_scan launches per prefill (one ssd_scan call, the ordered
+     walk's two kernels, computes an mLSTM layer's output and normalizer),
+     55 rmsnorm launches per prefill and per decode step;
    - zamba2-2.7b (54 Mamba-2 layers, one shared ATTN block applied after
-     every 6, 9 times, hd 80): 54 ssd_scan and 9 flash_attention launches
-     per prefill, 127 rmsnorm launches per prefill and per decode step
-     (ln1 and the mixer's norm per Mamba-2 layer, ln1 and ln2 per shared
-     application, final_norm).
+     every 6, 9 times, hd 80): 54 ssd_scan (the chunk-parallel path's
+     three kernels a call) and 9 flash_attention launches per prefill,
+     127 rmsnorm launches per prefill and per decode step (ln1 and the
+     mixer's norm per Mamba-2 layer, ln1 and ln2 per shared application,
+     final_norm).
    Each checks every request finished, the exact launch counts (set to 0
    just before the phase and read just after), and teacher-forced logits of
    one request against the same model run through the plain versions on the
    card (bf16 within twice the bf16 noise floor, measured against an fp32
    run; fp32 weights within the floor). A traced window then gives the
    device's busy share and device time by kernel, and shows that bf16
-   serving ran no fp32 (CUDA-core) flash kernel.
+   serving ran no fp32 (CUDA-core) flash kernel and that each model's
+   ssd_scan ran the kernels of its path and no other.
 5b. Train: the sweep's member step (``repro_torch.launch.sweep``:
    ``forward_loss`` -> autograd through the kernels' Functions ->
    ``adamw_update``), TF32 off, params in fp32:
@@ -119,7 +127,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      launch times, step times and the peak memory logged.
 6. Print the kernels' JSON line (the fp32 forward and both backward
    kernels with their training and sweep launches beside the serving
-   kernels), the card line, and as the last line
+   kernels; ssd_scan as two rows, the ordered walk with xlstm's launches
+   and the chunk-parallel path with zamba2's), the card line, and as the
+   last line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and cuDNN, so fp32 comparisons are full fp32.
@@ -160,6 +170,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.rmsnorm import plan as rmsnorm_plan  # noqa: E402
 from repro_torch.kernels.slstm_scan import (slstm_max_clusters,  # noqa: E402
                                             slstm_plan)
+from repro_torch.kernels.ssd_scan import _launch as ssd_launch  # noqa: E402
+from repro_torch.kernels.ssd_scan import path as ssd_path  # noqa: E402
 from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
 from repro_torch.launch.sweep import (build_member_step,  # noqa: E402
                                       loss_and_grads, member_config,
@@ -895,7 +907,9 @@ def time_rmsnorm_bwd(name, x, g, dy, err):
 
 
 SSD_GRID = [(1, 128, 4, 1, 16, 32), (2, 256, 2, 2, 8, 64),
-            (1, 512, 8, 1, 16, 32)]          # tests/test_kernels.py:124-128
+            (1, 512, 8, 1, 16, 32),          # tests/test_kernels.py:124-128
+            (1, 137, 4, 2, 128, 32)]         # N = 128: the ordered walk
+SSD_AS_HEADS = 2                             # this grid case also passes G = H
 SSD_PATH = (1, 4, 512, 1024)                 # mLSTM: b, H, N=dqk, P=dv
 SSD_PATH_T = (137, 1000, 1291)
 SSD_MAMBA = (1, 80, 64, 64)                  # Mamba-2 (zamba2): b, H, N, P
@@ -925,28 +939,41 @@ def mamba2_like_ssd(gen, b, T, H, N, P):
     per-head log-uniform draw in [1e-3, 1e-1], A = -(1..H), a = dt * A
     (per-step decays down to e^-8 and beyond on the fast heads: exp(a_cum)
     underflows to 0 within a chunk), x = silu(N(0, 1)) * dt, B and C the
-    one group's silu(N(0, 1)) expanded to every head, all fp32."""
+    one group's silu(N(0, 1)), [b, T, 1, N], all fp32."""
     u = torch.rand(H, generator=gen, device="cuda")
     dt0 = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
     dt = F.softplus(randn(gen, b, T, H) + torch.log(torch.expm1(dt0)))
     a = dt * -torch.arange(1, H + 1, dtype=torch.float32, device="cuda")
     x = F.silu(randn(gen, b, T, H, P)) * dt[..., None]
-    B, C = (F.silu(randn(gen, b, T, 1, N)).expand(b, T, H, N).contiguous()
-            for _ in range(2))
+    B, C = (F.silu(randn(gen, b, T, 1, N)) for _ in range(2))
     return x, a, B, C
 
 
 def check_ssd(gen):
+    """Both paths against the plain version in both dtypes (each case logs
+    the path it took), B and C per group as the models hand them (and once
+    expanded to G = H); then the paths' shapes, timed."""
     for dtype in (torch.float32, torch.bfloat16):
-        for b, T, H, G, N, P in SSD_GRID:
+        for case, (b, T, H, G, N, P) in enumerate(SSD_GRID):
             x = randn(gen, b, T, H, P, dtype=dtype, scale=0.5)
             a = -randn(gen, b, T, H, scale=0.3).abs()
             B, C = (randn(gen, b, T, G, N, dtype=dtype, scale=0.5)
-                    .repeat_interleave(H // G, dim=2) for _ in range(2))
-            got = ssd_scan(x, a, B, C)
-            torch.cuda.synchronize()
-            compare("ssd_scan", f"b={b} T={T} H={H} G={G} N={N} P={P} "
-                    f"{str(dtype)[6:]}", got, ssd_scan_ref(x, a, B, C))
+                    for _ in range(2))
+            groups = [(G, B, C)]
+            if case == SSD_AS_HEADS:
+                groups.append((H, *(t.repeat_interleave(H // G, dim=2)
+                                    for t in (B, C))))
+            for g, Bg, Cg in groups:
+                got = ssd_scan(x, a, Bg, Cg)
+                torch.cuda.synchronize()
+                compare("ssd_scan", f"b={b} T={T} H={H} G={g} N={N} P={P} "
+                        f"{str(dtype)[6:]}, path {ssd_path(N, P, False)}",
+                        got, ssd_scan_ref(x, a, Bg, Cg))
+            if dtype == torch.float32 and ssd_path(N, P, False) == "chunks":
+                ms = {r: device_ms(lambda: ssd_launch(r, x, a, B, C), 5)
+                      for r in ("chunks", "walk")}
+                log("  device time by path: " + ", ".join(
+                    f"{r} {t:.4f} ms" for r, t in ms.items()))
     path = {}
     b, H, N, P = SSD_PATH
     for T in SSD_PATH_T:
@@ -961,7 +988,8 @@ def check_ssd(gen):
             got = ssd_scan(x, a, B, C, **kw)
             torch.cuda.synchronize()
             err = compare("ssd_scan", f"b={b} T={T} H={H} N={N} P={P} fp32 "
-                          f"normalizer initial_state={init}", got,
+                          f"normalizer initial_state={init}, path "
+                          f"{ssd_path(N, P, True)}", got,
                           ssd_scan_ref(x, a, B, C, **kw))
             if not init:
                 path[T] = time_ssd(x, a, B, C, kw["norm_weights"], err)
@@ -975,22 +1003,45 @@ def check_ssd(gen):
             "initial_state=True, drawn like the model", got,
             ssd_scan_ref(x, a, B, C, **kw))
     b, H, N, P = SSD_MAMBA
+    require(ssd_path(N, P, False) == "chunks")
     for T in ZAMBA_T:
         x, a, B, C = mamba2_like_ssd(gen, b, T, H, N, P)
         got = ssd_scan(x, a, B, C)
         torch.cuda.synchronize()
-        err = compare("ssd_scan", f"b={b} T={T} H={H} N={N} P={P} fp32, "
-                      "drawn like Mamba-2 (zamba2)", got,
+        err = compare("ssd_scan", f"b={b} T={T} H={H} G=1 N={N} P={P} fp32, "
+                      "drawn like Mamba-2 (zamba2), path chunks", got,
                       ssd_scan_ref(x, a, B, C))
+        check_ssd_repeats(x, a, B, C)
         path["mamba2", T] = time_ssd(x, a, B, C, None, err)
+        if T == REPORT_T:            # the other path at this shape
+            walk = lambda: ssd_launch("walk", x, a, B, C)
+            compare("ssd_scan", f"b={b} T={T} H={H} G=1 N={N} P={P} fp32, "
+                    "path walk", walk(), ssd_scan_ref(x, a, B, C))
+            log(f"  device time of the ordered walk at this shape: "
+                f"{device_ms(walk, 5):.4f} ms")
+    T = ZAMBA_T[0]
+    x, a, B, C = mamba2_like_ssd(gen, b, T, H, N, P)
+    S0 = randn(gen, b, H, N, P)
+    compare("ssd_scan", f"b={b} T={T} H={H} G=1 N={N} P={P} fp32, drawn "
+            "like Mamba-2, initial_state=True, path chunks",
+            ssd_scan(x, a, B, C, initial_state=S0),
+            ssd_scan_ref(x, a, B, C, initial_state=S0))
     return path
 
 
+def check_ssd_repeats(x, a, B, C):
+    """One owner per output, no atomics: two calls give the same bits."""
+    first, second = ssd_scan(x, a, B, C), ssd_scan(x, a, B, C)
+    require(all(torch.equal(f, s) for f, s in zip(first, second)),
+            "ssd_scan: two calls gave different bits")
+
+
 def time_ssd(x, a, B, C, w, err):
-    """The bound counts the kernel's inputs as they are given: B and C
-    with their groups already expanded to every head."""
+    """The bound counts the kernel's inputs as they are given: B and C per
+    group ([b, T, G, N]; G = 1 for Mamba-2, G = H for mLSTM), each read
+    once."""
     b, T, H, P = x.shape
-    N = B.shape[-1]
+    G, N = B.shape[2:]
     cols = P + (w is not None)             # P columns, + n with a normalizer
     flops = 4 * b * T * H * N * cols       # update + output
     nbytes = 4 * (2 * x.numel() + a.numel() + B.numel() + C.numel()
@@ -1006,16 +1057,23 @@ def time_ssd(x, a, B, C, w, err):
         "library_ms": None,
         "bound_by": max(bound, key=bound.get),
         "bound_ms": max(bound.values()),
-        "shape": f"b={b} T={T} H={H} N={N} P={P} fp32"
+        "shape": f"b={b} T={T} H={H} G={G} N={N} P={P} fp32"
                  + ("" if w is None else " + normalizer"),
     }
+    if ssd_path(N, P, w is not None) == "chunks":
+        parts = []
+        for k, v in device_ms_by_kernel(kernel, 10).items():
+            name = re.search(r"ssd_scan\w*", k)
+            parts.append(f"{name.group(0) if name else k[:40]} {v:.4f}")
+        log("  device ms by kernel: " + ", ".join(parts))
     log(f"  device time {row['shape']}: kernel {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, no one-call PyTorch equivalent, bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']}; operations "
         f"{bound['operations']:.4f}, bytes {bound['bytes']:.4f}); kernel reaches "
         f"{flops / row['ms'] / 1e9:.1f} TFLOP/s, "
         f"{row['bound_ms'] / row['ms']:.1%} of the bound; one call from "
-        f"Python {host_ms(kernel, 5):.4f} ms")
+        f"Python {host_ms(kernel, 5):.4f} ms; path "
+        f"{ssd_path(N, P, w is not None)}")
     return row
 
 
@@ -1124,9 +1182,17 @@ def teacher_forced(params, cfg, prompt, forced):
     return torch.stack(out).float()
 
 
-def serve(arch: str, n_layers: int, per_prefill: dict, per_step: dict):
+SSD_KERNELS = {"chunks": ("ssd_scan_chunk_state_kernel",
+                          "ssd_scan_chunk_pass_kernel",
+                          "ssd_scan_chunk_out_kernel"),
+               "walk": ("ssd_scan_intra_kernel", "ssd_scan_kernel")}
+
+
+def serve(arch: str, n_layers: int, per_prefill: dict, per_step: dict,
+          ssd: str = None):
     """Serve 8 requests on ``arch`` at full width; require the launch counts
-    ``per_prefill`` x prefills + ``per_step`` x decode steps exactly."""
+    ``per_prefill`` x prefills + ``per_step`` x decode steps exactly, and
+    that the traced ssd_scan kernels are those of the path ``ssd``."""
     cfg = get_config(arch)
     require(cfg.n_layers == n_layers and cfg.param_dtype == "bfloat16")
     torch.cuda.empty_cache()
@@ -1179,7 +1245,14 @@ def serve(arch: str, n_layers: int, per_prefill: dict, per_step: dict):
 
     check_teacher_forced(params, cfg, prompts[0], done[rids[0]].tokens[:8],
                          per_prefill, per_step)
-    profile_serving(eng, prompts[:4])
+    traced = profile_serving(eng, prompts[:4])
+    if ssd is not None:
+        ran = [k for k in traced if "ssd_scan" in k]
+        log(f"serve: {arch} traced ssd_scan kernels {ran}")
+        names = SSD_KERNELS[ssd]
+        require(all(any(n in k for k in ran) for n in names)
+                and all(any(n in k for n in names) for k in ran),
+                f"{arch} ran ssd_scan kernels {ran}, not path {ssd}")
     return launches, metrics
 
 
@@ -1222,12 +1295,16 @@ def check_teacher_forced(params, cfg, prompt, forced, per_prefill, per_step):
     floor = float((plain - ref32).abs().max())
     diff32 = float((got32 - ref32).abs().max())
     agree = float((got.argmax(-1) == plain.argmax(-1)).float().mean())
+    top2 = plain.float().topk(2, dim=-1).values
+    flips = [f"{int(i)}: {float(top2[i, 0] - top2[i, 1]):.4e}" for i in
+             (got.argmax(-1) != plain.argmax(-1)).nonzero().flatten()]
     log(f"teacher-forced logits (prefill + {len(forced)} decode steps, "
         f"prompt {len(prompt)}): kernel vs plain max|diff| {diff:.4e} beside "
         f"max|logit| {scale:.4e} (ratio {diff / scale:.4e}); kernel vs fp32 "
         f"{to32:.4e}; bf16 noise floor (plain vs fp32) {floor:.4e}, tol "
-        f"2x that; argmax agreement {agree:.3f}; fp32 weights: kernel vs "
-        f"plain {diff32:.4e}, tol the floor")
+        f"2x that; argmax agreement {agree:.3f} (plain path's top-2 margin "
+        f"where they differ, by position: {flips}); fp32 weights: kernel "
+        f"vs plain {diff32:.4e}, tol the floor")
     require(diff <= 2 * floor, "kernel path disagrees with the plain path")
     require(to32 <= 2 * floor, "kernel path further from fp32 than plain")
     require(diff32 <= floor, "fp32 kernel path disagrees with fp32 plain")
@@ -1236,7 +1313,7 @@ def check_teacher_forced(params, cfg, prompt, forced, per_prefill, per_step):
 def profile_serving(eng, prompts):
     """Trace the engine serving a few more requests: device busy share of
     the window and device time by kernel (the tracer's own host cost makes
-    the idle share an upper bound)."""
+    the idle share an upper bound). Returns the traced kernels' names."""
     from torch.profiler import ProfilerActivity, profile
     for p in prompts:
         eng.submit(p, max_new=8)
@@ -1265,13 +1342,17 @@ def profile_serving(eng, prompts):
         groups[group] += e.self_device_time_total / 1e3
     cuda_core = [e.key for e in kernels if "flash_fwd_kernel" in e.key]
     require(not cuda_core, f"bf16 serving ran the fp32 flash kernel: {cuda_core}")
+    copies = sum(e.self_device_time_total for e in kernels
+                 if "direct_copy" in e.key) / 1e3
     log(f"profile: {len(prompts)} requests x 8 tokens (traced), wall "
         f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
         f"({busy / wall_us:.1%}), {len(kernels)} kernel names; device ms by "
-        f"group {json.dumps({k: round(v, 3) for k, v in groups.items()})}")
+        f"group {json.dumps({k: round(v, 3) for k, v in groups.items()})}; "
+        f"direct_copy kernels (in other) {copies:.3f} ms")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
             f"{e.key[:100]}")
+    return [e.key for e in kernels]
 
 
 # --------------------------------------------------------------------------
@@ -1801,11 +1882,11 @@ def main():
     xlstm, _ = serve("xlstm-1.3b", XLSTM_MLSTM + XLSTM_SLSTM,
                      {"ssd_scan": XLSTM_MLSTM, "slstm_scan": XLSTM_SLSTM,
                       "rmsnorm": XLSTM_NORMS},
-                     {"rmsnorm": XLSTM_NORMS})
+                     {"rmsnorm": XLSTM_NORMS}, ssd="walk")
     zamba, _ = serve("zamba2-2.7b", ZAMBA_LAYERS,
                      {"ssd_scan": ZAMBA_LAYERS, "flash_attention": ZAMBA_APPS,
                       "rmsnorm": ZAMBA_NORMS},
-                     {"rmsnorm": ZAMBA_NORMS})
+                     {"rmsnorm": ZAMBA_NORMS}, ssd="chunks")
     torch.cuda.empty_cache()
     train, train_metrics = train_full_width()                # phase 5b
     sweep, sweep_metrics = train_sweep()
@@ -1849,7 +1930,13 @@ def main():
          **rms_bwd_rows[RMS_BWD_REPORT]},
         {"name": "ssd_scan", "route": "cuda", "source": csrc + "ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:82",
-         **launches("ssd_scan", serving), **ssd_rows[REPORT_T]},
+         **launches("ssd_scan", {"xlstm-1.3b serve": xlstm}),
+         **ssd_rows[REPORT_T]},
+        {"name": "ssd_scan_chunks", "route": "cuda",
+         "source": csrc + "ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:82",
+         **launches("ssd_scan", {"zamba2-2.7b serve": zamba}),
+         **ssd_rows["mamba2", REPORT_T]},
         {"name": "slstm_scan", "route": "cuda",
          "source": csrc + "slstm_scan.cu",
          "replaces": "src/repro/kernels/slstm_scan.py:94",

@@ -3,9 +3,12 @@
 
     git archive <rev> | tar -x -C build/parent     # build/ is gitignored
     python3 scripts/port_ab.py --parent build/parent
+    python3 scripts/port_ab.py --parent build/parent --only ssd,serve \
+        --arch zamba2-2.7b
 
-Three comparisons, each in the order parent, this checkout, this checkout,
-parent, so that a drift of the card or the host shows as a spread:
+Comparisons (``--only`` picks some of flash, ssd and serve; all by
+default), each in the order parent, this checkout, this checkout, parent,
+so that a drift of the card or the host shows as a spread:
 
 - ``flash_attention_fwd`` (the fp32 forward, with lse) and
   ``flash_attention_bwd`` at the member step's shape (B=4 T=S=512 H=16
@@ -15,10 +18,20 @@ parent, so that a drift of the card or the host shows as a spread:
   this checkout's; device ms per call from CUDA-graph replay
   (``chip_smoke.device_ms``), whether the two give the same bits, and
   their largest difference.
-- Serving qwen3-0.6b at full width (bf16 weights from seed 0, 4 slots, 8
-  requests of 32 new tokens, ``chip_smoke.py``'s prompts), one process per
-  run, each serving twice and reporting the second: prefill ms per
-  request, decode ms per step and tokens/s on the host clock.
+- ``ssd_scan_fwd`` (the parent's C entry, built alone as above, B and C
+  expanded to every head as the parent's callers handed them) against
+  this checkout's ``ssd_scan`` on the same inputs with B and C as its
+  callers hand them now: zamba2's Mamba-2 shape (b=1 H=80 N=P=64, one
+  group, ``chip_smoke.mamba2_like_ssd``) at T = 137 / 1000 / 1291, where
+  the parent's time is also given with the expansion its caller paid
+  (``repeat_interleave`` to 80 heads), and the mLSTM shape (b=1 T=1000 H=4
+  N=512 P=1024 fp32 with the normalizer, G = H), whose bits must not
+  change.
+- Serving ``--arch`` (qwen3-0.6b by default) at full width (bf16 weights
+  from seed 0, 4 slots, 8 requests of 32 new tokens, ``chip_smoke.py``'s
+  prompts), one process per run, each serving twice and reporting the
+  second: prefill ms per request, decode ms per step and tokens/s on the
+  host clock.
 
 Prints one JSON line per run and the card's name and power limit.
 """
@@ -39,14 +52,14 @@ CSRC = Path("src/repro_torch/kernels/csrc")
 SHAPE = (4, 512, 16, 8, 128)                 # B, T=S, H, KV, hd
 
 
-def serve(tree: Path) -> dict:
+def serve(tree: Path, arch: str) -> dict:
     sys.path.insert(0, str(tree / "src"))
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     from repro_torch.serve.engine import ServeEngine
-    cfg = get_config("qwen3-0.6b")
+    cfg = get_config(arch)
     params = init_params(cfg, torch.Generator("cuda").manual_seed(0),
                          device="cuda")
     rng = np.random.default_rng(0)
@@ -62,7 +75,8 @@ def serve(tree: Path) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     st = eng.stats
-    return {"serve": str(tree), "tokens_per_s": 32 * len(prompts) / wall,
+    return {"serve": str(tree), "arch": arch,
+            "tokens_per_s": 32 * len(prompts) / wall,
             "prefill_ms": st["prefill_s"] / st["prefills"] * 1e3,
             "decode_ms": st["decode_s"] / st["decode_steps"] * 1e3}
 
@@ -152,23 +166,100 @@ def flash_bwd(parent: Path) -> list:
     return ab_rows("flash_attention_bwd", parent_call, this_call)
 
 
+SSD_MAMBA = (1, 80, 64, 64)                  # b, H, N, P (zamba2)
+SSD_MAMBA_T = (137, 1000, 1291)
+SSD_MLSTM = (1, 1000, 4, 512, 1024)          # b, T, H, N, P (xlstm)
+SSD_PARENT_ARGTYPES = (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 6 + (
+    ctypes.c_void_p,)
+
+
+def ssd(parent: Path) -> list:
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    import torch
+    old = parent_entry(parent, "ssd_scan.cu", "ssd_scan_fwd",
+                       SSD_PARENT_ARGTYPES)
+    gen = torch.Generator("cuda").manual_seed(0)
+
+    def parent_call(x, a, B, C, w=None):
+        """The parent's C entry; B and C [b,T,H,N] (expanded)."""
+        b, T, H, P = x.shape
+        N = B.shape[-1]
+        y, S = torch.empty_like(x), torch.empty(b, H, N, P, device="cuda")
+        n = torch.empty(b, T, H, device="cuda") if w is not None else None
+        Sn = torch.empty(b, H, N, device="cuda") if w is not None else None
+        ws = torch.empty(b * H * -(-T // 64) * 64 * 66, device="cuda")
+        ptr = lambda t: None if t is None else t.data_ptr()
+        code = old(x.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(),
+                   None, y.data_ptr(), S.data_ptr(), ptr(w), None, ptr(n),
+                   ptr(Sn), ws.data_ptr(), 0, b, T, H, N, P,
+                   torch.cuda.current_stream().cuda_stream)
+        cs.build.check(code, "parent ssd_scan_fwd")
+        return (y, S) if w is None else (y, n, S, Sn)
+
+    def rows(shape, pairs, same_bits):
+        out = []
+        for name, fn in pairs:
+            out.append({"ssd_scan": name, "shape": shape,
+                        "ms": cs.device_ms(fn, 5), **same_bits})
+        return out
+
+    result = []
+    b, H, N, P = SSD_MAMBA
+    for T in SSD_MAMBA_T:
+        x, a, B, C = cs.mamba2_like_ssd(gen, b, T, H, N, P)   # B, C per group
+        expand = lambda: [t.repeat_interleave(H, dim=2).float()
+                          for t in (B, C)]
+        Be, Ce = expand()
+        this = lambda: cs.ssd_scan(x, a, B, C)
+        par = lambda: parent_call(x, a, Be, Ce)
+        par_expand = lambda: parent_call(x, a, *expand())
+        diff = max(float((p - t).abs().max()) for p, t in zip(par(), this()))
+        shape = f"b={b} T={T} H={H} G=1 N={N} P={P} fp32"
+        result += rows(shape, [("parent", par), ("this", this),
+                               ("this", this), ("parent", par),
+                               ("parent + expansion", par_expand)],
+                       {"max_abs_diff_vs_parent": diff})
+    b, T, H, N, P = SSD_MLSTM
+    x = cs.randn(gen, b, T, H, P, scale=0.5)
+    a = -cs.randn(gen, b, T, H, scale=0.3).abs()
+    B, C = (cs.randn(gen, b, T, H, N, scale=0.5) for _ in range(2))
+    w = torch.exp(cs.randn(gen, b, T, H, scale=0.5) - 2)
+    this = lambda: cs.ssd_scan(x, a, B, C, norm_weights=w)
+    par = lambda: parent_call(x, a, B, C, w)
+    same = all(torch.equal(p, t) for p, t in zip(par(), this()))
+    result += rows(f"b={b} T={T} H={H} G={H} N={N} P={P} fp32 + normalizer",
+                   [("parent", par), ("this", this), ("this", this),
+                    ("parent", par)], {"same_bits_as_parent": same})
+    return result
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path, required=True)
+    ap.add_argument("--only", default="flash,ssd,serve",
+                    help="comma-separated: flash, ssd, serve")
+    ap.add_argument("--arch", default="qwen3-0.6b", help="the served model")
     ap.add_argument("--serve-one", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.serve_one:
-        print(json.dumps(serve(args.serve_one.resolve())), flush=True)
+        print(json.dumps(serve(args.serve_one.resolve(), args.arch)),
+              flush=True)
         return
+    only = set(args.only.split(","))
     parent = args.parent.resolve()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    for row in flash_fwd(parent) + flash_bwd(parent):
+    rows = ((flash_fwd(parent) + flash_bwd(parent) if "flash" in only else [])
+            + (ssd(parent) if "ssd" in only else []))
+    for row in rows:
         print(json.dumps(row), flush=True)
-    for tree in (parent, ROOT, ROOT, parent):
-        subprocess.run([sys.executable, __file__, "--parent", str(parent),
-                        "--serve-one", str(tree)], check=True)
+    if "serve" in only:
+        for tree in (parent, ROOT, ROOT, parent):
+            subprocess.run([sys.executable, __file__, "--parent", str(parent),
+                            "--arch", args.arch, "--serve-one", str(tree)],
+                           check=True)
 
 
 if __name__ == "__main__":

@@ -12,8 +12,8 @@ tests; the serving path runs the recurrence through the port's
 ``ssd_scan_ref``. Decode advances one step with ``ssd_decode_step``.
 
 The Mamba-2 block (zamba2) runs its recurrence through the same kernel at
-any T, its groups expanded to heads and B, C in fp32 as ``ssd_chunked``
-takes them; JAX's prefill falls back to the sequential ``ssd_scan_ref``
+any T, with B and C in fp32 per group (the kernel reads each head's group;
+no copy per head); JAX's prefill falls back to the sequential ``ssd_scan_ref``
 where T is not a multiple of its chunk. Decode stays plain torch
 (``conv_decode_step``, ``ssd_decode_step``), as in the JAX package: no TPU
 kernel covers it. ``A_log``, ``D`` and ``dt_bias`` are fp32 in every model,
@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ssd_scan import ssd_scan_ref as _scan_ref
+from repro_torch.kernels.ssd_scan import ssd_scan_ref  # noqa: F401
 
 from .common import dense_init, matmul, normal_init, rms_norm
 
@@ -111,14 +111,6 @@ def ssd_chunked(x, a, B, C, chunk: int, initial_state=None,
     n_off = torch.einsum("bcqhn,bcqh,bchn->bcqh", Cf, decay_from_start,
                          Sn_prevs)
     return y, (n_diag + n_off).reshape(b, T, H), S, Sn
-
-
-def ssd_scan_ref(x, a, B, C, initial_state=None):
-    """Sequential form (``repro/models/ssm.py:133``): B/C [b,T,G,N] with
-    groups; returns (y, final_state). The kernel's plain version does the
-    work."""
-    Bf, Cf = _expand_groups(B, C, x.shape[2])
-    return _scan_ref(x, a, Bf, Cf, initial_state=initial_state)
 
 
 def ssd_decode_step(S, x_t, a_t, B_t, C_t):
@@ -233,12 +225,11 @@ def _mamba2_output(p, cfg, y, xh, z):
 def mamba2_scan(p, cfg, x):
     """x: [B, T, d] -> (out [B, T, d], conv_in [B, T, conv_dim], final ssm
     state [B, H, N, P] fp32): the recurrence over the whole sequence in one
-    ``ssd_scan`` launch on the card."""
+    ``ssd_scan`` launch on the card, B and C per group."""
     z, dt, conv_in = _mamba2_proj(p, x)
     conv_y = causal_conv1d(conv_in, p["conv_w"], p["conv_b"])
     xh, x_scaled, a, Bm, Cm = _mamba2_heads(p, cfg, conv_y, dt, x.dtype)
-    Bf, Cf = _expand_groups(Bm, Cm, xh.shape[2])
-    y, state = ops.ssd(x_scaled, a, Bf, Cf)
+    y, state = ops.ssd(x_scaled, a, Bm.float(), Cm.float())
     return _mamba2_output(p, cfg, y, xh, z), conv_in, state
 
 
