@@ -11,7 +11,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    and spills, the tensor-core flash kernel's dynamic shared memory, and the
    fp32 flash forward and backward kernels' shared memory and blocks per
    SM (the forwards at hd 32, 64, 80 and 128, the backward at 32, 64 and
-   128; each must fit at least one block on an SM).
+   128 in fp32 and in bf16; each must fit at least one block on an SM).
 3. The serve paths' bf16 GEMMs (prefill and decode rows) against the fp32
    product of the same operands rounded to bf16, with
    ``allow_bf16_reduced_precision_reduction`` at its default and False:
@@ -61,9 +61,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    above, +inf rows identical; two forward calls at T=512 the same bits;
    the forward timed at T=512, B=3 T=1000 and B=8 T=32 hd 32)
    and rmsnorm_bwd (every norm shape of both training paths and a view off
-   16-byte alignment, the scalar path); a bf16 backward must raise. Each is
-   timed beside its bound, its plain backward and the backward of
-   ``F.scaled_dot_product_attention`` (fp32, GQA) or ``F.rms_norm``.
+   16-byte alignment, the scalar path). Then the trainer's bf16 backward
+   kernels against their plain versions on the same bf16 inputs, per row
+   relative to the row's RMS within twice the plain version's own bf16
+   rounding: flash_attention_bwd at B=4 T=512 H=16 KV=8 hd=128 (the
+   trainer's microbatch), T=137 with a window, hd 32 (the reduced
+   config's), hd 64 and a q_offset, with the bf16 forward's lse against
+   the plain lse in each case, two calls the same bits and a run without
+   the first key tile failing the check; rmsnorm_bwd (dx and dg) at every
+   training norm shape and a view 2 bytes off alignment; the bf16 forward
+   timed with and without lse at B=1 T=1000 and B=4 T=512. Each backward
+   is timed beside its bound, its plain backward and the backward of
+   ``F.scaled_dot_product_attention`` (GQA) or ``F.rms_norm`` in the same
+   dtype, the flash backward's three kernels also apart.
 5. Serve: ``ServeEngine`` at full width, bf16 weights drawn from a seeded
    generator, 4 slots, 8 requests (prompt lengths from ``default_rng(0)`` in
    [100, 1500], 32 new tokens each), for three models in turn:
@@ -83,7 +93,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    just before the phase and read just after), and teacher-forced logits of
    one request against the same model run through the plain versions on the
    card (bf16 within twice the bf16 noise floor, measured against an fp32
-   run; fp32 weights within the floor). A traced window then gives the
+   run; fp32 weights within the floor; at each position where the greedy
+   tokens differ, the fp32 path's token and top-2 margin are logged). A
+   traced window then gives the
    device's busy share and device time by kernel, and shows that bf16
    serving ran no fp32 (CUDA-core) flash kernel and that each model's
    ssd_scan ran the kernels of its path and no other.
@@ -125,11 +137,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      card: 3 hits, exactly 10 steps' launches, members 0 and 1 the same
      losses bit for bit, every first loss 5b's step-0 loss within 1e-6;
      launch times, step times and the peak memory logged.
+5d. The fault-tolerant trainer (``repro_torch.train``) at full width in
+   bf16: ``Trainer`` on qwen3-0.6b as configured (bf16 params, fp32
+   moments, 2 microbatches, remat full, random from seed 0) on
+   ``SyntheticLM`` 8 x 512, peak lr 1e-3, warmup 2. Step 0's loss and
+   gradients through the kernels against the same through the plain
+   versions, held to the plain bf16 path's noise floor against plain fp32;
+   8 steps with a checkpoint every 4, exactly 112 flash_attention, 56
+   flash_attention_bwd, 450 rmsnorm and 226 rmsnorm_bwd launches a step
+   (the remat recompute counted), no retry, a falling loss; then a new
+   Trainer on the same directory, without step 8's checkpoint, resumes at
+   step 4 and its losses for steps 5-8 must be the first run's (within
+   1e-5, bit-equality logged); step ms, peak memory, the async save's,
+   write's and restore's seconds and one traced step's device ms by group
+   logged. Then ``python -m repro_torch.launch.train --arch qwen3-0.6b
+   --steps 20`` in a subprocess (the reduced config, hd 32): exit 0 and
+   ``done at step 20``.
 6. Print the kernels' JSON line (the fp32 forward and both backward
    kernels with their training and sweep launches beside the serving
-   kernels; ssd_scan as two rows, the ordered walk with xlstm's launches
-   and the chunk-parallel path with zamba2's), the card line, and as the
-   last line
+   kernels, the bf16 backward kernels with the trainer's launches; ssd_scan
+   as two rows, the ordered walk with xlstm's launches and the
+   chunk-parallel path with zamba2's), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and cuDNN, so fp32 comparisons are full fp32.
@@ -142,8 +170,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from pathlib import Path
@@ -172,13 +202,17 @@ from repro_torch.kernels.slstm_scan import (slstm_max_clusters,  # noqa: E402
                                             slstm_plan)
 from repro_torch.kernels.ssd_scan import _launch as ssd_launch  # noqa: E402
 from repro_torch.kernels.ssd_scan import path as ssd_path  # noqa: E402
+from repro_torch.ckpt import latest_step  # noqa: E402
 from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
+from repro_torch.models.model import forward_hidden, lm_logits  # noqa: E402
 from repro_torch.launch.sweep import (build_member_step,  # noqa: E402
                                       loss_and_grads, member_config,
                                       run_sweep, to_batch)
 from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
 from repro_torch.optim import adamw_init, adamw_update  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
+from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
+from repro_torch.train.step import microbatch_grads  # noqa: E402
 
 # Published dense peaks of one H100 SXM at its 700 W limit.
 PEAK_BF16 = 989e12          # tensor cores, bf16 FLOP/s
@@ -627,8 +661,8 @@ def flash_grads(q, k, v, do, attend, **kw):
 def check_flash_bwd(gen):
     """The fp32 forward with lse and the backward kernels against autograd
     of the plain version (fp32 on the card); a run without the first key
-    tile must fail; bf16 gradients must raise. Returns the timed rows of the
-    backward and of the fp32 forward at the member step's shape."""
+    tile must fail. Returns the timed rows of the backward and of the fp32
+    forward at the member step's shape."""
     rows = None
     for B, T, S, H, KV, hd, window, off in FLASH_BWD_CASES:
         q, do = (randn(gen, B, T, H, hd) for _ in range(2))
@@ -652,15 +686,6 @@ def check_flash_bwd(gen):
             rows = time_flash_bwd(q, k, v, do, err, fwd_err)
         if (B, T, hd, window, off) == (2, 137, 128, 0, 0):
             check_flash_bwd_dropped_tile(q, k, v, do, want)
-    q = randn(gen, 1, 64, 4, 32, dtype=torch.bfloat16).requires_grad_(True)
-    kv = randn(gen, 1, 64, 2, 32, dtype=torch.bfloat16)
-    out = flash_attention(q, kv, kv)
-    try:
-        torch.autograd.grad(out, q, torch.ones_like(out))
-    except NotImplementedError as e:
-        log(f"flash_attention_bwd bf16 on the card raises: {e}")
-    else:
-        require(False, "a bf16 flash backward ran on the card")
     return rows
 
 
@@ -868,20 +893,12 @@ def check_rmsnorm_bwd(gen):
         err = check_grads("rmsnorm_bwd", f"{name} fp32 (vec={vec} "
                           f"group={group})", got, want)
         path[name] = time_rmsnorm_bwd(name, x, g, dy, err)
-    x = randn(gen, 4, 128, dtype=torch.bfloat16).requires_grad_(True)
-    try:
-        torch.autograd.grad(rmsnorm(x, torch.ones(128, dtype=torch.bfloat16,
-                                                  device="cuda")).sum(), x)
-    except NotImplementedError as e:
-        log(f"rmsnorm_bwd bf16 on the card raises: {e}")
-    else:
-        require(False, "a bf16 rmsnorm backward ran on the card")
     return path
 
 
 def time_rmsnorm_bwd(name, x, g, dy, err):
     rows, d = x.shape
-    nbytes = 4 * (3 * rows * d + 2 * d)
+    nbytes = x.element_size() * (3 * rows * d + 2 * d)
     bound = {"operations": 8 * rows * d / PEAK_F32 * 1e3,
              "bytes": nbytes / HBM * 1e3}
     kernel = lambda: rmsnorm_bwd(x, g, dy, eps=1e-6)
@@ -895,7 +912,7 @@ def time_rmsnorm_bwd(name, x, g, dy, err):
             lambda x_, g_: F.rms_norm(x_, (d,), g_, 1e-6), (xl, gl), dy, 50),
         "bound_by": max(bound, key=bound.get),
         "bound_ms": max(bound.values()),
-        "shape": f"{name} fp32",
+        "shape": name if "bfloat16" in name else f"{name} fp32",
     }
     log(f"  device time {name}: backward kernels {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, F.rms_norm backward "
@@ -904,6 +921,202 @@ def time_rmsnorm_bwd(name, x, g, dy, err):
         f"bound, moves {nbytes / row['ms'] / 1e6:.1f} GB/s; one call from "
         f"Python {host_ms(kernel, 50):.4f} ms")
     return row
+
+
+# --------------------------------------------------------------------------
+# phase 4, backward in bf16: the trainer's gradient kernels
+# --------------------------------------------------------------------------
+FLASH_BWD_BF16_CASES = [   # B, T, S, H, KV, hd, window, q_offset
+    (4, 512, 512, 16, 8, 128, 0, 0),     # the trainer's microbatch, full width
+    (2, 137, 137, 16, 8, 128, 64, 0),    # ragged T with a window
+    (8, 64, 64, 4, 2, 32, 0, 0),         # launch/train's reduced config, hd 32
+    (2, 200, 200, 8, 2, 64, 0, 0),       # hd 64, GQA group 4
+    (1, 100, 300, 16, 8, 128, 0, 200),   # q_offset > 0
+]
+FLASH_BWD_BF16_DROPPED = (2, 137, 128)   # B, T, hd: dropped-tile check
+FWD_LSE_TIMED = ((1, 1000, 16, 8, 128), (4, 512, 16, 8, 128))  # prefill, train
+RMS_BWD_BF16_REPORT = "rows=2048 d=1024 bfloat16"
+
+
+def grad_row_rel_err(got, want) -> float:
+    """``row_rel_err`` for gradients: a row's error relative to its RMS, or
+    to a thousandth of the whole tensor's RMS where the row's is smaller (a
+    row whose true gradient is 0, such as dq of a query that sees one key,
+    has no relative error to speak of)."""
+    got, want = got.float(), want.float()
+    rms = want.pow(2).mean(dim=-1).sqrt()
+    rms = rms.clamp_min(1e-3 * float(want.pow(2).mean().sqrt()) + 1e-30)
+    return float(((got - want).abs().amax(dim=-1) / rms).max())
+
+
+def bf16_rows_ok(kernel, name, got, want32):
+    """Each bf16 output against the fp32 result of the same inputs, per row
+    (the last dim) relative to the row's RMS (``grad_row_rel_err``), within
+    twice the plain version's own bf16 rounding of the same rows, as
+    ``check_flash_rows`` holds the forward. Returns (largest ratio of error
+    to limit, max abs error against the plain version's bf16 result)."""
+    worst, abs_err, parts = 0.0, 0.0, []
+    for i, (g, w) in enumerate(zip(got, want32)):
+        require(g.dtype == torch.bfloat16 and g.shape == w.shape
+                and bool(torch.isfinite(g).all()),
+                f"{kernel}: output {i} not finite bf16 {tuple(w.shape)}: {name}")
+        w2 = w.reshape(-1, w.shape[-1]) if w.dim() > 1 else w[None]
+        g2 = g.reshape(w2.shape)
+        limit = 2 * grad_row_rel_err(w2.to(torch.bfloat16), w2)
+        err = grad_row_rel_err(g2, w2)
+        worst = max(worst, err / max(limit, 1e-30))
+        abs_err = max(abs_err, float((g.float() - w.to(torch.bfloat16).float())
+                                     .abs().max()))
+        parts.append(f"{err:.3e}/{limit:.3e}")
+    ok = worst <= 1.0
+    log(f"{kernel} {name}: per row |err| / row RMS vs limit (2x the bf16 "
+        f"rounding of the fp32 result) {', '.join(parts)}; max_abs_err vs the "
+        f"plain bf16 result {abs_err:.3e} {'ok' if ok else 'FAIL'}")
+    return worst, abs_err
+
+
+def flash_bwd_bf16_inputs(gen, B, T, S, H, KV, hd, kw):
+    """bf16 q, k, v, do, and the plain forward's bf16 o and fp32 lse."""
+    q, do = (randn(gen, B, T, H, hd, dtype=torch.bfloat16) for _ in range(2))
+    k, v = (randn(gen, B, S, KV, hd, dtype=torch.bfloat16) for _ in range(2))
+    o, lse = flash_attention_ref(q, k, v, with_lse=True, **kw)
+    return q, k, v, do, o.contiguous(), lse
+
+
+def check_flash_bwd_bf16(gen):
+    """The bf16 forward's lse against the plain lse, and the bf16 backward
+    kernels against ``flash_attention_bwd_ref`` on the same bf16 inputs (the
+    plain forward's o and lse fed to both), per row within twice the plain
+    version's own bf16 rounding; two calls the same bits; a run without the
+    first key tile must fail the check. Returns the timed row at the
+    trainer's microbatch."""
+    row = None
+    for B, T, S, H, KV, hd, window, off in FLASH_BWD_BF16_CASES:
+        kw = dict(causal=True, window=window, q_offset=off)
+        q, k, v, do, o, lse = flash_bwd_bf16_inputs(gen, B, T, S, H, KV, hd, kw)
+        name = (f"B={B} T={T} S={S} H={H} KV={KV} hd={hd} bf16 causal "
+                f"window={window} q_offset={off}")
+        check_flash_lse(q, k, v, kw, name)
+        got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        want = flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                       o.float(), lse, do.float(), **kw)
+        worst, err = bf16_rows_ok("flash_attention_bwd_bf16", name, got, want)
+        require(worst <= 1.0, f"flash_attention_bwd bf16 off its plain "
+                f"version: {name}")
+        if (B, T, hd) == FLASH_BWD_BF16_DROPPED:
+            check_flash_bwd_repeats(q, k, v, do, name)
+            check_flash_bwd_bf16_dropped_tile(q, k, v, do, want)
+        if (B, T, H, KV, hd) == FLASH_BWD_REPORT:
+            check_flash_bwd_repeats(q, k, v, do, name)
+            row = time_flash_bwd_bf16(q, k, v, do, o, lse, err)
+    for B, T, H, KV, hd in FWD_LSE_TIMED:
+        q = randn(gen, B, T, H, hd, dtype=torch.bfloat16)
+        k, v = (randn(gen, B, T, KV, hd, dtype=torch.bfloat16)
+                for _ in range(2))
+        plain = device_ms(lambda: flash_forward(q, k, v, True, 0, 0, False), 20)
+        with_lse = device_ms(lambda: flash_forward(q, k, v, True, 0, 0, True),
+                             20)
+        log(f"  flash_attention bf16 forward B={B} T=S={T} H={H} KV={KV} "
+            f"hd={hd} causal: {plain:.4f} ms without lse (serving), "
+            f"{with_lse:.4f} ms with lse (training), "
+            f"{with_lse / plain - 1:+.1%}")
+    return row
+
+
+def check_flash_bwd_bf16_dropped_tile(q, k, v, do, want):
+    """The bf16 kernels run without the first 64 keys (q_offset -64: rows
+    0..63 see no key, their lse is +inf) must fail the per-row check."""
+    T = q.shape[1]
+    k64, v64 = k[:, 64:].contiguous(), v[:, 64:].contiguous()
+    kw = dict(causal=True, window=0, q_offset=-64)
+    n_inf = check_flash_lse(q, k64, v64, kw, f"T={T} bf16, first key tile "
+                            "dropped, q_offset -64")
+    require(n_inf == q.shape[0] * q.shape[2] * 64,
+            "the rows without a visible key are not the first 64")
+    o, lse = flash_attention_ref(q, k64, v64, with_lse=True, **kw)
+    dq, dk, dv = flash_attention_bwd(q, k64, v64, o.contiguous(), lse, do, **kw)
+    pad = lambda t: F.pad(t, (0, 0, 0, 0, 64, 0))
+    worst, _ = bf16_rows_ok("flash_attention_bwd_bf16", f"T={T}, first key "
+                            "tile dropped", (dq, pad(dk), pad(dv)), want)
+    require(worst > 1.0, "the bf16 gradient check cannot see a dropped key "
+            "tile")
+    log(f"flash_attention_bwd_bf16 T={T}: the run without the first key tile "
+        f"fails the check, as it must ({worst:.1f}x the limit)")
+
+
+def time_flash_bwd_bf16(q, k, v, do, o, lse, err):
+    B, T, H, hd = q.shape
+    KV = k.shape[2]
+    flops = 2.5 * 4 * B * H * hd * (T * (T + 1) // 2)
+    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    bound = {"operations": flops / PEAK_BF16 * 1e3,
+             "bytes": nbytes / HBM * 1e3}
+    kernel = lambda: flash_attention_bwd(q, k, v, o, lse, do)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    sdpa = lambda q_, k_, v_: F.scaled_dot_product_attention(
+        q_, k_, v_, is_causal=True, enable_gqa=True)
+    row = {
+        "max_abs_err": err,
+        "ms": device_ms(kernel, 5),
+        "plain_ms": device_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse,
+                                                              do), 2),
+        "library_ms": grad_device_ms(sdpa, (qt, kt, vt), do.transpose(1, 2),
+                                     5),
+        "bound_by": max(bound, key=bound.get),
+        "bound_ms": max(bound.values()),
+        "shape": f"B={B} T=S={T} H={H} KV={KV} hd={hd} bf16 causal",
+    }
+    by_name = device_ms_by_kernel(kernel, 20)
+    row["split_ms"] = {part: sum(ms for key, ms in by_name.items()
+                                 if f"flash_bwd_{part}_kernel" in key)
+                       for part in ("delta", "dkdv", "dq")}
+    split = row["split_ms"]
+    log(f"  bf16 backward kernels apart, device ms per call (profiler, 20 "
+        f"calls): delta {split['delta']:.4f}, dk/dv {split['dkdv']:.4f}, dq "
+        f"{split['dq']:.4f}; sum {sum(split.values()):.4f}; all kernels of "
+        f"the call {sum(by_name.values()):.4f}")
+    require(all(ms > 0 for ms in split.values()),
+            f"a bf16 backward kernel is missing from the trace: {dict(by_name)}")
+    log(f"  device time {row['shape']}: backward kernels {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.4f} ms, SDPA backward (bf16, GQA) "
+        f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}); kernel / SDPA "
+        f"{row['ms'] / row['library_ms']:.3f}, "
+        f"{row['bound_ms'] / row['ms']:.1%} of the bound, "
+        f"{flops / row['ms'] / 1e9:.1f} TFLOP/s; one call from Python "
+        f"{host_ms(kernel, 5):.4f} ms")
+    return row
+
+
+def check_rmsnorm_bwd_bf16(gen):
+    """bf16 dx and dg against ``rmsnorm_bwd_ref``'s fp32 result of the same
+    inputs, per row within twice its bf16 rounding, at every training norm
+    shape and a view off 16-byte alignment (the scalar path). Returns the
+    timed rows."""
+    path = {}
+    cases = [(f"rows={rows} d={d} bfloat16",
+              randn(gen, rows, d, dtype=torch.bfloat16), d)
+             for rows, d in TRAIN_NORM_SHAPES]
+    flat = randn(gen, 1000 * 128 + 1, dtype=torch.bfloat16)
+    cases.append(("rows=1000 d=128 bfloat16 view at byte offset 2",
+                  flat[1:].view(1000, 128), 128))
+    for name, x, d in cases:
+        g = (1 + 0.1 * randn(gen, d)).to(torch.bfloat16)
+        dy = randn(gen, *x.shape, dtype=torch.bfloat16)
+        vec, group, _ = rmsnorm_plan(x.data_ptr() | g.data_ptr()
+                                     | dy.data_ptr(), d, 2)
+        got = rmsnorm_bwd(x, g, dy, eps=1e-6)
+        torch.cuda.synchronize()
+        want = rmsnorm_bwd_ref(x.float(), g.float(), dy.float(), eps=1e-6)
+        worst, err = bf16_rows_ok("rmsnorm_bwd_bf16", f"{name} (vec={vec} "
+                                  f"group={group})", got, want)
+        require(worst <= 1.0, f"rmsnorm_bwd bf16 off its plain version: "
+                f"{name}")
+        if name == RMS_BWD_BF16_REPORT:
+            path[name] = time_rmsnorm_bwd(name, x, g, dy, err)
+    return path
 
 
 SSD_GRID = [(1, 128, 4, 1, 16, 32), (2, 256, 2, 2, 8, 64),
@@ -1296,8 +1509,10 @@ def check_teacher_forced(params, cfg, prompt, forced, per_prefill, per_step):
     diff32 = float((got32 - ref32).abs().max())
     agree = float((got.argmax(-1) == plain.argmax(-1)).float().mean())
     top2 = plain.float().topk(2, dim=-1).values
-    flips = [f"{int(i)}: {float(top2[i, 0] - top2[i, 1]):.4e}" for i in
-             (got.argmax(-1) != plain.argmax(-1)).nonzero().flatten()]
+    flipped = (got.argmax(-1) != plain.argmax(-1)).nonzero().flatten()
+    flips = [f"{int(i)}: {float(top2[i, 0] - top2[i, 1]):.4e}"
+             for i in flipped]
+    log_flips(got, plain, ref32, flipped)
     log(f"teacher-forced logits (prefill + {len(forced)} decode steps, "
         f"prompt {len(prompt)}): kernel vs plain max|diff| {diff:.4e} beside "
         f"max|logit| {scale:.4e} (ratio {diff / scale:.4e}); kernel vs fp32 "
@@ -1308,6 +1523,27 @@ def check_teacher_forced(params, cfg, prompt, forced, per_prefill, per_step):
     require(diff <= 2 * floor, "kernel path disagrees with the plain path")
     require(to32 <= 2 * floor, "kernel path further from fp32 than plain")
     require(diff32 <= floor, "fp32 kernel path disagrees with fp32 plain")
+
+
+def log_flips(got, plain, ref32, flipped):
+    """At each position where the kernel path's greedy token differs from
+    the plain path's: the three paths' tokens, the fp32 path's (``ref32``:
+    fp32 weights, plain versions) top-2 margin beside the bf16 ulp of its
+    top logit and the bf16 noise floor at that position (max |plain -
+    ref32| over the vocab), and whether the flip is a tie: the kernel's
+    token is the fp32 path's, or the fp32 margin is within that floor."""
+    for i in flipped.tolist():
+        top = ref32[i].topk(2)
+        margin = float(top.values[0] - top.values[1])
+        ulp = 2.0 ** (math.floor(math.log2(abs(float(top.values[0])))) - 7)
+        floor = float((plain[i] - ref32[i]).abs().max())
+        tokens = [int(t[i].argmax()) for t in (got, plain, ref32)]
+        tie = tokens[0] == tokens[2] or margin <= floor
+        log(f"  flip at position {i}: tokens kernel {tokens[0]}, plain "
+            f"{tokens[1]}, fp32 {tokens[2]} (fp32 runner-up "
+            f"{int(top.indices[1])}); fp32 top-2 margin {margin:.4e}, bf16 "
+            f"ulp of its top logit {ulp:.4e}, bf16 noise floor there "
+            f"{floor:.4e}: {'a tie' if tie else 'NOT a tie'}")
 
 
 def profile_serving(eng, prompts):
@@ -1462,11 +1698,13 @@ def check_train_step_vs_plain(label, cfg, base, batch):
     require(gn_err <= GNORM_RTOL, "grad norm disagrees with the plain run")
 
 
-def profile_train_step(step, params, opt, batch, n_layers):
-    """Trace one member step: device busy share and device ms by group. The
-    tracer runs through a warm-up step first and records only the second
-    step, so no kernel launched while it starts is missed; the log says
-    whether the recorded step holds all its flash launches."""
+def profile_train_step(step_once, expect):
+    """Trace one training step (``step_once()`` runs one and returns its
+    loss): device busy share and device ms by group. The tracer runs through
+    a warm-up step first and records only the second step, so no kernel
+    launched while it starts is missed; the log says whether the recorded
+    step holds the kernel launches ``expect`` counts ({name prefix: count},
+    a flash forward and the backward's dq kernel)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -1474,18 +1712,17 @@ def profile_train_step(step, params, opt, batch, n_layers):
                                    repeat=1)) as prof:
         for _ in range(2):
             t0 = time.perf_counter()
-            params, opt, loss = step(params, opt, batch, TRAIN_LR)
-            float(loss)
+            float(step_once())
             wall_ms = (time.perf_counter() - t0) * 1e3
             prof.step()
     kernels = [e for e in prof.key_averages()    # not the step's own span
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.key.startswith("ProfilerStep")]
-    traced = Counter()    # the fp32 forward and the backward's dq kernel
+    traced = Counter()
     for e in kernels:
-        for name in ("flash_fwd_kernel<", "flash_bwd_dq_kernel<"):
+        for name in expect:
             if name in e.key:
-                traced[name[:-1]] += e.count
+                traced[name] += e.count
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     groups = dict.fromkeys(("flash fwd", "flash bwd", "rmsnorm fwd",
                             "rmsnorm bwd", "matmul", "other"), 0.0)
@@ -1501,9 +1738,8 @@ def profile_train_step(step, params, opt, batch, n_layers):
                  else "other")
         groups[group] += e.self_device_time_total / 1e3
     require(kernels, "the traced step shows no device time")
-    complete = all(traced[k] == n_layers for k in ("flash_fwd_kernel",
-                                                   "flash_bwd_dq_kernel"))
-    log(f"train profile: traced flash calls {dict(traced)} of {n_layers} "
+    complete = dict(traced) == expect
+    log(f"train profile: traced flash kernels {dict(traced)} of {expect} "
         f"per step: {'complete' if complete else 'INCOMPLETE'} trace")
     log(f"train profile: one traced step, wall {wall_ms:.1f} ms, device busy "
         f"{busy:.1f} ms ({busy / wall_ms:.1%}), {len(kernels)} kernel names; "
@@ -1565,7 +1801,14 @@ def train_full_width():
                "step_ms": step_ms, "peak_mem_gib": peak,
                "launches_per_step": want}
     log("train metrics qwen3-0.6b fp32 full width: " + json.dumps(metrics))
-    metrics.update(profile_train_step(step, params, opt, batch, cfg.n_layers))
+    state = [params, opt]
+
+    def step_once():
+        state[0], state[1], loss = step(*state, batch, TRAIN_LR)
+        return loss
+    metrics.update(profile_train_step(step_once, {
+        "flash_fwd_kernel<": cfg.n_layers,
+        "flash_bwd_dq_kernel<": cfg.n_layers}))
     return dict(launches), metrics
 
 
@@ -1826,6 +2069,252 @@ def sweep_full_width(step0_loss):
     return launches, metrics
 
 
+# --------------------------------------------------------------------------
+# phase 5d: the fault-tolerant trainer at full width, in bf16
+# --------------------------------------------------------------------------
+TRAINER_STEPS, TRAINER_CKPT_EVERY = 8, 4
+TRAINER_BATCH = (8, 512)                    # SyntheticLM global batch, seq
+TRAINER_LR, TRAINER_WARMUP = 1e-3, 2
+TRAINER_CLI_STEPS, TRAINER_CLI_TIMEOUT = 20, 300
+RESUME_RTOL = 1e-5                          # tests/test_trainer.py's
+
+
+def trainer_launches(cfg) -> dict:
+    """One Trainer step's launches: per microbatch, every block's flash and
+    norm forwards twice under remat full (the forward and the recompute in
+    the backward), final_norm's once, and each backward once."""
+    L, k = cfg.n_layers, cfg.microbatches
+    fwd = 2 if cfg.remat == "full" else 1
+    return {"flash_attention": k * fwd * L, "flash_attention_bwd": k * L,
+            "rmsnorm": k * (fwd * 4 * L + 1), "rmsnorm_bwd": k * (4 * L + 1)}
+
+
+def token_nll(params, cfg, tokens):
+    """Per-token next-token losses of ``forward_loss`` (every label valid)."""
+    with torch.no_grad():
+        h, _ = forward_hidden(params, cfg, tokens)
+        logits = lm_logits(params, cfg, h)[:, :-1].float()
+        tgt = torch.gather(logits, -1, tokens[:, 1:, None])[..., 0]
+        return torch.logsumexp(logits, dim=-1) - tgt
+
+
+def check_trainer_step0(cfg, params, batch):
+    """Step 0's loss and gradients through the kernels against the same
+    through the plain versions on the card, in bf16, held to the bf16 noise
+    floor of the plain bf16 path against the plain fp32 one (fp32 params):
+    the loss within twice the mean over tokens of the plain path's per-token
+    loss deviation, the grad norm within twice the norm of its gradient
+    error, every gradient leaf within twice its largest element error (as
+    the CPU tests hold the port to JAX). Returns the step's launches."""
+    k = cfg.microbatches
+    LAUNCHES.clear()
+    loss_k, grads_k = microbatch_grads(params, cfg, batch, k)
+    torch.cuda.synchronize()
+    grad_launches = dict(LAUNCHES)
+    tokens = batch["tokens"]
+    nll_k = token_nll(params, cfg, tokens)
+    mid = dict(LAUNCHES)
+    params32 = tree_map(lambda t: t.float(), params)
+    with plain_versions():
+        loss_p, grads_p = microbatch_grads(params, cfg, batch, k)
+        loss_32, grads_32 = microbatch_grads(params32, cfg, batch, k)
+        nll_p = token_nll(params, cfg, tokens)
+        nll_32 = token_nll(params32, cfg, tokens)
+    require(dict(LAUNCHES) == mid, "the plain step launched a kernel")
+    del params32
+    loss_floor = float((nll_p - nll_32).abs().mean())
+    gn = {}
+    for name, g in (("kernel", grads_k), ("plain", grads_p),
+                    ("fp32", grads_32)):
+        gn[name] = float(torch.sqrt(sum(torch.sum(x.double() ** 2)
+                                        for x in tree_leaves(g))))
+    gn_floor = float(torch.sqrt(sum(torch.sum((a.double() - b.double()) ** 2)
+                                    for a, b in zip(tree_leaves(grads_p),
+                                                    tree_leaves(grads_32)))))
+    ratios = {}
+    for (path, gk), (_, gp), (_, g32) in zip(named_leaves(grads_k),
+                                             named_leaves(grads_p),
+                                             named_leaves(grads_32)):
+        require(bool(torch.isfinite(gk).all()), f"gradient {path} not finite")
+        floor = float((gp - g32).abs().max())
+        ratios[path] = float((gk - g32).abs().max()) / max(floor, 1e-30)
+    worst = sorted(ratios.items(), key=lambda kv: -kv[1])[:4]
+    loss_err = abs(float(loss_k) - float(loss_32))
+    gn_err = abs(gn["kernel"] - gn["fp32"])
+    log(f"trainer step 0, kernels vs plain versions (bf16) vs plain fp32: "
+        f"loss {float(loss_k):.6f} / {float(loss_p):.6f} / "
+        f"{float(loss_32):.6f}, kernel's distance from fp32 {loss_err:.3e} "
+        f"(tol 2x the plain path's mean per-token deviation {loss_floor:.3e}, "
+        f"the plain loss's own {abs(float(loss_p) - float(loss_32)):.3e}); "
+        f"mean per-token |kernel - plain| "
+        f"{float((nll_k - nll_p).abs().mean()):.3e}; grad norm "
+        f"{gn['kernel']:.6f} / {gn['plain']:.6f} / {gn['fp32']:.6f}, "
+        f"distance {gn_err:.3e} (tol 2x the norm of the plain path's "
+        f"gradient error {gn_floor:.3e}); gradient leaves' max error from "
+        f"fp32 over the plain path's, worst {worst} (tol 2)")
+    require(loss_err <= 2 * loss_floor, "trainer step-0 loss off the plain "
+            "path's bf16 noise floor")
+    require(gn_err <= 2 * gn_floor, "trainer step-0 grad norm off the plain "
+            "path's bf16 noise floor")
+    require(max(ratios.values()) <= 2, f"trainer step-0 gradient {worst[0]} "
+            "off the plain path's bf16 noise floor")
+    return grad_launches
+
+
+def timed(fn, record):
+    """``fn`` wrapped to add its seconds to ``record``."""
+    def run(*a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        record.append(time.perf_counter() - t0)
+        return out
+    return run
+
+
+def trainer_full_width():
+    """``Trainer`` on qwen3-0.6b as configured (bf16 params, fp32 moments,
+    2 microbatches, remat full, 28 layers, vocab 151936): step 0 against the
+    plain versions, 8 steps with a checkpoint every 4 and exact launch
+    counts, then a new Trainer on the same directory without the step-8
+    checkpoint resumes at step 4 and must give steps 5-8's losses; one
+    traced step. Returns (launches of the 8 steps, metrics)."""
+    from repro_torch.ckpt import checkpoint as ckpt_module
+    from repro_torch.train import trainer as trainer_module
+    cfg = get_config("qwen3-0.6b")
+    require(cfg.param_dtype == "bfloat16" and cfg.opt_state_dtype ==
+            "float32" and cfg.microbatches == 2 and cfg.remat == "full"
+            and cfg.n_layers == QWEN_LAYERS and cfg.vocab_size == 151936)
+    src = SyntheticLM(cfg.vocab_size, TRAINER_BATCH[1], TRAINER_BATCH[0],
+                      seed=0)
+    workdir = tempfile.mkdtemp(prefix="trainer_smoke_")
+    ckpt_dir = os.path.join(workdir, "ckpt")
+    usage = shutil.disk_usage(workdir)
+    log(f"trainer: {cfg.name} full width in bf16 ({cfg.n_layers} layers, "
+        f"microbatches {cfg.microbatches}, remat {cfg.remat}, moments "
+        f"{cfg.opt_state_dtype}); SyntheticLM {TRAINER_BATCH[0]}x"
+        f"{TRAINER_BATCH[1]}, peak_lr {TRAINER_LR}, warmup {TRAINER_WARMUP}; "
+        f"checkpoints under {workdir} ({usage.free / 2**30:.0f} GiB free)")
+    tc = TrainerConfig(ckpt_dir=ckpt_dir, ckpt_every=TRAINER_CKPT_EVERY,
+                       peak_lr=TRAINER_LR, warmup=TRAINER_WARMUP,
+                       total_steps=100, log_every=1)
+    writes, restores = [], []
+    saved_write, saved_restore = ckpt_module._write, trainer_module.restore
+    ckpt_module._write = timed(saved_write, writes)
+    trainer_module.restore = timed(saved_restore, restores)
+    try:
+        torch.cuda.empty_cache()
+        tr = Trainer(cfg, src.batch, tc, device="cuda", log=log)
+        require(tr.step == 0, "a fresh checkpoint directory resumed")
+        want = trainer_launches(cfg)
+        grad_launches = check_trainer_step0(
+            cfg, tr.params, to_batch(src.batch(0), "cuda"))
+        require(grad_launches == want, f"step 0's gradients launched "
+                f"{grad_launches}, not {want}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        calls, step_ms, launches = [], [], Counter()
+        step_fn = tr.step_fn
+
+        def counted(*a):
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            out = step_fn(*a)
+            float(out[2]["loss"])
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            calls.append(dict(LAUNCHES))
+            return out
+
+        saves = []
+        tr.step_fn = counted
+        tr.mgr.save_async = timed(tr.mgr.save_async, saves)
+        out_a = tr.run(TRAINER_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = out_a["losses"]
+        require(out_a["step"] == TRAINER_STEPS and not out_a["preempted"])
+        require(len(calls) == TRAINER_STEPS, f"{len(calls)} step calls for "
+                f"{TRAINER_STEPS} steps: a step was retried")
+        for i, got in enumerate(calls):
+            require(got == want, f"trainer step {i} launched {got}, not "
+                    f"{want}")
+            launches.update(got)
+        require(all(math.isfinite(x) for x in losses), "non-finite loss")
+        require(losses[-1] < losses[0], f"trainer loss did not fall: "
+                f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+        require(latest_step(ckpt_dir) == TRAINER_STEPS
+                and sorted(os.listdir(ckpt_dir)) == [
+                    f"step_{s:08d}" for s in range(
+                        TRAINER_CKPT_EVERY, TRAINER_STEPS + 1,
+                        TRAINER_CKPT_EVERY)], f"checkpoints {os.listdir(ckpt_dir)}")
+        ckpt_gib = sum(f.stat().st_size for f in Path(
+            ckpt_dir, f"step_{TRAINER_STEPS:08d}").iterdir()) / 2**30
+        del tr
+        torch.cuda.empty_cache()
+
+        # killed after step 8's checkpoint was lost: resume at step 4
+        shutil.rmtree(os.path.join(ckpt_dir, f"step_{TRAINER_STEPS:08d}"))
+        t0 = time.perf_counter()
+        tr_b = Trainer(cfg, src.batch, dataclasses.replace(
+            tc, ckpt_every=10**9), device="cuda", log=log)
+        resume_s = time.perf_counter() - t0
+        require(tr_b.step == TRAINER_CKPT_EVERY, f"resumed at {tr_b.step}")
+        out_b = tr_b.run(TRAINER_STEPS - TRAINER_CKPT_EVERY)
+        tail = losses[TRAINER_CKPT_EVERY:]
+        diff = max(abs(a - b) / abs(b) for a, b in zip(out_b["losses"], tail))
+        log(f"trainer resumed at step {TRAINER_CKPT_EVERY}: losses "
+            f"{out_b['losses']} vs the uninterrupted run's {tail}: "
+            f"{'bit-equal' if out_b['losses'] == tail else 'not bit-equal'}, "
+            f"largest relative difference {diff:.3e} (tol {RESUME_RTOL:.0e})")
+        require(diff <= RESUME_RTOL, "the resumed run's losses differ")
+        batch = to_batch(src.batch(0), "cuda")
+
+        def step_once():
+            tr_b.params, tr_b.opt_state, m = tr_b.step_fn(
+                tr_b.params, tr_b.opt_state, batch, TRAINER_STEPS)
+            return m["loss"]
+        profile = profile_train_step(step_once, {
+            "flash_fwd_sm90_kernel<": want["flash_attention"],
+            "flash_bwd_dq_kernel<": want["flash_attention_bwd"]})
+    finally:
+        ckpt_module._write, trainer_module.restore = saved_write, saved_restore
+        shutil.rmtree(workdir, ignore_errors=True)
+    metrics = {"loss_first": losses[0], "loss_last": losses[-1],
+               "losses": losses, "step0_ms": step_ms[0],
+               "step_ms_median": float(np.median(step_ms[1:])),
+               "step_ms": step_ms, "peak_mem_gib": peak,
+               "launches_per_step": want, "retries": len(calls) - len(losses),
+               "checkpoint_gib": ckpt_gib, "save_async_s": saves,
+               "write_s": writes, "restore_s": restores,
+               "resume_trainer_s": resume_s, "resume_max_rel_diff": diff,
+               **profile}
+    log("trainer metrics qwen3-0.6b bf16 full width: " + json.dumps(metrics))
+    return dict(launches), metrics
+
+
+def trainer_cli():
+    """``python -m repro_torch.launch.train --arch qwen3-0.6b --steps 20``
+    as a user runs it (the reduced config in bf16, hd 32, one device), in a
+    fresh process that finds phase 2's library."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    with tempfile.TemporaryDirectory(prefix="train_cli_") as ckpt:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "qwen3-0.6b", "--steps", str(TRAINER_CLI_STEPS), "--ckpt-dir",
+             ckpt], cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=TRAINER_CLI_TIMEOUT)
+        wall = time.perf_counter() - t0
+    for line in (proc.stdout + proc.stderr).splitlines():
+        log(f"  train cli| {line}")
+    require(proc.returncode == 0, f"the train CLI exited {proc.returncode}")
+    want = f"done at step {TRAINER_CLI_STEPS}"
+    require(want in proc.stdout, f"the train CLI did not print {want!r}")
+    log(f"train cli: process wall {wall:.2f} s")
+    return {"process_wall_s": wall}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA card visible; this script runs only "
@@ -1857,14 +2346,17 @@ def main():
                 f"the fp32 flash forward does not fit an SM at hd={hd}")
         if hd == 80:                         # the backward takes 32, 64, 128
             continue
-        occ = bwd_occupancy(hd)
-        log(f"flash_attention_bwd hd={hd}: dk/dv kernel "
-            f"{occ['dkdv_smem_bytes']} bytes of shared memory, "
-            f"{occ['dkdv_blocks_per_sm']} block(s) of 16 warps per SM; dq "
-            f"kernel {occ['dq_smem_bytes']} bytes, "
-            f"{occ['dq_blocks_per_sm']} block(s) per SM")
-        require(min(occ["dkdv_blocks_per_sm"], occ["dq_blocks_per_sm"]) >= 1,
-                f"a flash backward kernel does not fit an SM at hd={hd}")
+        for dtype in (torch.float32, torch.bfloat16):
+            occ = bwd_occupancy(hd, dtype)
+            log(f"flash_attention_bwd hd={hd} {str(dtype)[6:]}: dk/dv kernel "
+                f"{occ['dkdv_smem_bytes']} bytes of shared memory, "
+                f"{occ['dkdv_blocks_per_sm']} block(s) of 16 warps per SM; dq "
+                f"kernel {occ['dq_smem_bytes']} bytes, "
+                f"{occ['dq_blocks_per_sm']} block(s) per SM")
+            require(min(occ["dkdv_blocks_per_sm"],
+                        occ["dq_blocks_per_sm"]) >= 1,
+                    f"a flash backward kernel does not fit an SM at hd={hd} "
+                    f"{dtype}")
 
     check_splitk(torch.Generator("cuda").manual_seed(1))    # phase 3
 
@@ -1873,6 +2365,8 @@ def main():
     rms_rows = check_rmsnorm(gen)
     flash_bwd_row, flash_fp32_row = check_flash_bwd(gen)
     rms_bwd_rows = check_rmsnorm_bwd(gen)
+    flash_bwd_bf16_row = check_flash_bwd_bf16(gen)
+    rms_bwd_bf16_rows = check_rmsnorm_bwd_bf16(gen)
     ssd_rows = check_ssd(gen)
     slstm_rows = check_slstm(gen)
 
@@ -1895,9 +2389,14 @@ def main():
     sweep_cli()                                              # phase 5c
     cli, _ = sweep_in_process(sweep_metrics["final_losses"])
     full, _ = sweep_full_width(train_metrics["loss_first"])
+    torch.cuda.empty_cache()
+
+    trainer, _ = trainer_full_width()                        # phase 5d
+    trainer_cli()
 
     serving = {"qwen3-0.6b serve": qwen, "xlstm-1.3b serve": xlstm,
                "zamba2-2.7b serve": zamba}
+    bf16_training = {"qwen3-0.6b Trainer (bf16, full width)": trainer}
     training = {"qwen3-0.6b train (fp32, full width)": train,
                 "sweep member (qwen3-0.6b reduced, fp32)": sweep,
                 "sweep CLI run_sweep (qwen3-0.6b reduced, fp32)": cli,
@@ -1914,20 +2413,30 @@ def main():
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": csrc + "flash_attention_sm90.cu", "replaces": flash_tpu,
-         **launches("flash_attention", serving), **flash_rows[REPORT_T]},
+         **launches("flash_attention", {**serving, **bf16_training}),
+         **flash_rows[REPORT_T]},
         {"name": "flash_attention_fp32", "route": "cuda",
          "source": csrc + "flash_attention.cu", "replaces": flash_tpu,
          **launches("flash_attention", training), **flash_fp32_row},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": csrc + "flash_attention_bwd.cu", "replaces": flash_tpu,
          **launches("flash_attention_bwd", training), **flash_bwd_row},
+        {"name": "flash_attention_bwd_bf16", "route": "cuda",
+         "source": csrc + "flash_attention_bwd.cu", "replaces": flash_tpu,
+         **launches("flash_attention_bwd", bf16_training),
+         **flash_bwd_bf16_row},
         {"name": "rmsnorm", "route": "cuda", "source": csrc + "rmsnorm.cu",
-         "replaces": rms_tpu, **launches("rmsnorm", {**serving, **training}),
+         "replaces": rms_tpu,
+         **launches("rmsnorm", {**serving, **training, **bf16_training}),
          **rms_rows[REPORT_RMS]},
         {"name": "rmsnorm_bwd", "route": "cuda",
          "source": csrc + "rmsnorm_bwd.cu", "replaces": rms_tpu,
          **launches("rmsnorm_bwd", training),
          **rms_bwd_rows[RMS_BWD_REPORT]},
+        {"name": "rmsnorm_bwd_bf16", "route": "cuda",
+         "source": csrc + "rmsnorm_bwd.cu", "replaces": rms_tpu,
+         **launches("rmsnorm_bwd", bf16_training),
+         **rms_bwd_bf16_rows[RMS_BWD_BF16_REPORT]},
         {"name": "ssd_scan", "route": "cuda", "source": csrc + "ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:82",
          **launches("ssd_scan", {"xlstm-1.3b serve": xlstm}),

@@ -1,4 +1,4 @@
 """Data sources of the port (counterpart of ``repro/data``)."""
-from .pipeline import SyntheticLM
+from .pipeline import PackedBinReader, SyntheticLM, make_batch_fn
 
-__all__ = ["SyntheticLM"]
+__all__ = ["PackedBinReader", "SyntheticLM", "make_batch_fn"]

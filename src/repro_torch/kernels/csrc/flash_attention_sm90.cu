@@ -51,6 +51,13 @@
 //   are stored: 1.6x the tensor-core work of P V that hd 80 needs.
 // Rounding P to bf16 before P V is the one departure from the TPU kernel,
 // which keeps P in fp32: about one bf16 ulp of the output.
+// - For training, the kernel also writes each row's log-sum-exp (lse, fp32
+//   [B,H,T]) for the backward (flash_attention_bwd.cu): the softmax's max and
+//   sum are already in registers after the quad shuffles, so it costs one
+//   logf and one 4-byte store per row. The softmax runs in base 2 with
+//   scale*log2(e) folded into m; lse is written in the backward's units,
+//   natural log of the scaled scores: m*ln(2) + log(l), and +inf for a row
+//   whose l is 0 (no visible key). Serving passes a null lse and writes none.
 //
 // Left for later: a producer warp with setmaxnreg (warp specialisation) and
 // the next tile's Q K^T issued under this tile's softmax (FA3's ping-pong and
@@ -92,8 +99,8 @@ __global__ void __launch_bounds__(NT, 2)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
-                      int T_len, int S_len, int H, int KV, int causal, int window,
-                      int q_offset, float scale_log2) {
+                      float* __restrict__ lse, int T_len, int S_len, int H, int KV, int causal,
+                      int window, int q_offset, float scale_log2) {
     using C = Cfg<HD>;
     extern __shared__ unsigned char smem_raw[];
     const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -255,6 +262,12 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     __nv_bfloat16* o0 = o + (static_cast<long long>(b) * T_len + q0 + r0) * row_stride + h * HD;
     __nv_bfloat16* o1 = o0 + 8 * row_stride;
     const bool w0 = q0 + r0 < T_len, w1 = q0 + r0 + 8 < T_len;
+    if (lse != nullptr && (lane & 3) == 0) {      // one thread of the quad per row
+        constexpr float LN2 = 0.6931471805599453f;
+        float* row = lse + (static_cast<long long>(b) * H + h) * T_len + q0 + r0;
+        if (w0) row[0] = l0 == 0.f ? CUDART_INF_F : m0 * LN2 + logf(l0);
+        if (w1) row[8] = l1 == 0.f ? CUDART_INF_F : m1 * LN2 + logf(l1);
+    }
 #pragma unroll
     for (int i = 0; i < HD / 8; ++i) {
         if (w0)
@@ -309,8 +322,8 @@ bool make_map(CUtensorMap* map, const void* ptr, int batch, int positions, int h
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int T_len, int S_len,
-           int H, int KV, int causal, int window, int q_offset, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int T_len,
+           int S_len, int H, int KV, int causal, int window, int q_offset, float scale,
            cudaStream_t stream) {
     using C = Cfg<HD>;
     CUtensorMap qmap, kmap, vmap;
@@ -323,7 +336,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int T_le
                                            C::bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(B * H, (T_len + BQ - 1) / BQ);
-    kernel<<<grid, NT, C::bytes, stream>>>(qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o),
+    kernel<<<grid, NT, C::bytes, stream>>>(qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), lse,
                                            T_len, S_len, H, KV, causal, window, q_offset,
                                            scale * 1.4426950408889634f);
     return static_cast<int>(cudaGetLastError());
@@ -332,19 +345,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int T_le
 }  // namespace
 
 // q, o: [B,T,H,hd]; k, v: [B,S,KV,hd]; all contiguous bf16, 16-byte aligned.
+// lse: fp32 [B,H,T], or null to write none (serving).
 extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void* v, void* o,
-                                        int B, int T_len, int S_len, int H, int KV, int hd,
-                                        int causal, int window, int q_offset, float scale,
-                                        void* stream) {
+                                        void* lse, int B, int T_len, int S_len, int H, int KV,
+                                        int hd, int causal, int window, int q_offset,
+                                        float scale, void* stream) {
     if (B <= 0 || T_len <= 0 || S_len <= 0 || KV <= 0 || H % KV != 0 ||
         (T_len + BQ - 1) / BQ > 65535)
         return static_cast<int>(cudaErrorInvalidValue);
     auto s = static_cast<cudaStream_t>(stream);
+    auto l = static_cast<float*>(lse);
     switch (hd) {
-        case 32: return launch<32>(q, k, v, o, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
-        case 64: return launch<64>(q, k, v, o, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
-        case 80: return launch<80>(q, k, v, o, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
-        case 128: return launch<128>(q, k, v, o, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
+        case 32: return launch<32>(q, k, v, o, l, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
+        case 64: return launch<64>(q, k, v, o, l, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
+        case 80: return launch<80>(q, k, v, o, l, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
+        case 128: return launch<128>(q, k, v, o, l, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

@@ -11,13 +11,14 @@ and v 16-byte aligned and replace the Pallas TPU kernel
 sources for what bounds them and how).
 
 Where grad is enabled and an input requires it, the call goes through an
-``autograd.Function``: the fp32 forward then also writes each row's
-log-sum-exp, and the backward launches ``csrc/flash_attention_bwd.cu``
-(``flash_attention_bwd``). On CPU tensors the same Function runs the plain
-forward and the plain backward ``flash_attention_bwd_ref``, explicit
-formulas rather than autograd of the plain forward. A bf16 backward on the
-card is not written yet and raises, and so does one at head_dim 80: both
-forwards take hd 32, 64, 80 and 128, the backward 32, 64 and 128.
+``autograd.Function``: the forward then also writes each row's log-sum-exp
+(both kernels can; serving asks neither to), and the backward launches the
+kernels of ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd``) in the
+inputs' dtype, fp32 or bf16. On CPU tensors the same Function runs the
+plain forward and the plain backward ``flash_attention_bwd_ref``, explicit
+formulas rather than autograd of the plain forward. A backward at head_dim
+80 on the card is not written yet and raises: both forwards take hd 32, 64,
+80 and 128, the backward 32, 64 and 128.
 """
 from __future__ import annotations
 
@@ -34,12 +35,12 @@ _BWD_HEAD_DIMS = (32, 64, 128)
 _SCALARS = (ctypes.c_int,) * 9 + (ctypes.c_float, ctypes.c_void_p)
 _ENTRY = {torch.float32: "flash_attention_fwd",          # CUDA cores
           torch.bfloat16: "flash_attention_sm90_fwd"}    # tensor cores
-_ARGTYPES = {"flash_attention_fwd": (ctypes.c_void_p,) * 5 + _SCALARS,  # + lse
-             "flash_attention_sm90_fwd": (ctypes.c_void_p,) * 4 + _SCALARS}
+_ARGTYPES = {name: (ctypes.c_void_p,) * 5 + _SCALARS     # q, k, v, o, lse
+             for name in _ENTRY.values()}
+_BWD_ENTRY = {torch.float32: "flash_attention_bwd",
+              torch.bfloat16: "flash_attention_bwd_bf16"}
 _BWD_ARGTYPES = (ctypes.c_void_p,) * 10 + _SCALARS
 _OCC_ARGTYPES = (ctypes.c_int, ctypes.c_void_p)
-BF16_BACKWARD = ("the bf16 flash_attention backward is not written yet "
-                 "(ROADMAP.md queue 2 item 4); train in fp32")
 BWD_HEAD_DIM = ("the flash_attention backward at head_dim {} is not written "
                 "yet (ROADMAP.md queue 2 item 1); it takes {}")
 
@@ -154,8 +155,8 @@ def _stream(t):
 
 
 def _forward(q, k, v, causal, window, q_offset, with_lse):
-    """(out, lse): lse fp32 [B,H,T] when ``with_lse`` and the kernel writes
-    it (CPU, or fp32 on the card), else None."""
+    """(out, lse): lse fp32 [B,H,T] when ``with_lse``, else None (the
+    kernel is then handed a null lse and writes none)."""
     if q.device.type == "cpu":
         got = flash_attention_ref(q, k, v, causal=causal, window=window,
                                   q_offset=q_offset, with_lse=with_lse)
@@ -165,16 +166,14 @@ def _forward(q, k, v, causal, window, q_offset, with_lse):
     S, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     entry = _ENTRY[q.dtype]
-    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
-    lse = None
-    if entry == "flash_attention_fwd":       # the fp32 entry: lse or null
-        if with_lse:
-            lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
-        args.append(None if lse is None else lse.data_ptr())
+    lse = (torch.empty(B, H, T, dtype=torch.float32, device=q.device)
+           if with_lse else None)
     fn = build.function(entry, _ARGTYPES[entry])
     with torch.cuda.device(q.device):
-        code = fn(*args, B, T, S, H, KV, hd, int(causal), int(window),
-                  int(q_offset), 1.0 / math.sqrt(hd), _stream(q))
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  None if lse is None else lse.data_ptr(), B, T, S, H, KV, hd,
+                  int(causal), int(window), int(q_offset), 1.0 / math.sqrt(hd),
+                  _stream(q))
     build.check(code, "flash_attention")
     build.LAUNCHES["flash_attention"] += 1
     return out, lse
@@ -185,14 +184,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     """(dq, dk, dv) of ``flash_attention`` at (q, k, v), given its output
     ``o``, its fp32 ``lse`` [B,H,T] and the output's gradient ``do``.
 
-    A CPU tensor takes ``flash_attention_bwd_ref``; an fp32 CUDA tensor the
-    kernels of ``csrc/flash_attention_bwd.cu`` (three per call:
+    A CPU tensor takes ``flash_attention_bwd_ref``; a CUDA tensor the
+    kernels of ``csrc/flash_attention_bwd.cu`` in its dtype (three per call:
     D = rowsum(do * o), then dk/dv and dq, each of 16 warps and one block
-    per SM, with cp.async double-buffered tiles and no atomics, so the
-    result is the same on every call; ``LAUNCHES["flash_attention_bwd"]``
-    counts the call once); a bf16 one, or one at head_dim 80, raises
-    ``NotImplementedError`` before any launch. q, k, v and do must be
-    16-byte aligned (the kernels copy them in 16-byte pieces).
+    per SM, with no atomics, so the result is the same on every call; fp32
+    tiles come in by cp.async, double-buffered, bf16 ones are converted to
+    fp32 as they land; ``LAUNCHES["flash_attention_bwd"]`` counts the call
+    once, whichever dtype); one at head_dim 80 raises
+    ``NotImplementedError`` before any launch. q, k, v, o and do share one
+    dtype, fp32 or bf16, and lse is fp32. q, k, v and do must be 16-byte
+    aligned (the kernels load them in 16-byte pieces).
     """
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
@@ -200,23 +201,23 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no kernel for device "
                          f"{q.device}")
-    if q.dtype != torch.float32:
-        raise NotImplementedError(BF16_BACKWARD)
     _check(q, k, v, backward=True)
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
-    for name, t, shape in (("o", o, q.shape), ("do", do, q.shape),
-                           ("lse", lse, (B, H, T))):
-        if (t.shape != shape or t.dtype != torch.float32
+    for name, t, shape, dtype in (("o", o, q.shape, q.dtype),
+                                  ("do", do, q.shape, q.dtype),
+                                  ("lse", lse, (B, H, T), torch.float32)):
+        if (t.shape != shape or t.dtype != dtype
                 or t.device != q.device or not t.is_contiguous()):
             raise ValueError(f"flash_attention_bwd: {name} must be a "
-                             f"contiguous fp32 {tuple(shape)} on {q.device}")
+                             f"contiguous {str(dtype)[6:]} {tuple(shape)} on "
+                             f"{q.device}")
     if do.data_ptr() % 16:                   # q, k, v: _check
         raise ValueError(f"flash_attention_bwd: do at {do.data_ptr():#x} "
                          "is not 16-byte aligned")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
-    fn = build.function("flash_attention_bwd", _BWD_ARGTYPES)
+    fn = build.function(_BWD_ENTRY[q.dtype], _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                   lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
@@ -241,8 +242,6 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        if lse is None:
-            raise NotImplementedError(BF16_BACKWARD)
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
                                          **ctx.mask)
         return dq, dk, dv, None, None, None
@@ -269,11 +268,12 @@ def fwd_occupancy(hd: int) -> dict:
     return {"smem_bytes": out[0], "blocks_per_sm": out[1]}
 
 
-def bwd_occupancy(hd: int) -> dict:
+def bwd_occupancy(hd: int, dtype=torch.float32) -> dict:
     """Dynamic shared memory per block and blocks per SM of the backward's
-    dk/dv and dq kernels at head dim ``hd`` on the current card."""
+    dk/dv and dq kernels at head dim ``hd`` in ``dtype`` on the current
+    card."""
     out = (ctypes.c_int * 4)()
-    fn = build.function("flash_attention_bwd_occupancy", _OCC_ARGTYPES)
+    fn = build.function(f"{_BWD_ENTRY[dtype]}_occupancy", _OCC_ARGTYPES)
     build.check(fn(hd, ctypes.addressof(out)), "flash_attention_bwd_occupancy")
     return {"dkdv_smem_bytes": out[0], "dkdv_blocks_per_sm": out[1],
             "dq_smem_bytes": out[2], "dq_blocks_per_sm": out[3]}

@@ -10,10 +10,9 @@ pointers are 16-byte aligned and d a multiple of the vector, scalar loads
 otherwise, and how many threads share a row.
 
 Where grad is enabled and x or the gain requires it, the call goes through
-an ``autograd.Function`` whose backward is ``rmsnorm_bwd``: the fp32 kernels
-of ``csrc/rmsnorm_bwd.cu`` on the card, the explicit formulas of
-``rmsnorm_bwd_ref`` on CPU tensors. A bf16 backward on the card is not
-written yet and raises.
+an ``autograd.Function`` whose backward is ``rmsnorm_bwd``: the kernels of
+``csrc/rmsnorm_bwd.cu`` on the card, in fp32 or bf16, the explicit formulas
+of ``rmsnorm_bwd_ref`` on CPU tensors.
 """
 from __future__ import annotations
 
@@ -29,12 +28,11 @@ _ARGTYPES = ((ctypes.c_void_p,) * 3
              + (ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_float)
              + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
 _BWD_ARGTYPES = ((ctypes.c_void_p,) * 6
-                 + (ctypes.c_longlong, ctypes.c_int, ctypes.c_float)
+                 + (ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_float)
                  + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
 _MAX_GROUP = 256          # threads per row at most (one block)
 _BWD_BLOCKS_PER_SM = 4    # rows of dg partial sums stay a small share of bytes
-BF16_BACKWARD = ("the bf16 rmsnorm backward is not written yet (ROADMAP.md "
-                 "queue 2 item 4); train in fp32")
 
 
 def _pow2(n: int) -> int:
@@ -129,35 +127,33 @@ def bwd_blocks(rows: int, group: int, sms: int) -> int:
 def rmsnorm_bwd(x, gain, dy, *, eps: float = 1e-6):
     """(dx, dg) of ``rmsnorm`` at (x, gain) for the output's gradient ``dy``.
 
-    A CPU tensor takes ``rmsnorm_bwd_ref``; an fp32 CUDA tensor the kernels
-    of ``csrc/rmsnorm_bwd.cu`` (two per call: dx with per-block dg partial
-    sums, then their sum; ``LAUNCHES["rmsnorm_bwd"]`` counts the call once);
-    a bf16 one raises ``NotImplementedError``.
+    A CPU tensor takes ``rmsnorm_bwd_ref``; a CUDA tensor the kernels of
+    ``csrc/rmsnorm_bwd.cu`` in its dtype, fp32 or bf16 (two per call: dx
+    with per-block fp32 dg partial sums, then their sum, rounded once;
+    ``LAUNCHES["rmsnorm_bwd"]`` counts the call once).
     """
     if x.device.type == "cpu":
         return rmsnorm_bwd_ref(x, gain, dy, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm_bwd: no kernel for device {x.device}")
-    if x.dtype != torch.float32:
-        raise NotImplementedError(BF16_BACKWARD)
     d = _check(x, gain, "rmsnorm_bwd")
     if (dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device
             or not dy.is_contiguous()):
-        raise ValueError(f"rmsnorm_bwd: dy must be a contiguous fp32 "
-                         f"{tuple(x.shape)} on {x.device}")
+        raise ValueError(f"rmsnorm_bwd: dy must be a contiguous "
+                         f"{str(x.dtype)[6:]} {tuple(x.shape)} on {x.device}")
     rows = x.numel() // d
     dx = torch.empty_like(x)
     dg = torch.empty_like(gain)
     vec, group, _ = plan(x.data_ptr() | gain.data_ptr() | dy.data_ptr()
-                         | dx.data_ptr(), d, 4)
+                         | dx.data_ptr(), d, x.element_size())
     blocks = bwd_blocks(rows, group, _sm_count(x.device.index))
     partial = torch.empty(blocks, d, dtype=torch.float32, device=x.device)
     fn = build.function("rmsnorm_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(x.data_ptr(), gain.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                  dg.data_ptr(), partial.data_ptr(), rows, d, eps, vec, group,
-                  blocks, stream)
+                  dg.data_ptr(), partial.data_ptr(), _DTYPES[x.dtype], rows, d,
+                  eps, vec, group, blocks, stream)
     build.check(code, "rmsnorm_bwd")
     build.LAUNCHES["rmsnorm_bwd"] += 1
     return dx, dg

@@ -42,10 +42,11 @@ from repro_torch.configs.base import SHAPES
 from repro_torch.core.supervisor import SweepSupervisor
 from repro_torch.data import SyntheticLM
 from repro_torch.exec import get_backend
-from repro_torch.models import forward_loss, init_params
-from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.models import init_params
+from repro_torch.models.common import tree_map
 from repro_torch.optim import adamw_init, adamw_update
 from repro_torch.taskarray import GraphResult, RetryPolicy, TaskGraph
+from repro_torch.train.step import loss_and_grads, resolve_device, to_batch
 
 
 def member_config(arch: str = "qwen3-0.6b"):
@@ -54,32 +55,11 @@ def member_config(arch: str = "qwen3-0.6b"):
                                param_dtype="float32", remat="none")
 
 
-def loss_and_grads(params, cfg, batch):
-    """(loss, grads): ``forward_loss`` and its gradient with respect to every
-    param leaf, in the params' tree. It differentiates detached aliases of
-    the leaves (the same storage), so the caller's params stay as they were:
-    none requires grad, and serving them afterwards records no graph."""
-    alias = tree_map(lambda t: t.detach().requires_grad_(True), params)
-    with torch.enable_grad():
-        loss, _ = forward_loss(alias, cfg, batch)
-        grads = iter(torch.autograd.grad(loss, tree_leaves(alias)))
-    return loss.detach(), tree_map(lambda _: next(grads), params)
-
-
-def to_batch(batch, device):
-    """numpy batch (``SyntheticLM``) -> int64 tensors on ``device``."""
-    return {k: torch.as_tensor(v, device=device).long()
-            for k, v in batch.items()}
-
-
 def build_member_step(cfg, device="cuda"):
     """``member_step(params, opt, batch, lr) -> (params, opt, loss)`` on
     ``device`` (the card unless the caller asks for the CPU). ``batch`` is
     numpy or tensors; params and moments are updated in place."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("member_step: device 'cuda' asked for but no CUDA "
-                           "card is available (pass device='cpu')")
+    device = resolve_device(device)
 
     def member_step(params, opt, batch, lr):
         loss, grads = loss_and_grads(params, cfg, to_batch(batch, device))

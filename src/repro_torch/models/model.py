@@ -14,12 +14,23 @@ zamba2 adds one shared ATTN block, ``p["shared"]`` (unstacked: its weights
 serve every application), applied after every stage (stages are cut at
 multiples of ``shared_attn_every``). Its cache ``cache["shared"]`` holds one
 KV cache per application, ``{"kv": (k, v)}`` of ``[n_app, B, S, KV, hd]``.
+
+``forward_hidden`` wraps each stage layer in ``cfg.remat``, as the
+reference's ``_remat_wrap`` does (``repro/models/model.py:107-115``), with
+``torch.utils.checkpoint`` in its non-reentrant form: ``full`` keeps only
+each block's input and recomputes the block in the backward, so under it
+every kernel forward of a block (flash attention, the norms) launches twice
+per backward pass; ``dots`` keeps the outputs of the matrix products
+without batch dims (``aten.mm``/``addmm``: the projections, as JAX's
+``checkpoint_dots_with_no_batch_dims``) and recomputes the rest.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .blocks import (block_decode, block_forward, block_prefill, init_block,
                      init_block_cache)
@@ -72,6 +83,30 @@ def _layers(tree, count: int):
     return layers
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(fn, cfg):
+    """``fn`` (a block forward) under ``cfg.remat``: ``none``, ``dots`` or
+    ``full``. The blocks draw no random numbers, so no RNG state is kept."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("dots", "full"):
+        raise ValueError(f"remat {cfg.remat!r}: takes none, dots or full")
+    extra = ({"context_fn": lambda: create_selective_checkpoint_contexts(
+        _save_dots)} if cfg.remat == "dots" else {})
+
+    def wrapped(*args, **kwargs):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **extra, **kwargs)
+    return wrapped
+
+
 def init_params(cfg, generator: torch.Generator, device="cuda") -> Dict[str, Any]:
     """Random params with the JAX package's distributions, drawn from
     ``generator`` on its own device and placed on ``device``."""
@@ -114,9 +149,10 @@ def forward_hidden(p, cfg, tokens, *, pos=None):
     pos = _positions(B, T, tokens.device) if pos is None else pos
     h = embed_tokens(p, cfg, tokens)
     aux = torch.zeros((), device=h.device)
+    block = _remat_wrap(block_forward, cfg)
     for (kind, count), stage in zip(pattern_stages(cfg), p["stages"]):
         for layer in _layers(stage, count):
-            h, a = block_forward(kind, layer, cfg, h, pos=pos)
+            h, a = block(kind, layer, cfg, h, pos=pos)
             aux = aux + a
         if cfg.shared_attn_every:
             h, a = block_forward("attn", p["shared"], cfg, h, pos=pos)

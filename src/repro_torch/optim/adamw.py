@@ -1,8 +1,8 @@
 """AdamW on param trees (counterpart of ``repro/optim/adamw.py``).
 
 The state is ``{"m", "v", "count"}``: moments with the params' tree and
-shapes in fp32, and the step count, an
-int32 scalar tensor. The arithmetic is the JAX package's, step for step:
+shapes, in ``dtype`` (fp32 by default; ``cfg.opt_state_dtype``, which
+nemotron sets to bf16), and the step count, an int32 scalar tensor. The arithmetic is the JAX package's, step for step:
 clip by the global norm, moments in fp32, bias correction from ``count``,
 decoupled weight decay on every leaf with ``ndim >= 2``. On the stacked
 param tree that includes the stacked gains (``ln1``, ``ln2``, ``q_norm``,
@@ -18,13 +18,14 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.models.common import dtype_of, tree_leaves, tree_map
 
 F32 = torch.float32
 
 
-def adamw_init(params):
-    zeros = lambda p: torch.zeros(p.shape, dtype=F32, device=p.device)
+def adamw_init(params, dtype: str = "float32"):
+    dt = dtype_of(dtype)
+    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
     device = tree_leaves(params)[0].device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "count": torch.zeros((), dtype=torch.int32, device=device)}
