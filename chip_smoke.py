@@ -64,12 +64,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    16-byte alignment, the scalar path). Then the trainer's bf16 backward
    kernels against their plain versions on the same bf16 inputs, per row
    relative to the row's RMS within twice the plain version's own bf16
-   rounding: flash_attention_bwd at B=4 T=512 H=16 KV=8 hd=128 (the
-   trainer's microbatch), T=137 with a window, hd 32 (the reduced
-   config's), hd 64 and a q_offset, with the bf16 forward's lse against
-   the plain lse in each case, two calls the same bits and a run without
-   the first key tile failing the check; rmsnorm_bwd (dx and dg) at every
-   training norm shape and a view 2 bytes off alignment; the bf16 forward
+   rounding: flash_attention_bwd (the tensor-core kernels) at B=4 T=512
+   H=16 KV=8 hd=128 (the trainer's microbatch), T=137 with a window, hd
+   32 (the reduced config's), hd 64, a q_offset and a non-causal window
+   with S > T, with the bf16 forward's lse against the plain lse in each
+   case and the error against the plain version with the kernels' own
+   rounding (P and dS in bf16) logged, two calls the same bits and a run
+   without the first key tile failing the check; rmsnorm_bwd (dx and dg)
+   at every training norm shape and a view 2 bytes off alignment; the bf16 forward
    timed with and without lse at B=1 T=1000 and B=4 T=512. Each backward
    is timed beside its bound, its plain backward and the backward of
    ``F.scaled_dot_product_attention`` (GQA) or ``F.rms_norm`` in the same
@@ -926,14 +928,18 @@ def time_rmsnorm_bwd(name, x, g, dy, err):
 # --------------------------------------------------------------------------
 # phase 4, backward in bf16: the trainer's gradient kernels
 # --------------------------------------------------------------------------
-FLASH_BWD_BF16_CASES = [   # B, T, S, H, KV, hd, window, q_offset
-    (4, 512, 512, 16, 8, 128, 0, 0),     # the trainer's microbatch, full width
-    (2, 137, 137, 16, 8, 128, 64, 0),    # ragged T with a window
-    (8, 64, 64, 4, 2, 32, 0, 0),         # launch/train's reduced config, hd 32
-    (2, 200, 200, 8, 2, 64, 0, 0),       # hd 64, GQA group 4
-    (1, 100, 300, 16, 8, 128, 0, 200),   # q_offset > 0
+FLASH_BWD_BF16_CASES = [   # B, T, S, H, KV, hd, window, q_offset, causal
+    (4, 512, 512, 16, 8, 128, 0, 0, True),    # the trainer's microbatch
+    (2, 137, 137, 16, 8, 128, 64, 0, True),   # ragged T with a window
+    (8, 64, 64, 4, 2, 32, 0, 0, True),        # launch/train's reduced config
+    (2, 200, 200, 8, 2, 64, 0, 0, True),      # hd 64, GQA group 4
+    (1, 100, 300, 16, 8, 128, 0, 200, True),  # q_offset > 0
+    (2, 150, 200, 8, 4, 64, 32, 0, False),    # non-causal, a window, S > T
 ]
 FLASH_BWD_BF16_DROPPED = (2, 137, 128)   # B, T, hd: dropped-tile check
+BF16_BWD_KERNELS = {"delta": "flash_bwd_delta_kernel",   # flash_attention_
+                    "dkdv": "flash_bwd_dkdv_sm90_kernel",  # bwd_sm90.cu
+                    "dq": "flash_bwd_dq_sm90_kernel"}
 FWD_LSE_TIMED = ((1, 1000, 16, 8, 128), (4, 512, 16, 8, 128))  # prefill, train
 RMS_BWD_BF16_REPORT = "rows=2048 d=1024 bfloat16"
 
@@ -991,11 +997,12 @@ def check_flash_bwd_bf16(gen):
     first key tile must fail the check. Returns the timed row at the
     trainer's microbatch."""
     row = None
-    for B, T, S, H, KV, hd, window, off in FLASH_BWD_BF16_CASES:
-        kw = dict(causal=True, window=window, q_offset=off)
+    for B, T, S, H, KV, hd, window, off, causal in FLASH_BWD_BF16_CASES:
+        kw = dict(causal=causal, window=window, q_offset=off)
         q, k, v, do, o, lse = flash_bwd_bf16_inputs(gen, B, T, S, H, KV, hd, kw)
-        name = (f"B={B} T={T} S={S} H={H} KV={KV} hd={hd} bf16 causal "
-                f"window={window} q_offset={off}")
+        name = (f"B={B} T={T} S={S} H={H} KV={KV} hd={hd} bf16 "
+                f"{'causal' if causal else 'non-causal'} window={window} "
+                f"q_offset={off}")
         check_flash_lse(q, k, v, kw, name)
         got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
@@ -1004,6 +1011,9 @@ def check_flash_bwd_bf16(gen):
         worst, err = bf16_rows_ok("flash_attention_bwd_bf16", name, got, want)
         require(worst <= 1.0, f"flash_attention_bwd bf16 off its plain "
                 f"version: {name}")
+        log_rounded_rows(got, flash_attention_bwd_ref(
+            q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+            bf16_operands=True, **kw), name)
         if (B, T, hd) == FLASH_BWD_BF16_DROPPED:
             check_flash_bwd_repeats(q, k, v, do, name)
             check_flash_bwd_bf16_dropped_tile(q, k, v, do, want)
@@ -1022,6 +1032,21 @@ def check_flash_bwd_bf16(gen):
             f"{with_lse:.4f} ms with lse (training), "
             f"{with_lse / plain - 1:+.1%}")
     return row
+
+
+def log_rounded_rows(got, want, name):
+    """Logs the bf16 kernels' per-row error (``grad_row_rel_err``) against
+    the fp32 result of the plain version with the kernels' own rounding (P
+    and dS in bf16), in units of the per-row limit of ``bf16_rows_ok``."""
+    parts = []
+    for g, w in zip(got, want):
+        w2 = w.float().reshape(-1, w.shape[-1])
+        limit = 2 * grad_row_rel_err(w2.to(torch.bfloat16), w2)
+        err = grad_row_rel_err(g.reshape(w2.shape), w2)
+        parts.append(f"{err:.3e} ({err / max(limit, 1e-30):.3f}x)")
+    log(f"flash_attention_bwd_bf16 {name}: per row |err| / row RMS vs the "
+        f"plain version rounding P and dS to bf16, dq dk dv: "
+        f"{', '.join(parts)}")
 
 
 def check_flash_bwd_bf16_dropped_tile(q, k, v, do, want):
@@ -1070,13 +1095,19 @@ def time_flash_bwd_bf16(q, k, v, do, o, lse, err):
     }
     by_name = device_ms_by_kernel(kernel, 20)
     row["split_ms"] = {part: sum(ms for key, ms in by_name.items()
-                                 if f"flash_bwd_{part}_kernel" in key)
-                       for part in ("delta", "dkdv", "dq")}
+                                 if name in key)
+                       for part, name in BF16_BWD_KERNELS.items()}
     split = row["split_ms"]
+    # 64 x 64 tile products per visible tile pair: 4 in dk/dv, 3 in dq
+    n = -(-T // 64)
+    tile_flops = 2 * 64 * 64 * hd * n * (n + 1) // 2 * B * H
     log(f"  bf16 backward kernels apart, device ms per call (profiler, 20 "
-        f"calls): delta {split['delta']:.4f}, dk/dv {split['dkdv']:.4f}, dq "
-        f"{split['dq']:.4f}; sum {sum(split.values()):.4f}; all kernels of "
-        f"the call {sum(by_name.values()):.4f}")
+        f"calls): delta {split['delta']:.4f}, dk/dv {split['dkdv']:.4f} "
+        f"({4 * tile_flops / split['dkdv'] / 1e9:.1f} TFLOP/s on its tile "
+        f"products), dq {split['dq']:.4f} "
+        f"({3 * tile_flops / split['dq'] / 1e9:.1f} TFLOP/s); sum "
+        f"{sum(split.values()):.4f}; all kernels of the call "
+        f"{sum(by_name.values()):.4f}")
     require(all(ms > 0 for ms in split.values()),
             f"a bf16 backward kernel is missing from the trace: {dict(by_name)}")
     log(f"  device time {row['shape']}: backward kernels {row['ms']:.4f} ms, "
@@ -2273,7 +2304,7 @@ def trainer_full_width():
             return m["loss"]
         profile = profile_train_step(step_once, {
             "flash_fwd_sm90_kernel<": want["flash_attention"],
-            "flash_bwd_dq_kernel<": want["flash_attention_bwd"]})
+            "flash_bwd_dq_sm90_kernel<": want["flash_attention_bwd"]})
     finally:
         ckpt_module._write, trainer_module.restore = saved_write, saved_restore
         shutil.rmtree(workdir, ignore_errors=True)
@@ -2346,13 +2377,15 @@ def main():
                 f"the fp32 flash forward does not fit an SM at hd={hd}")
         if hd == 80:                         # the backward takes 32, 64, 128
             continue
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype, warps in ((torch.float32, (16, 16)),
+                             (torch.bfloat16, (8, 4))):
             occ = bwd_occupancy(hd, dtype)
             log(f"flash_attention_bwd hd={hd} {str(dtype)[6:]}: dk/dv kernel "
                 f"{occ['dkdv_smem_bytes']} bytes of shared memory, "
-                f"{occ['dkdv_blocks_per_sm']} block(s) of 16 warps per SM; dq "
-                f"kernel {occ['dq_smem_bytes']} bytes, "
-                f"{occ['dq_blocks_per_sm']} block(s) per SM")
+                f"{occ['dkdv_blocks_per_sm']} block(s) of {warps[0]} warps per "
+                f"SM; dq kernel {occ['dq_smem_bytes']} bytes, "
+                f"{occ['dq_blocks_per_sm']} block(s) of {warps[1]} warps per "
+                f"SM")
             require(min(occ["dkdv_blocks_per_sm"],
                         occ["dq_blocks_per_sm"]) >= 1,
                     f"a flash backward kernel does not fit an SM at hd={hd} "
@@ -2422,7 +2455,7 @@ def main():
          "source": csrc + "flash_attention_bwd.cu", "replaces": flash_tpu,
          **launches("flash_attention_bwd", training), **flash_bwd_row},
         {"name": "flash_attention_bwd_bf16", "route": "cuda",
-         "source": csrc + "flash_attention_bwd.cu", "replaces": flash_tpu,
+         "source": csrc + "flash_attention_bwd_sm90.cu", "replaces": flash_tpu,
          **launches("flash_attention_bwd", bf16_training),
          **flash_bwd_bf16_row},
         {"name": "rmsnorm", "route": "cuda", "source": csrc + "rmsnorm.cu",

@@ -12,12 +12,13 @@ so that a drift of the card or the host shows as a spread:
 
 - ``flash_attention_fwd`` (the fp32 forward, with lse) and
   ``flash_attention_bwd`` at the member step's shape (B=4 T=S=512 H=16
-  KV=8 hd=128, fp32, causal): the parent's ``csrc/flash_attention.cu`` and
-  ``csrc/flash_attention_bwd.cu`` are each built alone into a library of
-  their own under ``build/ab/`` and called through the same C entry as
-  this checkout's; device ms per call from CUDA-graph replay
-  (``chip_smoke.device_ms``), whether the two give the same bits, and
-  their largest difference.
+  KV=8 hd=128, fp32, causal), then the backward in bf16: the parent's
+  ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu`` are each
+  built alone into a library of their own under ``build/ab/`` and called
+  through the C entry of the dtype (``flash_attention_bwd_bf16`` for
+  bf16), this checkout's through its wrapper; device ms per call from
+  CUDA-graph replay (``chip_smoke.device_ms``), whether the two give the
+  same bits, and their largest difference.
 - ``ssd_scan_fwd`` (the parent's C entry, built alone as above, B and C
   expanded to every head as the parent's callers handed them) against
   this checkout's ``ssd_scan`` on the same inputs with B and C as its
@@ -39,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import importlib
 import json
 import math
@@ -81,9 +83,10 @@ def serve(tree: Path, arch: str) -> dict:
             "decode_ms": st["decode_s"] / st["decode_steps"] * 1e3}
 
 
-def parent_entry(parent: Path, source: str, entry: str, argtypes):
-    """``entry`` of the parent's ``source``, built alone into its own
-    library (nvcc with this checkout's flags)."""
+@functools.cache
+def parent_library(parent: Path, source: str) -> ctypes.CDLL:
+    """The parent's ``source`` built alone into its own library (nvcc with
+    this checkout's flags), once per process."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     lib = ROOT / "build" / "ab" / f"parent_{Path(source).stem}.so"
@@ -92,20 +95,25 @@ def parent_entry(parent: Path, source: str, entry: str, argtypes):
                     str(parent / CSRC), "-o", str(lib),
                     str(parent / CSRC / source)], check=True,
                    capture_output=True)
-    fn = getattr(ctypes.CDLL(str(lib)), entry)
+    return ctypes.CDLL(str(lib))
+
+
+def parent_entry(parent: Path, source: str, entry: str, argtypes):
+    """``entry`` of the parent's ``source``."""
+    fn = getattr(parent_library(parent, source), entry)
     fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
     return fn
 
 
-def ab_rows(kernel: str, parent_call, this_call) -> list:
+def ab_rows(kernel: str, parent_call, this_call, dtype="fp32") -> list:
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     import torch
     pairs = list(zip(parent_call(), this_call()))
     same = all(torch.equal(a, b) for a, b in pairs)
-    diff = max(float((a - b).abs().max()) for a, b in pairs)
+    diff = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
     B, T, H, KV, hd = SHAPE
-    shape = f"B={B} T=S={T} H={H} KV={KV} hd={hd} fp32 causal"
+    shape = f"B={B} T=S={T} H={H} KV={KV} hd={hd} {dtype} causal"
     return [{kernel: name, "shape": shape, "ms": cs.device_ms(fn, 10),
              "same_bits_as_parent": same, "max_abs_diff": diff}
             for name, fn in (("parent", parent_call), ("this", this_call),
@@ -138,17 +146,21 @@ def flash_fwd(parent: Path) -> list:
     return ab_rows("flash_attention_fwd", lambda: call(old), lambda: call(new))
 
 
-def flash_bwd(parent: Path) -> list:
+def flash_bwd(parent: Path, dtype: str = "fp32") -> list:
+    """``dtype`` "fp32" or "bf16": the parent's C entry for that dtype in
+    its ``flash_attention_bwd.cu`` against this checkout's backward."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     import torch
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
-    old = parent_entry(parent, "flash_attention_bwd.cu",
-                       "flash_attention_bwd", fa._BWD_ARGTYPES)
+    entry = {"fp32": "flash_attention_bwd", "bf16": "flash_attention_bwd_bf16"}
+    old = parent_entry(parent, "flash_attention_bwd.cu", entry[dtype],
+                       fa._BWD_ARGTYPES)
     B, T, H, KV, hd = SHAPE
     gen = torch.Generator("cuda").manual_seed(0)
-    q, do = (cs.randn(gen, B, T, H, hd) for _ in range(2))
-    k, v = (cs.randn(gen, B, T, KV, hd) for _ in range(2))
+    tdt = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    q, do = (cs.randn(gen, B, T, H, hd, dtype=tdt) for _ in range(2))
+    k, v = (cs.randn(gen, B, T, KV, hd, dtype=tdt) for _ in range(2))
     o, lse = cs.flash_attention_ref(q, k, v, with_lse=True)
     o = o.contiguous()
 
@@ -163,7 +175,7 @@ def flash_bwd(parent: Path) -> list:
         return dq, dk, dv
 
     this_call = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do)
-    return ab_rows("flash_attention_bwd", parent_call, this_call)
+    return ab_rows("flash_attention_bwd", parent_call, this_call, dtype)
 
 
 SSD_MAMBA = (1, 80, 64, 64)                  # b, H, N, P (zamba2)
@@ -251,7 +263,8 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    rows = ((flash_fwd(parent) + flash_bwd(parent) if "flash" in only else [])
+    rows = ((flash_fwd(parent) + flash_bwd(parent) + flash_bwd(parent, "bf16")
+             if "flash" in only else [])
             + (ssd(parent) if "ssd" in only else []))
     for row in rows:
         print(json.dumps(row), flush=True)

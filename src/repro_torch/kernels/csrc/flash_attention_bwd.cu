@@ -1,13 +1,7 @@
-// Causal / sliding-window GQA flash attention, backward, on the CUDA cores:
-// dq, dk, dv from q, k, v, o, the forward's per-row log-sum-exp (lse) and do,
-// in fp32 or bf16. The bf16 kernels are the same three, templated on the
-// element type of their global loads and stores: they read bf16 q, k, v, o
-// and do themselves, convert each tile to fp32 as it lands in shared memory
-// (through registers, since cp.async copies bytes unconverted; load_tile in
-// flash_tiles.cuh), do every product and sum in fp32 as the fp32 kernels do,
-// and write bf16 dq, dk, dv from their fp32 accumulators and an fp32
-// D = rowsum(do * o). In bf16 the lse comes from the tensor-core forward
-// (flash_attention_sm90.cu).
+// Causal / sliding-window GQA flash attention, backward, in fp32 on the CUDA
+// cores: dq, dk, dv from q, k, v, o, the forward's per-row log-sum-exp (lse)
+// and do. The bf16 backward runs on the tensor cores in
+// flash_attention_bwd_sm90.cu.
 //
 // The Pallas TPU kernel repro/kernels/flash_attention.py::_flash_kernel
 // (pallas_call at flash_attention.py:121) has no VJP: the JAX package trains
@@ -39,14 +33,10 @@
 // What bounds it on the H100: operations. In fp32 there are no tensor cores
 // to use (TF32 would not hold fp32's tolerance), so the bound is 67 TFLOP/s
 // of FMAs, 128 a clock per SM: the FMA issue alone fills every scheduler,
-// so every other instruction, and every stall, is lost FMA time. In bf16
-// the bound is the tensor cores' 989 TFLOP/s, which these CUDA-core kernels
-// cannot approach: a wgmma backward is the later redesign. The design:
-// - Loads never stall a product in fp32. Tiles come in by cp.async, 16
-//   bytes a thread, double-buffered: the next q/do tile (dk/dv) or k/v tile
-//   (dq) is in flight while the current one's products run. In bf16 the
-//   next tile's loads are issued at the same place but wait in registers
-//   for their conversion, so each pass starts with one load latency.
+// so every other instruction, and every stall, is lost FMA time. The design:
+// - Loads never stall a product. Tiles come in by cp.async, 16 bytes a
+//   thread, double-buffered: the next q/do tile (dk/dv) or k/v tile (dq) is
+//   in flight while the current one's products run.
 // - 16-byte shared loads without bank conflicts. q and do tiles are stored
 //   unpadded with each 16-byte chunk of row r at chunk c ^ (r & 7); k and v
 //   rows are padded to hd + 4 floats. So a float4 read along the rows of
@@ -111,9 +101,9 @@ __device__ __forceinline__ void load_row_stats(float* dst, const float* lse, con
 }
 
 // D[b, h, t] = sum_d do[b, t, h, d] * o[b, t, h, d]: one warp per row.
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NT)
-flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+flash_bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
                        float* __restrict__ delta, long long n_rows, int T_len, int H) {
     const long long row = static_cast<long long>(blockIdx.x) * WARPS + (threadIdx.x >> 5);
     if (row >= n_rows) return;
@@ -121,7 +111,7 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
     float acc = 0.f;
 #pragma unroll
     for (int c = lane; c < HD; c += 32)
-        acc = fmaf(to_float(dout[row * HD + c]), to_float(o[row * HD + c]), acc);
+        acc = fmaf(dout[row * HD + c], o[row * HD + c], acc);
     acc = warp_sum(acc);
     if (lane == 0) {                     // row = (b * T + t) * H + h
         const long long bt = row / H;
@@ -131,18 +121,9 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
     }
 }
 
-// Four consecutive outputs from the fp32 accumulators: one 16-byte store in
-// fp32, one 8-byte store of four rounded values in bf16.
+// Four consecutive outputs from the accumulators: one 16-byte store.
 __device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
     *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c, float d) {
-    __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
-    uint2 raw;
-    raw.x = *reinterpret_cast<uint32_t*>(&lo);
-    raw.y = *reinterpret_cast<uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(p) = raw;
 }
 
 // The first pass at or after p (pass = group head * nq + query tile) whose
@@ -152,12 +133,12 @@ __device__ __forceinline__ int next_pass(int p, int n_pass, int nq, const Mask& 
     return p;
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NT, 1)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
-                      T* __restrict__ dk, T* __restrict__ dv, int H, int KV,
+                      float* __restrict__ dk, float* __restrict__ dv, int H, int KV,
                       Mask mask, float scale) {
     using L = DkdvLayout<HD>;
     constexpr int M = HD / 16;           // keys per thread in the dv / dk product
@@ -246,7 +227,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     cp_async_wait_all();                 // a block with no pass still has k and v in flight
 
-    T* out = (role ? dk : dv) + kv_off();
+    float* out = (role ? dk : dv) + kv_off();
     const float mul = role ? scale : 1.f;
 #pragma unroll
     for (int m = 0; m < M; ++m) {
@@ -257,12 +238,12 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NT, 1)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    T* __restrict__ dq, int H, int KV, Mask mask, float scale) {
+                    float* __restrict__ dq, int H, int KV, Mask mask, float scale) {
     using L = DqLayout<HD>;
     constexpr int M = HD / 32;           // query rows per thread in the dq product
     extern __shared__ __align__(16) float smem[];
@@ -355,114 +336,85 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t set_smem() {
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, HD>,
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<HD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(DkdvLayout<HD>::bytes));
     if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, HD>,
+        err = cudaFuncSetAttribute(flash_bwd_dq_kernel<HD>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    static_cast<int>(DqLayout<HD>::bytes));
     return err;
 }
 
-template <typename T, int HD>
-int launch(const T* q, const T* k, const T* v, const T* o, const float* lse, const T* dout,
-           T* dq, T* dk, T* dv, float* delta, int B, int H, int KV, Mask mask, float scale,
-           cudaStream_t s) {
-    const cudaError_t err = set_smem<T, HD>();
+template <int HD>
+int launch(const float* q, const float* k, const float* v, const float* o, const float* lse,
+           const float* dout, float* dq, float* dk, float* dv, float* delta, int B, int H,
+           int KV, Mask mask, float scale, cudaStream_t s) {
+    const cudaError_t err = set_smem<HD>();
     if (err != cudaSuccess) return static_cast<int>(err);
     const long long n_rows = static_cast<long long>(B) * mask.T_len * H;
-    flash_bwd_delta_kernel<T, HD><<<static_cast<unsigned>((n_rows + WARPS - 1) / WARPS), NT, 0,
-                                    s>>>(o, dout, delta, n_rows, mask.T_len, H);
+    flash_bwd_delta_kernel<HD><<<static_cast<unsigned>((n_rows + WARPS - 1) / WARPS), NT, 0,
+                                 s>>>(o, dout, delta, n_rows, mask.T_len, H);
     const dim3 kv_grid(B * KV, (mask.S_len + BK - 1) / BK);
-    flash_bwd_dkdv_kernel<T, HD><<<kv_grid, NT, DkdvLayout<HD>::bytes, s>>>(
+    flash_bwd_dkdv_kernel<HD><<<kv_grid, NT, DkdvLayout<HD>::bytes, s>>>(
         q, k, v, dout, lse, delta, dk, dv, H, KV, mask, scale);
     const dim3 q_grid(B * H, (mask.T_len + BQ - 1) / BQ);
-    flash_bwd_dq_kernel<T, HD><<<q_grid, NT, DqLayout<HD>::bytes, s>>>(
+    flash_bwd_dq_kernel<HD><<<q_grid, NT, DqLayout<HD>::bytes, s>>>(
         q, k, v, dout, lse, delta, dq, H, KV, mask, scale);
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int HD>
+template <int HD>
 int occupancy(int* out) {
-    cudaError_t err = set_smem<T, HD>();
+    cudaError_t err = set_smem<HD>();
     if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 1, flash_bwd_dkdv_kernel<T, HD>,
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 1, flash_bwd_dkdv_kernel<HD>,
                                                             NT, DkdvLayout<HD>::bytes);
     if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 3, flash_bwd_dq_kernel<T, HD>,
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 3, flash_bwd_dq_kernel<HD>,
                                                             NT, DqLayout<HD>::bytes);
     out[0] = static_cast<int>(DkdvLayout<HD>::bytes);
     out[2] = static_cast<int>(DqLayout<HD>::bytes);
     return static_cast<int>(err);
 }
 
-template <typename T>
-int launch_hd(const void* q, const void* k, const void* v, const void* o, const void* lse,
-              const void* dout, void* dq, void* dk, void* dv, void* delta, int B, int T_len,
-              int S_len, int H, int KV, int hd, int causal, int window, int q_offset,
-              float scale, void* stream) {
-    if (B <= 0 || T_len <= 0 || S_len <= 0 || KV <= 0 || H % KV != 0 || B * H > 65535)
-        return static_cast<int>(cudaErrorInvalidValue);
-    const Mask mask{T_len, S_len, causal, window, q_offset};
-    auto f = [](const void* p) { return static_cast<const T*>(p); };
-    auto w = [](void* p) { return static_cast<T*>(p); };
-    auto l = static_cast<const float*>(lse);
-    auto d = static_cast<float*>(delta);
-    auto s = static_cast<cudaStream_t>(stream);
-    switch (hd) {
-        case 32: return launch<T, 32>(f(q), f(k), f(v), f(o), l, f(dout), w(dq), w(dk), w(dv), d,
-                                      B, H, KV, mask, scale, s);
-        case 64: return launch<T, 64>(f(q), f(k), f(v), f(o), l, f(dout), w(dq), w(dk), w(dv), d,
-                                      B, H, KV, mask, scale, s);
-        case 128: return launch<T, 128>(f(q), f(k), f(v), f(o), l, f(dout), w(dq), w(dk), w(dv),
-                                        d, B, H, KV, mask, scale, s);
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-}
-
-template <typename T>
-int occupancy_hd(int hd, int* out) {
-    switch (hd) {
-        case 32: return occupancy<T, 32>(out);
-        case 64: return occupancy<T, 64>(out);
-        case 128: return occupancy<T, 128>(out);
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-}
-
 }  // namespace
 
 // q, o, dout, dq: [B,T,H,hd]; k, v, dk, dv: [B,S,KV,hd]; lse (from the
-// forward) and delta (scratch): fp32 [B,H,T]; all contiguous, the six
-// [B,*,*,hd] tensors 16-byte aligned. flash_attention_bwd takes the [B,*,*,hd]
-// tensors in fp32, flash_attention_bwd_bf16 in bf16.
+// forward) and delta (scratch): fp32 [B,H,T]; all contiguous fp32, the six
+// [B,*,*,hd] tensors 16-byte aligned.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* lse, const void* dout, void* dq, void* dk,
                                    void* dv, void* delta, int B, int T_len, int S_len, int H,
                                    int KV, int hd, int causal, int window, int q_offset,
                                    float scale, void* stream) {
-    return launch_hd<float>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, T_len, S_len, H, KV,
-                            hd, causal, window, q_offset, scale, stream);
-}
-
-extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
-                                        const void* o, const void* lse, const void* dout,
-                                        void* dq, void* dk, void* dv, void* delta, int B,
-                                        int T_len, int S_len, int H, int KV, int hd, int causal,
-                                        int window, int q_offset, float scale, void* stream) {
-    return launch_hd<__nv_bfloat16>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, T_len, S_len,
-                                    H, KV, hd, causal, window, q_offset, scale, stream);
+    if (B <= 0 || T_len <= 0 || S_len <= 0 || KV <= 0 || H % KV != 0 || B * H > 65535)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const Mask mask{T_len, S_len, causal, window, q_offset};
+    auto f = [](const void* p) { return static_cast<const float*>(p); };
+    auto w = [](void* p) { return static_cast<float*>(p); };
+    auto d = static_cast<float*>(delta);
+    auto s = static_cast<cudaStream_t>(stream);
+    switch (hd) {
+        case 32: return launch<32>(f(q), f(k), f(v), f(o), f(lse), f(dout), w(dq), w(dk), w(dv),
+                                   d, B, H, KV, mask, scale, s);
+        case 64: return launch<64>(f(q), f(k), f(v), f(o), f(lse), f(dout), w(dq), w(dk), w(dv),
+                                   d, B, H, KV, mask, scale, s);
+        case 128: return launch<128>(f(q), f(k), f(v), f(o), f(lse), f(dout), w(dq), w(dk),
+                                     w(dv), d, B, H, KV, mask, scale, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
 }
 
 // out[0..3] = dynamic shared memory of the dk/dv kernel (bytes), its blocks
-// per SM, the same two of the dq kernel, at head dim hd; fp32 and bf16.
+// per SM, the same two of the dq kernel, at head dim hd.
 extern "C" int flash_attention_bwd_occupancy(int hd, int* out) {
-    return occupancy_hd<float>(hd, out);
-}
-
-extern "C" int flash_attention_bwd_bf16_occupancy(int hd, int* out) {
-    return occupancy_hd<__nv_bfloat16>(hd, out);
+    switch (hd) {
+        case 32: return occupancy<32>(out);
+        case 64: return occupancy<64>(out);
+        case 128: return occupancy<128>(out);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
 }

@@ -89,11 +89,6 @@ struct Cfg {
     static constexpr int bytes = bar + 8 * (1 + STAGES) + 1024;  // + alignment slack
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
 template <int HD>
 __global__ void __launch_bounds__(NT, 2)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -277,48 +272,6 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
             *reinterpret_cast<uint32_t*>(o1 + 8 * i + col) =
                 pack_bf16(acc[4 * i + 2] * inv1, acc[4 * i + 3] * inv1);
     }
-}
-
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-EncodeTiled encoder() {
-    static EncodeTiled fn = [] {
-        void* p = nullptr;
-#if CUDART_VERSION >= 12050
-        cudaDriverEntryPointQueryResult found;
-        if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                             cudaEnableDefault, &found) != cudaSuccess ||
-            found != cudaDriverEntryPointSuccess)
-            p = nullptr;
-#else
-        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) !=
-            cudaSuccess)
-            p = nullptr;
-#endif
-        return reinterpret_cast<EncodeTiled>(p);
-    }();
-    return fn;
-}
-
-// A 4-d map (hd, heads, positions, batch) of a [batch, positions, heads, hd]
-// bf16 tensor whose boxes are one swizzle atom of `rows` positions of one head.
-bool make_map(CUtensorMap* map, const void* ptr, int batch, int positions, int heads, int hd,
-              int rows, int atom, int swizzle) {
-    EncodeTiled encode = encoder();
-    if (encode == nullptr) return false;
-    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
-                                static_cast<cuuint64_t>(positions),
-                                static_cast<cuuint64_t>(batch)};
-    const cuuint64_t row = 2ull * hd;
-    const cuuint64_t strides[3] = {row, row * heads, row * heads * positions};
-    const cuuint32_t box[4] = {static_cast<cuuint32_t>(atom), 1, static_cast<cuuint32_t>(rows), 1};
-    const cuuint32_t one[4] = {1, 1, 1, 1};
-    const CUresult r = encode(
-        map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-        one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-        swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    return r == CUDA_SUCCESS;
 }
 
 template <int HD>

@@ -122,34 +122,6 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, long lon
     }
 }
 
-// The same tile from bf16 global memory, converted to fp32 as it lands:
-// cp.async copies bytes unconverted, so each thread loads 16 bytes (8
-// elements) into registers and stores them as two float4s. The copy is
-// synchronous; rows past `valid` are written as zeros.
-template <int HD, bool PADDED>
-__device__ __forceinline__ void load_tile(float* dst, const __nv_bfloat16* src, long long stride,
-                                          int valid) {
-    static_assert(HD % 8 == 0 && HD <= 128, "rows are loaded in 16-byte chunks");
-    constexpr int CH = HD / 8;
-#pragma unroll
-    for (int id = threadIdx.x; id < 64 * CH; id += NT) {
-        const int r = id / CH, c = id % CH;
-        float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
-        if (r < valid) {
-            const uint4 raw = *reinterpret_cast<const uint4*>(src + r * stride + 8 * c);
-            const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&raw);
-            const float2 a = __bfloat1622float2(e[0]), b = __bfloat1622float2(e[1]);
-            const float2 x = __bfloat1622float2(e[2]), y = __bfloat1622float2(e[3]);
-            lo = make_float4(a.x, a.y, b.x, b.y);
-            hi = make_float4(x.x, x.y, y.x, y.y);
-        }
-        float* at = dst + (PADDED ? r * KS<HD> + 8 * c : q_at<HD>(r, 8 * c));
-        float* at_hi = dst + (PADDED ? r * KS<HD> + 8 * c + 4 : q_at<HD>(r, 8 * c + 4));
-        *reinterpret_cast<float4*>(at) = lo;
-        *reinterpret_cast<float4*>(at_hi) = hi;
-    }
-}
-
 // Zero columns HD..LW-1 of the 64 rows of a q/do tile (swizzled) or a k/v
 // tile (PADDED); nothing when the tile is HD wide. load_tile never writes
 // them, so once per buffer is enough.

@@ -1,11 +1,14 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels: mbarriers, TMA
-// tile loads and warpgroup matrix multiplies (wgmma), as inline PTX.
+// tile loads and warpgroup matrix multiplies (wgmma), as inline PTX, and the
+// tensor maps of [batch, positions, heads, hd] bf16 tensors that TMA reads.
 #pragma once
 
 #include <cmath>
 #include <cstdint>
 
 #include <cuda.h>  // CUtensorMap (the encoder comes from cudaGetDriverEntryPoint)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -53,6 +56,13 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
         "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
         :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
            "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// Two fp32 values as one register of two bf16 (lo in the low half): a
+// piece of a wgmma A fragment.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // ---- wgmma ----------------------------------------------------------------
@@ -171,3 +181,50 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+
+// ---- tensor maps (host) ---------------------------------------------------
+namespace {
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+inline EncodeTiled encoder() {
+    static EncodeTiled fn = [] {
+        void* p = nullptr;
+#if CUDART_VERSION >= 12050
+        cudaDriverEntryPointQueryResult found;
+        if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                             cudaEnableDefault, &found) != cudaSuccess ||
+            found != cudaDriverEntryPointSuccess)
+            p = nullptr;
+#else
+        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) !=
+            cudaSuccess)
+            p = nullptr;
+#endif
+        return reinterpret_cast<EncodeTiled>(p);
+    }();
+    return fn;
+}
+
+// A 4-d map (hd, heads, positions, batch) of a [batch, positions, heads, hd]
+// bf16 tensor whose boxes are one swizzle atom of `rows` positions of one head.
+inline bool make_map(CUtensorMap* map, const void* ptr, int batch, int positions, int heads,
+                     int hd, int rows, int atom, int swizzle) {
+    EncodeTiled encode = encoder();
+    if (encode == nullptr) return false;
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
+                                static_cast<cuuint64_t>(positions),
+                                static_cast<cuuint64_t>(batch)};
+    const cuuint64_t row = 2ull * hd;
+    const cuuint64_t strides[3] = {row, row * heads, row * heads * positions};
+    const cuuint32_t box[4] = {static_cast<cuuint32_t>(atom), 1, static_cast<cuuint32_t>(rows), 1};
+    const cuuint32_t one[4] = {1, 1, 1, 1};
+    const CUresult r = encode(
+        map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+        one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+        swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS;
+}
+
+}  // namespace

@@ -12,11 +12,13 @@ sources for what bounds them and how).
 
 Where grad is enabled and an input requires it, the call goes through an
 ``autograd.Function``: the forward then also writes each row's log-sum-exp
-(both kernels can; serving asks neither to), and the backward launches the
-kernels of ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd``) in the
-inputs' dtype, fp32 or bf16. On CPU tensors the same Function runs the
-plain forward and the plain backward ``flash_attention_bwd_ref``, explicit
-formulas rather than autograd of the plain forward. A backward at head_dim
+(both kernels can; serving asks neither to), and the backward
+(``flash_attention_bwd``) launches, by the inputs' dtype, the CUDA-core
+kernels of ``csrc/flash_attention_bwd.cu`` (fp32) or the tensor-core
+kernels of ``csrc/flash_attention_bwd_sm90.cu`` (bf16). On CPU tensors the
+same Function runs the plain forward and the plain backward
+``flash_attention_bwd_ref``, explicit formulas rather than autograd of the
+plain forward. A backward at head_dim
 80 on the card is not written yet and raises: both forwards take hd 32, 64,
 80 and 128, the backward 32, 64 and 128.
 """
@@ -87,11 +89,15 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
-                            window: int = 0, q_offset: int = 0):
+                            window: int = 0, q_offset: int = 0,
+                            bf16_operands: bool = False):
     """Plain backward in fp32, the formulas of ``csrc/flash_attention_bwd.cu``:
     with s = scale * q.k and P = exp(s - lse) on visible keys,
     dv = P^T do, dS = P * (do v^T - rowsum(do * o)), dq = scale * dS k,
     dk = scale * dS^T q; dk and dv summed over each KV head's query heads.
+    ``bf16_operands`` rounds P and dS to bf16 where the bf16 kernels of
+    ``csrc/flash_attention_bwd_sm90.cu`` hand them to the tensor cores (P
+    before P^T do, dS before dS k and dS^T q), every sum still in fp32.
     Returns (dq, dk, dv) in q's, k's and v's dtypes."""
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
@@ -105,6 +111,8 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
     p = torch.where(ok, torch.exp(s - lse.float()[..., None]), 0.0)
     delta = (dof * of).sum(dim=-1, keepdim=True)
     ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)
+    if bf16_operands:
+        p, ds = (t.to(torch.bfloat16).float() for t in (p, ds))
     dq = torch.matmul(ds, kf) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qf) * scale         # [B,H,S,hd]
     dv = torch.matmul(p.transpose(-1, -2), dof)
@@ -184,16 +192,17 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     """(dq, dk, dv) of ``flash_attention`` at (q, k, v), given its output
     ``o``, its fp32 ``lse`` [B,H,T] and the output's gradient ``do``.
 
-    A CPU tensor takes ``flash_attention_bwd_ref``; a CUDA tensor the
-    kernels of ``csrc/flash_attention_bwd.cu`` in its dtype (three per call:
-    D = rowsum(do * o), then dk/dv and dq, each of 16 warps and one block
-    per SM, with no atomics, so the result is the same on every call; fp32
-    tiles come in by cp.async, double-buffered, bf16 ones are converted to
-    fp32 as they land; ``LAUNCHES["flash_attention_bwd"]`` counts the call
-    once, whichever dtype); one at head_dim 80 raises
+    A CPU tensor takes ``flash_attention_bwd_ref``; a CUDA tensor three
+    kernels per call, D = rowsum(do * o), then dk/dv and dq, with no
+    atomics, so the result is the same on every call: in fp32 those of
+    ``csrc/flash_attention_bwd.cu`` (CUDA cores, tiles by cp.async), in bf16
+    those of ``csrc/flash_attention_bwd_sm90.cu`` (wgmma on tiles placed by
+    TMA, P and dS rounded to bf16 as ``flash_attention_bwd_ref(...,
+    bf16_operands=True)`` rounds them). ``LAUNCHES["flash_attention_bwd"]``
+    counts the call once, whichever dtype; one at head_dim 80 raises
     ``NotImplementedError`` before any launch. q, k, v, o and do share one
     dtype, fp32 or bf16, and lse is fp32. q, k, v and do must be 16-byte
-    aligned (the kernels load them in 16-byte pieces).
+    aligned (the kernels load them in 16-byte pieces or by TMA).
     """
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,

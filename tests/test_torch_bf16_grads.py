@@ -245,25 +245,38 @@ def _code(name):
 
 
 def test_bf16_backward_kernels_read_bf16_themselves():
-    """The three flash backward kernels and the two rmsnorm backward
+    """The bf16 flash backward is its own tensor-core source: its C entries
+    live in ``flash_attention_bwd_sm90.cu``, whose three kernels read bf16
+    tiles placed by TMA and run every tile product as a wgmma (none on the
+    CUDA cores of ``flash_tiles.cuh``), with no atomics; the fp32 backward
+    no longer instantiates anything in bf16. The two rmsnorm backward
     kernels are templated on the element type of their loads and stores:
-    the bf16 entries instantiate them with ``__nv_bfloat16`` (no cast of the
-    inputs to fp32 around the fp32 kernels), and the bf16 tile load converts
-    16-byte chunks as they land in shared memory."""
-    flash = _code("flash_attention_bwd.cu")
-    for kernel in ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
-                   "flash_bwd_dq_kernel"):
-        assert f"{kernel}<T, HD><<<" in flash, kernel
-    assert "launch_hd<__nv_bfloat16>(" in flash
-    assert "occupancy_hd<__nv_bfloat16>(" in flash
-    tiles = _code("flash_tiles.cuh")
-    assert "const __nv_bfloat16* src" in tiles
-    assert "__bfloat1622float2" in tiles
+    the bf16 entry instantiates them with ``__nv_bfloat16`` (no cast of the
+    inputs to fp32 around the fp32 kernels)."""
+    flash = _code("flash_attention_bwd_sm90.cu")
+    for entry in ("flash_attention_bwd_bf16",
+                  "flash_attention_bwd_bf16_occupancy"):
+        assert f'extern "C" int {entry}(' in flash, entry
+    for kernel in ("flash_bwd_delta_kernel", "flash_bwd_dkdv_sm90_kernel",
+                   "flash_bwd_dq_sm90_kernel"):
+        assert f"{kernel}<HD><<<" in flash, kernel
+    for used in ("wgmma_ss_n64(", "wgmma_rs(", "tma_load_4d(", "mbar_wait(",
+                 "make_map(", '#include "sm90.cuh"',
+                 "__nv_bfloat16* __restrict__ dk"):
+        assert used in flash, used
+    assert "wgmma.mma_async" in _code("sm90.cuh")
+    for gone in ("flash_tiles.cuh", "rows_dot_rows", "cols_by_rows"):
+        assert gone not in flash, gone
+    fp32 = _code("flash_attention_bwd.cu")
+    assert "__nv_bfloat16" not in fp32
+    assert "flash_attention_bwd_bf16" not in fp32
+    assert "const __nv_bfloat16* src" not in _code("flash_tiles.cuh")
     rms = _code("rmsnorm_bwd.cu")
     assert "rmsnorm_bwd_kernel<T, VEC><<<" in rms
     assert "rmsnorm_bwd_dg_kernel<T><<<" in rms
     assert "launch<__nv_bfloat16>(" in rms
-    for name in ("flash_attention_bwd.cu", "rmsnorm_bwd.cu"):
+    for name in ("flash_attention_bwd_sm90.cu", "flash_attention_bwd.cu",
+                 "rmsnorm_bwd.cu"):
         assert "atomic" not in _code(name)
 
 

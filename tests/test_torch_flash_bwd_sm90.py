@@ -1,0 +1,144 @@
+"""The rounding of the tensor-core bf16 flash backward
+(``csrc/flash_attention_bwd_sm90.cu``) on the CPU: its plain version,
+``flash_attention_bwd_ref(..., bf16_operands=True)``, which rounds P and dS
+to bf16 where the kernels hand them to the tensor cores, against the fp32
+formulas and against ``jax.vjp`` of the JAX package's attention; and the
+kernels' source against what ``chip_smoke.py`` reads of it. The kernels
+themselves run only on the card, where ``chip_smoke.py`` phase 4 holds them
+against the same plain versions.
+
+Tolerances, unchanged from the bf16 checks they mirror: per row (the last
+dim), the error relative to the row's RMS within twice the bf16 rounding of
+the fp32 result (``chip_smoke.bf16_rows_ok``, the check the kernels pass on
+the card); against JAX, each output's largest distance from JAX's fp32
+result within twice JAX's own bf16 distance from it (as
+``test_torch_bf16_grads.py`` holds the fp32 formulas).
+"""
+from __future__ import annotations
+
+import importlib
+import importlib.util
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models.attention import attend_naive as jax_attend_naive
+from repro_torch.kernels import (build, flash_attention_bwd_ref,
+                                 flash_attention_ref)
+
+CASES = [   # B, T, S, H, KV, hd, window, q_offset, causal (chip_smoke's,
+            # smaller)
+    (2, 64, 64, 4, 2, 128, 0, 0, True),       # the full width's head dim, GQA
+    (1, 137, 137, 4, 2, 128, 64, 0, True),    # ragged T with a window
+    (4, 64, 64, 4, 2, 32, 0, 0, True),        # launch/train's reduced config
+    (2, 100, 100, 8, 2, 64, 0, 0, True),      # hd 64, GQA group 4
+    (1, 50, 150, 4, 2, 128, 0, 100, True),    # q_offset > 0
+    (1, 75, 100, 8, 4, 64, 32, 0, False),     # non-causal, a window, S > T
+]
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _bf16_inputs(case, seed):
+    """bf16 q, k, v, do from numpy, and the plain forward's bf16 o and fp32
+    lse (as ``chip_smoke.flash_bwd_bf16_inputs`` draws them on the card)."""
+    B, T, S, H, KV, hd, window, q_offset, causal = case
+    rng = np.random.default_rng(seed)
+    shapes = ((B, T, H, hd), (B, S, KV, hd), (B, S, KV, hd), (B, T, H, hd))
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                   .to(torch.bfloat16) for s in shapes)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o, lse = flash_attention_ref(q, k, v, with_lse=True, **kw)
+    return (q, k, v, o, lse, do), kw
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_rounded_plain_backward_within_the_per_row_limit(case, capsys):
+    """P and dS in bf16 keep dq, dk and dv within ``bf16_rows_ok``'s limit
+    of the fp32 formulas on the same bf16 inputs, on three draws; the worst
+    margin is printed. The rounding moves the result: the flag is not a
+    no-op, and off it gives the fp32 formulas' bits."""
+    smoke = _chip_smoke()
+    worst = 0.0
+    for seed in range(3):
+        (q, k, v, o, lse, do), kw = _bf16_inputs(case, 70 + seed)
+        want = flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                       o.float(), lse, do.float(), **kw)
+        got = flash_attention_bwd_ref(q, k, v, o, lse, do, bf16_operands=True,
+                                      **kw)
+        ratio, _ = smoke.bf16_rows_ok("flash_attention_bwd_ref rounded",
+                                      f"{case} seed {seed}", got, want)
+        worst = max(worst, ratio)
+        plain = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        off = flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                      bf16_operands=False, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(plain, off))
+        assert not all(torch.equal(a, b) for a, b in zip(plain, got))
+    with capsys.disabled():
+        print(f"\n{case}: worst per-row error of the rounded plain backward "
+              f"{worst:.3f}x its limit (margin {1 - worst:.3f})")
+    assert worst <= 1.0, (case, worst)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_rounded_plain_backward_vs_jax_vjp(case):
+    """dq, dk, dv with P and dS in bf16 (fed the fp32 forward's o and lse,
+    as ``test_torch_bf16_grads.py`` feeds the fp32 formulas) against
+    jax.vjp of ``attend_naive`` in bf16 and fp32 on the same bf16-rounded
+    inputs: within twice JAX's own bf16 error."""
+    (q, k, v, _, _, do), kw = _bf16_inputs(case, 80)
+    o, lse = flash_attention_ref(q.float(), k.float(), v.float(),
+                                 with_lse=True, **kw)
+    got = flash_attention_bwd_ref(q, k, v, o, lse, do, bf16_operands=True,
+                                  **kw)
+    arrays = [t.float().numpy() for t in (q, k, v, do)]
+    want = []
+    for dtype in (jnp.bfloat16, jnp.float32):
+        _, vjp = jax.vjp(lambda q_, k_, v_: jax_attend_naive(q_, k_, v_, **kw),
+                         *(jnp.asarray(a, dtype) for a in arrays[:3]))
+        want.append(vjp(jnp.asarray(arrays[3], dtype)))
+    for name, g, w16, w32 in zip("dq dk dv".split(), got, *want):
+        exact = np.asarray(w32, np.float64)
+        jax_err = np.abs(np.asarray(w16.astype(jnp.float32), np.float64)
+                         - exact).max()
+        err = np.abs(g.double().numpy() - exact).max()
+        assert 0 < jax_err and err <= 2 * jax_err, (name, err, jax_err)
+
+
+def _code(name):
+    return "\n".join(line.split("//")[0] for line in
+                     (build.CSRC / name).read_text().splitlines())
+
+
+def test_kernel_names_are_the_ones_chip_smoke_traces():
+    """``chip_smoke.py`` splits the bf16 backward's time by kernel name and
+    counts the Trainer's dq launches in its trace: each name it looks for is
+    a kernel that the source launches."""
+    smoke = _chip_smoke()
+    code = _code("flash_attention_bwd_sm90.cu")
+    for name in smoke.BF16_BWD_KERNELS.values():
+        assert re.search(rf"{name}<HD><<<", code), name
+    text = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
+    assert '"flash_bwd_dq_sm90_kernel<": want["flash_attention_bwd"]' in text
+
+
+def test_sm90_backward_switches_take_the_backward_head_dims():
+    """The C entries have a case for each hd the wrapper lets through to a
+    backward (32, 64, 128), in both switches, and no other."""
+    flash_module = importlib.import_module(
+        "repro_torch.kernels.flash_attention")
+    code = _code("flash_attention_bwd_sm90.cu")
+    cases = [int(n) for n in re.findall(r"case (\d+):", code)]
+    assert sorted(set(cases)) == sorted(flash_module._BWD_HEAD_DIMS)
+    assert len(cases) == 2 * len(flash_module._BWD_HEAD_DIMS)
