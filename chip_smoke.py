@@ -70,12 +70,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    with S > T, with the bf16 forward's lse against the plain lse in each
    case and the error against the plain version with the kernels' own
    rounding (P and dS in bf16) logged, two calls the same bits and a run
-   without the first key tile failing the check; rmsnorm_bwd (dx and dg)
-   at every training norm shape and a view 2 bytes off alignment; the bf16 forward
-   timed with and without lse at B=1 T=1000 and B=4 T=512. Each backward
-   is timed beside its bound, its plain backward and the backward of
-   ``F.scaled_dot_product_attention`` (GQA) or ``F.rms_norm`` in the same
-   dtype, the flash backward's three kernels also apart.
+   without the first key tile failing the check; rmsnorm_bwd (dx and dg,
+   the kernels of ``rmsnorm_bwd_sm90.cu``) at every training norm shape,
+   at qwen3-14b's d = 5120 and on a view 2 bytes off alignment, two calls
+   the same bits at each, its layout (``bwd_plan``) logged; the bf16
+   forward timed with and without lse at B=1 T=1000 and B=4 T=512. Each
+   backward is timed beside its bound, its plain backward and the backward
+   of ``F.scaled_dot_product_attention`` (GQA) or ``F.rms_norm`` in the
+   same dtype, the flash backward's three kernels also apart; the bf16
+   rmsnorm backward at the Trainer's three norm shapes (2048 x 1024, 32768
+   x 128, 16384 x 128), with those times summed over one Trainer step's
+   114 / 56 / 56 launches.
 5. Serve: ``ServeEngine`` at full width, bf16 weights drawn from a seeded
    generator, 4 slots, 8 requests (prompt lengths from ``default_rng(0)`` in
    [100, 1500], 32 new tokens each), for three models in turn:
@@ -152,9 +157,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    step 4 and its losses for steps 5-8 must be the first run's (within
    1e-5, bit-equality logged); step ms, peak memory, the async save's,
    write's and restore's seconds and one traced step's device ms by group
-   logged. Then ``python -m repro_torch.launch.train --arch qwen3-0.6b
-   --steps 20`` in a subprocess (the reduced config, hd 32): exit 0 and
-   ``done at step 20``.
+   logged, its "rmsnorm bwd" group beside phase 4's sum over a step.
+   Then ``python -m repro_torch.launch.train --arch qwen3-0.6b --steps
+   20`` in a subprocess (the reduced config, hd 32): exit 0 and ``done at
+   step 20``.
 6. Print the kernels' JSON line (the fp32 forward and both backward
    kernels with their training and sweep launches beside the serving
    kernels, the bf16 backward kernels with the trainer's launches; ssd_scan
@@ -199,7 +205,8 @@ from repro_torch.kernels import (LAUNCHES, build, flash_attention,  # noqa: E402
                                  ssd_scan_ref)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     _forward as flash_forward, bwd_occupancy, fwd_occupancy, sm90_smem_bytes)
-from repro_torch.kernels.rmsnorm import plan as rmsnorm_plan  # noqa: E402
+from repro_torch.kernels.rmsnorm import (  # noqa: E402
+    bwd_layout as rmsnorm_bwd_layout, plan as rmsnorm_plan)
 from repro_torch.kernels.slstm_scan import (slstm_max_clusters,  # noqa: E402
                                             slstm_plan)
 from repro_torch.kernels.ssd_scan import _launch as ssd_launch  # noqa: E402
@@ -919,7 +926,9 @@ def time_rmsnorm_bwd(name, x, g, dy, err):
     log(f"  device time {name}: backward kernels {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, F.rms_norm backward "
         f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']}); {row['bound_ms'] / row['ms']:.1%} of the "
+        f"({row['bound_by']}); kernel / F.rms_norm "
+        f"{row['ms'] / row['library_ms']:.3f}, "
+        f"{row['bound_ms'] / row['ms']:.1%} of the "
         f"bound, moves {nbytes / row['ms'] / 1e6:.1f} GB/s; one call from "
         f"Python {host_ms(kernel, 50):.4f} ms")
     return row
@@ -942,6 +951,11 @@ BF16_BWD_KERNELS = {"delta": "flash_bwd_delta_kernel",   # flash_attention_
                     "dq": "flash_bwd_dq_sm90_kernel"}
 FWD_LSE_TIMED = ((1, 1000, 16, 8, 128), (4, 512, 16, 8, 128))  # prefill, train
 RMS_BWD_BF16_REPORT = "rows=2048 d=1024 bfloat16"
+RMS_BWD_BF16_STEP = {   # a Trainer step's launches at each shape, B.T = 2048
+    RMS_BWD_BF16_REPORT: 2 * (2 * QWEN_LAYERS + 1),          # ln1, ln2, final
+    "rows=32768 d=128 bfloat16": 2 * QWEN_LAYERS,           # q_norm, 16 heads
+    "rows=16384 d=128 bfloat16": 2 * QWEN_LAYERS}           # k_norm, 8 heads
+RMS_BWD_BF16_WIDE = (2048, 5120)   # qwen3-14b's d_model
 
 
 def grad_row_rel_err(got, want) -> float:
@@ -1124,30 +1138,48 @@ def time_flash_bwd_bf16(q, k, v, do, o, lse, err):
 def check_rmsnorm_bwd_bf16(gen):
     """bf16 dx and dg against ``rmsnorm_bwd_ref``'s fp32 result of the same
     inputs, per row within twice its bf16 rounding, at every training norm
-    shape and a view off 16-byte alignment (the scalar path). Returns the
-    timed rows."""
+    shape, at qwen3-14b's width and on a view off 16-byte alignment (the
+    scalar path); two calls the same bits at each. Timed at the Trainer's
+    three shapes. Returns the timed rows and their sums weighted by a
+    Trainer step's launches."""
     path = {}
     cases = [(f"rows={rows} d={d} bfloat16",
               randn(gen, rows, d, dtype=torch.bfloat16), d)
-             for rows, d in TRAIN_NORM_SHAPES]
+             for rows, d in TRAIN_NORM_SHAPES + [RMS_BWD_BF16_WIDE]]
     flat = randn(gen, 1000 * 128 + 1, dtype=torch.bfloat16)
     cases.append(("rows=1000 d=128 bfloat16 view at byte offset 2",
                   flat[1:].view(1000, 128), 128))
     for name, x, d in cases:
         g = (1 + 0.1 * randn(gen, d)).to(torch.bfloat16)
         dy = randn(gen, *x.shape, dtype=torch.bfloat16)
-        vec, group, _ = rmsnorm_plan(x.data_ptr() | g.data_ptr()
-                                     | dy.data_ptr(), d, 2)
+        p = rmsnorm_bwd_layout(x.data_ptr() | g.data_ptr() | dy.data_ptr(),
+                               x.shape[0], d, 0)
         got = rmsnorm_bwd(x, g, dy, eps=1e-6)
+        again = rmsnorm_bwd(x, g, dy, eps=1e-6)
         torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
         want = rmsnorm_bwd_ref(x.float(), g.float(), dy.float(), eps=1e-6)
-        worst, err = bf16_rows_ok("rmsnorm_bwd_bf16", f"{name} (vec={vec} "
-                                  f"group={group})", got, want)
+        worst, err = bf16_rows_ok(
+            "rmsnorm_bwd_bf16", f"{name} (vec={p.vec} group={p.group} "
+            f"clusters={p.clusters} rows/block={p.rows_per_block} "
+            f"smem={p.smem})",
+            got, want)
+        log(f"  two calls: {'the same bits' if same else 'DIFFERENT bits'}")
         require(worst <= 1.0, f"rmsnorm_bwd bf16 off its plain version: "
                 f"{name}")
-        if name == RMS_BWD_BF16_REPORT:
+        require(same, f"rmsnorm_bwd bf16: two calls differ: {name}")
+        if name in RMS_BWD_BF16_STEP:
             path[name] = time_rmsnorm_bwd(name, x, g, dy, err)
-    return path
+    step = {key: sum(n * path[name][key]
+                     for name, n in RMS_BWD_BF16_STEP.items())
+            for key in ("ms", "library_ms", "bound_ms")}
+    log(f"rmsnorm_bwd_bf16 over one Trainer step "
+        f"({sum(RMS_BWD_BF16_STEP.values())} launches: "
+        f"{', '.join(f'{n} x {k}' for k, n in RMS_BWD_BF16_STEP.items())}): "
+        f"kernels {step['ms']:.4f} ms, F.rms_norm backward "
+        f"{step['library_ms']:.4f} ms, bound {step['bound_ms']:.4f} ms; the "
+        f"kernels at {step['bound_ms'] / step['ms']:.1%} of the bound")
+    return path, step
 
 
 SSD_GRID = [(1, 128, 4, 1, 16, 32), (2, 256, 2, 2, 8, 64),
@@ -2399,7 +2431,7 @@ def main():
     flash_bwd_row, flash_fp32_row = check_flash_bwd(gen)
     rms_bwd_rows = check_rmsnorm_bwd(gen)
     flash_bwd_bf16_row = check_flash_bwd_bf16(gen)
-    rms_bwd_bf16_rows = check_rmsnorm_bwd_bf16(gen)
+    rms_bwd_bf16_rows, rms_bwd_bf16_step = check_rmsnorm_bwd_bf16(gen)
     ssd_rows = check_ssd(gen)
     slstm_rows = check_slstm(gen)
 
@@ -2424,7 +2456,13 @@ def main():
     full, _ = sweep_full_width(train_metrics["loss_first"])
     torch.cuda.empty_cache()
 
-    trainer, _ = trainer_full_width()                        # phase 5d
+    trainer, trainer_metrics = trainer_full_width()          # phase 5d
+    log(f"trainer: rmsnorm bwd in the traced step "
+        f"{trainer_metrics['device_ms_by_group']['rmsnorm bwd']:.3f} ms; "
+        f"phase 4's times weighted by a step's launches "
+        f"{rms_bwd_bf16_step['ms']:.3f} ms (F.rms_norm backward "
+        f"{rms_bwd_bf16_step['library_ms']:.3f}, bound "
+        f"{rms_bwd_bf16_step['bound_ms']:.3f})")
     trainer_cli()
 
     serving = {"qwen3-0.6b serve": qwen, "xlstm-1.3b serve": xlstm,
@@ -2467,7 +2505,7 @@ def main():
          **launches("rmsnorm_bwd", training),
          **rms_bwd_rows[RMS_BWD_REPORT]},
         {"name": "rmsnorm_bwd_bf16", "route": "cuda",
-         "source": csrc + "rmsnorm_bwd.cu", "replaces": rms_tpu,
+         "source": csrc + "rmsnorm_bwd_sm90.cu", "replaces": rms_tpu,
          **launches("rmsnorm_bwd", bf16_training),
          **rms_bwd_bf16_rows[RMS_BWD_BF16_REPORT]},
         {"name": "ssd_scan", "route": "cuda", "source": csrc + "ssd_scan.cu",

@@ -3,11 +3,12 @@
 
     git archive <rev> | tar -x -C build/parent     # build/ is gitignored
     python3 scripts/port_ab.py --parent build/parent
+    python3 scripts/port_ab.py --parent build/parent --only rmsnorm
     python3 scripts/port_ab.py --parent build/parent --only ssd,serve \
         --arch zamba2-2.7b
 
-Comparisons (``--only`` picks some of flash, ssd and serve; all by
-default), each in the order parent, this checkout, this checkout, parent,
+Comparisons (``--only`` picks some of flash, ssd, rmsnorm and serve; all
+by default), each in the order parent, this checkout, this checkout, parent,
 so that a drift of the card or the host shows as a spread:
 
 - ``flash_attention_fwd`` (the fp32 forward, with lse) and
@@ -28,6 +29,13 @@ so that a drift of the card or the host shows as a spread:
   (``repeat_interleave`` to 80 heads), and the mLSTM shape (b=1 T=1000 H=4
   N=512 P=1024 fp32 with the normalizer, G = H), whose bits must not
   change.
+- The rmsnorm backward at the Trainer's three norm shapes (2048x1024:
+  ln1, ln2, final_norm; 32768x128: q_norm; 16384x128: k_norm, all at
+  B·T = 2048): the parent's ``csrc/rmsnorm_bwd.cu`` built alone as above
+  and called through its C entry ``rmsnorm_bwd`` (with this checkout's
+  ``plan`` and ``bwd_blocks``, which the parent shares), against this
+  checkout's ``rmsnorm_bwd``; bf16 device ms with ``F.rms_norm``'s bf16
+  backward beside them, and in fp32 whether the two give the same bits.
 - Serving ``--arch`` (qwen3-0.6b by default) at full width (bf16 weights
   from seed 0, 4 slots, 8 requests of 32 new tokens, ``chip_smoke.py``'s
   prompts), one process per run, each serving twice and reporting the
@@ -147,15 +155,18 @@ def flash_fwd(parent: Path) -> list:
 
 
 def flash_bwd(parent: Path, dtype: str = "fp32") -> list:
-    """``dtype`` "fp32" or "bf16": the parent's C entry for that dtype in
-    its ``flash_attention_bwd.cu`` against this checkout's backward."""
+    """``dtype`` "fp32" or "bf16": the parent's C entry for that dtype (in
+    its ``flash_attention_bwd_sm90.cu`` where it has one) against this
+    checkout's backward."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     import torch
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     entry = {"fp32": "flash_attention_bwd", "bf16": "flash_attention_bwd_bf16"}
-    old = parent_entry(parent, "flash_attention_bwd.cu", entry[dtype],
-                       fa._BWD_ARGTYPES)
+    source = "flash_attention_bwd_sm90.cu"  # the bf16 entry, in newer trees
+    if dtype == "fp32" or not (parent / CSRC / source).exists():
+        source = "flash_attention_bwd.cu"
+    old = parent_entry(parent, source, entry[dtype], fa._BWD_ARGTYPES)
     B, T, H, KV, hd = SHAPE
     gen = torch.Generator("cuda").manual_seed(0)
     tdt = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype]
@@ -246,11 +257,70 @@ def ssd(parent: Path) -> list:
     return result
 
 
+RMS_SHAPES = ((2048, 1024), (32768, 128), (16384, 128))   # rows, d
+
+
+def rmsnorm(parent: Path) -> list:
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    import torch
+    import torch.nn.functional as F
+    rms = importlib.import_module("repro_torch.kernels.rmsnorm")
+    # an older entry served both dtypes and took a dtype code after
+    # `partial`; this checkout's takes fp32 only
+    dtyped = "void* partial, int dtype" in (parent / CSRC
+                                            / "rmsnorm_bwd.cu").read_text()
+    argtypes = (rms._BWD_ARGTYPES[:6] + (ctypes.c_int,) * dtyped
+                + rms._BWD_ARGTYPES[6:])
+    old = parent_entry(parent, "rmsnorm_bwd.cu", "rmsnorm_bwd", argtypes)
+    gen = torch.Generator("cuda").manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    result = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for rows, d in RMS_SHAPES:
+            x, dy = (cs.randn(gen, rows, d, dtype=dtype) for _ in range(2))
+            g = (1 + 0.1 * cs.randn(gen, d)).to(dtype)
+
+            def parent_call():
+                dx, dg = torch.empty_like(x), torch.empty_like(g)
+                vec, group, _ = rms.plan(x.data_ptr() | g.data_ptr()
+                                         | dy.data_ptr() | dx.data_ptr(), d,
+                                         x.element_size())
+                blocks = rms.bwd_blocks(rows, group, sms)
+                part = torch.empty(blocks, d, device="cuda")
+                code = old(x.data_ptr(), g.data_ptr(), dy.data_ptr(),
+                           dx.data_ptr(), dg.data_ptr(), part.data_ptr(),
+                           *(rms._DTYPES[dtype],) * dtyped, rows, d, 1e-6,
+                           vec, group, blocks,
+                           torch.cuda.current_stream().cuda_stream)
+                cs.build.check(code, "parent rmsnorm_bwd")
+                return dx, dg
+
+            this_call = lambda: rms.rmsnorm_bwd(x, g, dy, eps=1e-6)
+            pairs = list(zip(parent_call(), this_call()))
+            same = all(torch.equal(a, b) for a, b in pairs)
+            diff = max(float((a.float() - b.float()).abs().max())
+                       for a, b in pairs)
+            shape = f"rows={rows} d={d} {str(dtype)[6:]}"
+            for name, fn in (("parent", parent_call), ("this", this_call),
+                             ("this", this_call), ("parent", parent_call)):
+                result.append({"rmsnorm_bwd": name, "shape": shape,
+                               "ms": cs.device_ms(fn, 50),
+                               "same_bits_as_parent": same,
+                               "max_abs_diff": diff})
+            xl, gl = (t.clone().requires_grad_(True) for t in (x, g))
+            result.append({"rmsnorm_bwd": "F.rms_norm backward",
+                           "shape": shape, "ms": cs.grad_device_ms(
+                               lambda x_, g_: F.rms_norm(x_, (d,), g_, 1e-6),
+                               (xl, gl), dy, 50)})
+    return result
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path, required=True)
-    ap.add_argument("--only", default="flash,ssd,serve",
-                    help="comma-separated: flash, ssd, serve")
+    ap.add_argument("--only", default="flash,ssd,rmsnorm,serve",
+                    help="comma-separated: flash, ssd, rmsnorm, serve")
     ap.add_argument("--arch", default="qwen3-0.6b", help="the served model")
     ap.add_argument("--serve-one", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -265,7 +335,8 @@ def main():
                          text=True, check=True).stdout.strip(), flush=True)
     rows = ((flash_fwd(parent) + flash_bwd(parent) + flash_bwd(parent, "bf16")
              if "flash" in only else [])
-            + (ssd(parent) if "ssd" in only else []))
+            + (ssd(parent) if "ssd" in only else [])
+            + (rmsnorm(parent) if "rmsnorm" in only else []))
     for row in rows:
         print(json.dumps(row), flush=True)
     if "serve" in only:

@@ -1,36 +1,28 @@
-// RMSNorm backward for Hopper, fp32 or bf16: with r = rsqrt(mean(x^2) + eps)
-// per row,
+// RMSNorm backward for Hopper, fp32: with r = rsqrt(mean(x^2) + eps) per row,
 //   dx = r * (g * dy) - x * r^3 * mean((g * dy) * x)
 //   dg = sum over rows of dy * x * r
-// in fp32 from x, g and dy in their own type, dx and dg written back in it.
-// In bf16 that is the arithmetic of JAX's autodiff through
-// repro/models/common.py:51-55 (cast to fp32, compute, cast back), up to the
-// order of the sums; dg is summed in fp32 and rounded to bf16 once.
 //
 // The Pallas TPU kernel repro/kernels/rmsnorm.py::_rmsnorm_kernel (pallas_call
 // at rmsnorm.py:35) has no VJP: the JAX package trains through its jnp norm.
-// This is the backward of the port's forward (rmsnorm.cu), for the training
-// paths' norms (ln1, ln2, q_norm, k_norm, final_norm): fp32 in the sweep's
-// member step, bf16 in the trainer.
+// This is the backward of the port's forward (rmsnorm.cu), for the member
+// step's fp32 norms (ln1, ln2, q_norm, k_norm, final_norm). The bf16
+// backward, the trainer's, is rmsnorm_bwd_sm90.cu.
 //
 // What bounds it on the H100: bytes. x and dy are read and dx written (~7
-// flops per element against 12 bytes in fp32, 6 in bf16), far below the
-// card's ~295 flops/byte.
+// flops per element against 12 bytes), far below the card's ~295
+// flops/byte.
 //
 // Design: the forward's row layout. A group of G threads (a power of two up
-// to 256) owns a row, VEC elements per load: 16 bytes' worth (4 fp32, 8 bf16)
-// where x, g, dy and dx are all 16-byte aligned and d a multiple of VEC, else
-// 1 (the wrapper's `plan`, the same rule as the forward). A first pass over
-// the row sums x^2 and (g * dy) * x, the group reduces both at once, and a
-// second pass (its loads hit L1) writes dx. Blocks of 256 threads walk rows
-// with a grid stride; each row slot of a block adds its rows' dy * x * r into
-// its own fp32 slice of shared memory, so no two threads add to one word. dg
-// is then reduced in a fixed order, without atomics, so it is the same on
-// every run: each block sums its slots into one fp32 row of `partial`
-// [blocks, d], and a second kernel sums those rows column by column.
-
-#include <cstdint>
-#include <type_traits>
+// to 256) owns a row, VEC elements per load: 4 (16 bytes) where x, g, dy and
+// dx are all 16-byte aligned and d a multiple of 4, else 1 (the wrapper's
+// `plan`, the same rule as the forward). A first pass over the row sums x^2
+// and (g * dy) * x, the group reduces both at once, and a second pass (its
+// loads hit L1) writes dx. Blocks of 256 threads walk rows with a grid
+// stride; each row slot of a block adds its rows' dy * x * r into its own
+// slice of shared memory, so no two threads add to one word. dg is then
+// reduced in a fixed order, without atomics, so it is the same on every run:
+// each block sums its slots into one fp32 row of `partial` [blocks, d], and a
+// second kernel sums those rows column by column.
 
 #include "common.cuh"
 
@@ -39,31 +31,28 @@ namespace {
 constexpr int NT = 256;                  // threads per block
 constexpr int DG_SLICES = NT / 32;       // block rows one dg thread column sums
 
-// VEC elements of type T as loaded: one 16-byte word, or one element.
-template <typename T, int VEC>
-using Raw = std::conditional_t<VEC == 1, T, uint4>;
-
 template <int VEC>
 struct Unit { float v[VEC]; };
 
-template <typename T, int VEC>
-__device__ __forceinline__ Unit<VEC> load_unit(const T* p, long long u) {
-    static_assert(VEC == 1 || VEC * sizeof(T) == 16, "one element or 16 bytes");
-    const Raw<T, VEC> raw = reinterpret_cast<const Raw<T, VEC>*>(p)[u];
-    const T* e = reinterpret_cast<const T*>(&raw);
+template <int VEC>
+__device__ __forceinline__ Unit<VEC> load_unit(const float* p, long long u) {
     Unit<VEC> out;
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) out.v[i] = to_float(e[i]);
+    if constexpr (VEC == 4) {
+        const float4 w = reinterpret_cast<const float4*>(p)[u];
+        out.v[0] = w.x; out.v[1] = w.y; out.v[2] = w.z; out.v[3] = w.w;
+    } else {
+        out.v[0] = p[u];
+    }
     return out;
 }
 
-template <typename T, int VEC>
-__device__ __forceinline__ void store_unit(T* p, long long u, const Unit<VEC>& in) {
-    Raw<T, VEC> raw;
-    T* e = reinterpret_cast<T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) e[i] = from_float<T>(in.v[i]);
-    reinterpret_cast<Raw<T, VEC>*>(p)[u] = raw;
+template <int VEC>
+__device__ __forceinline__ void store_unit(float* p, long long u, const Unit<VEC>& in) {
+    if constexpr (VEC == 4) {
+        reinterpret_cast<float4*>(p)[u] = make_float4(in.v[0], in.v[1], in.v[2], in.v[3]);
+    } else {
+        p[u] = in.v[0];
+    }
 }
 
 // Sums of a and b over the G threads of a row: shuffles, then (G > 32) one
@@ -93,10 +82,10 @@ __device__ __forceinline__ void group_sum2(float& a, float& b, int group, float 
     }
 }
 
-template <typename T, int VEC>
+template <int VEC>
 __global__ void __launch_bounds__(NT)
-rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                   const T* __restrict__ dy, T* __restrict__ dx,
+rmsnorm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                   const float* __restrict__ dy, float* __restrict__ dx,
                    float* __restrict__ partial, long long rows, int d, float eps, int group) {
     extern __shared__ float dg_slots[];  // [NT / group][d]: this block's sums per row slot
     __shared__ float red[2][2][NT / 32]; // by row-loop parity: one barrier per row
@@ -113,12 +102,12 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
     // The loop's trip count is the same for every thread of the block.
     for (long long base = row - slot; base < rows; base += step, row += step, parity ^= 1) {
         const bool live = row < rows;
-        const T* xr = x + row * d;
-        const T* dyr = dy + row * d;
+        const float* xr = x + row * d;
+        const float* dyr = dy + row * d;
         float ss = 0.f, sgx = 0.f;
         for (int u = lane; live && u < units; u += group) {
-            const Unit<VEC> xv = load_unit<T, VEC>(xr, u), dv = load_unit<T, VEC>(dyr, u),
-                            gv = load_unit<T, VEC>(g, u);
+            const Unit<VEC> xv = load_unit<VEC>(xr, u), dv = load_unit<VEC>(dyr, u),
+                            gv = load_unit<VEC>(g, u);
 #pragma unroll
             for (int i = 0; i < VEC; ++i) {
                 ss = fmaf(xv.v[i], xv.v[i], ss);
@@ -129,15 +118,15 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
         const float r = rsqrtf(ss / d + eps);
         const float c = r * r * r * (sgx / d);
         for (int u = lane; live && u < units; u += group) {
-            const Unit<VEC> xv = load_unit<T, VEC>(xr, u), dv = load_unit<T, VEC>(dyr, u),
-                            gv = load_unit<T, VEC>(g, u);
+            const Unit<VEC> xv = load_unit<VEC>(xr, u), dv = load_unit<VEC>(dyr, u),
+                            gv = load_unit<VEC>(g, u);
             Unit<VEC> out;
 #pragma unroll
             for (int i = 0; i < VEC; ++i) {
                 out.v[i] = r * (gv.v[i] * dv.v[i]) - xv.v[i] * c;
                 my_dg[u * VEC + i] += dv.v[i] * xv.v[i] * r;
             }
-            store_unit<T, VEC>(dx + row * d, u, out);
+            store_unit<VEC>(dx + row * d, u, out);
         }
     }
     __syncthreads();
@@ -150,11 +139,9 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
 
 // dg[col] = sum over blocks of partial[block][col], in a fixed order: a
 // block of 256 threads takes 32 columns, eight threads per column sum every
-// eighth block row, and the eight sums are added in order, in fp32; the total
-// is rounded to T once.
-template <typename T>
+// eighth block row, and the eight sums are added in order.
 __global__ void __launch_bounds__(NT)
-rmsnorm_bwd_dg_kernel(const float* __restrict__ partial, T* __restrict__ dg, int blocks,
+rmsnorm_bwd_dg_kernel(const float* __restrict__ partial, float* __restrict__ dg, int blocks,
                       int d) {
     __shared__ float part[DG_SLICES][33];
     const int lane = threadIdx.x & 31, slice = threadIdx.x >> 5;
@@ -169,55 +156,39 @@ rmsnorm_bwd_dg_kernel(const float* __restrict__ partial, T* __restrict__ dg, int
         float total = 0.f;
 #pragma unroll
         for (int k = 0; k < DG_SLICES; ++k) total += part[k][lane];
-        dg[col] = from_float<T>(total);
+        dg[col] = total;
     }
 }
 
-template <typename T, int VEC>
-int launch_vec(const T* x, const T* g, const T* dy, T* dx, T* dg, float* partial,
-               long long rows, int d, float eps, int group, int blocks, cudaStream_t s) {
+template <int VEC>
+int launch(const float* x, const float* g, const float* dy, float* dx, float* dg, float* partial,
+           long long rows, int d, float eps, int group, int blocks, cudaStream_t s) {
     const int smem = NT / group * d * static_cast<int>(sizeof(float));
     const cudaError_t err = cudaFuncSetAttribute(
-        rmsnorm_bwd_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        rmsnorm_bwd_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    rmsnorm_bwd_kernel<T, VEC><<<blocks, NT, smem, s>>>(x, g, dy, dx, partial, rows, d, eps,
-                                                       group);
-    rmsnorm_bwd_dg_kernel<T><<<(d + 31) / 32, NT, 0, s>>>(partial, dg, blocks, d);
+    rmsnorm_bwd_kernel<VEC><<<blocks, NT, smem, s>>>(x, g, dy, dx, partial, rows, d, eps, group);
+    rmsnorm_bwd_dg_kernel<<<(d + 31) / 32, NT, 0, s>>>(partial, dg, blocks, d);
     return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch(const void* x, const void* g, const void* dy, void* dx, void* dg, void* partial,
-           long long rows, int d, float eps, int vec, int group, int blocks, cudaStream_t s) {
-    auto c = [](const void* p) { return static_cast<const T*>(p); };
-    auto w = [](void* p) { return static_cast<T*>(p); };
-    float* part = static_cast<float*>(partial);
-    constexpr int WIDE = 16 / sizeof(T);             // elements in 16 bytes
-    if (vec == 1)
-        return launch_vec<T, 1>(c(x), c(g), c(dy), w(dx), w(dg), part, rows, d, eps, group,
-                                blocks, s);
-    if (vec == WIDE && d % WIDE == 0)
-        return launch_vec<T, WIDE>(c(x), c(g), c(dy), w(dx), w(dg), part, rows, d, eps,
-                                   group, blocks, s);
-    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// x, dy, dx: [rows, d] contiguous; g, dg: [d]; all of one dtype (ReproDtype);
-// partial: fp32 scratch [blocks, d]. vec and group as chosen by
-// kernels/rmsnorm.py `plan`, blocks by `bwd_blocks`.
+// x, dy, dx: [rows, d] contiguous fp32; g, dg: [d]; partial: fp32 scratch
+// [blocks, d]. vec and group as chosen by kernels/rmsnorm.py `plan`, blocks
+// by `bwd_blocks`.
 extern "C" int rmsnorm_bwd(const void* x, const void* g, const void* dy, void* dx, void* dg,
-                           void* partial, int dtype, long long rows, int d, float eps, int vec,
-                           int group, int blocks, void* stream) {
+                           void* partial, long long rows, int d, float eps, int vec, int group,
+                           int blocks, void* stream) {
     if (rows <= 0 || d <= 0 || group <= 0 || group > NT || (group & (group - 1)) != 0
-        || blocks <= 0)
+        || blocks <= 0 || (vec != 1 && (vec != 4 || d % 4 != 0)))
         return static_cast<int>(cudaErrorInvalidValue);
     auto s = static_cast<cudaStream_t>(stream);
-    if (dtype == REPRO_F32)
-        return launch<float>(x, g, dy, dx, dg, partial, rows, d, eps, vec, group, blocks, s);
-    if (dtype == REPRO_BF16)
-        return launch<__nv_bfloat16>(x, g, dy, dx, dg, partial, rows, d, eps, vec, group,
-                                     blocks, s);
-    return static_cast<int>(cudaErrorInvalidValue);
+    auto c = [](const void* p) { return static_cast<const float*>(p); };
+    auto w = [](void* p) { return static_cast<float*>(p); };
+    if (vec == 4)
+        return launch<4>(c(x), c(g), c(dy), w(dx), w(dg), w(partial), rows, d, eps, group,
+                         blocks, s);
+    return launch<1>(c(x), c(g), c(dy), w(dx), w(dg), w(partial), rows, d, eps, group, blocks,
+                     s);
 }

@@ -10,14 +10,16 @@ pointers are 16-byte aligned and d a multiple of the vector, scalar loads
 otherwise, and how many threads share a row.
 
 Where grad is enabled and x or the gain requires it, the call goes through
-an ``autograd.Function`` whose backward is ``rmsnorm_bwd``: the kernels of
-``csrc/rmsnorm_bwd.cu`` on the card, in fp32 or bf16, the explicit formulas
-of ``rmsnorm_bwd_ref`` on CPU tensors.
+an ``autograd.Function`` whose backward is ``rmsnorm_bwd``: on the card the
+kernels of ``csrc/rmsnorm_bwd.cu`` in fp32 and of ``csrc/rmsnorm_bwd_sm90.cu``
+in bf16 (``bwd_plan`` picks the latter's layout), on CPU tensors the
+explicit formulas of ``rmsnorm_bwd_ref``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -27,12 +29,22 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}      # ReproDtype in common.cuh
 _ARGTYPES = ((ctypes.c_void_p,) * 3
              + (ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_float)
              + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
+_BWD_ENTRY = {torch.float32: "rmsnorm_bwd",               # rmsnorm_bwd.cu
+              torch.bfloat16: "rmsnorm_bwd_bf16"}         # rmsnorm_bwd_sm90.cu
 _BWD_ARGTYPES = ((ctypes.c_void_p,) * 6
-                 + (ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                    ctypes.c_float)
+                 + (ctypes.c_longlong, ctypes.c_int, ctypes.c_float)
                  + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
+_BWD_BF16_ARGTYPES = (_BWD_ARGTYPES[:9] + (ctypes.c_int,) * 3
+                      + (ctypes.c_longlong, ctypes.c_void_p))
 _MAX_GROUP = 256          # threads per row at most (one block)
 _BWD_BLOCKS_PER_SM = 4    # rows of dg partial sums stay a small share of bytes
+# rmsnorm_bwd_sm90.cu's constants
+BWD_THREADS = 256         # threads per block
+BWD_CLUSTER = 2           # blocks per thread-block cluster
+BWD_MAX_CLUSTERS = 128    # clusters a launch takes at most
+BWD_MAX_UNITS = 4         # 16-byte units a thread holds on the 16-byte path
+BWD_SMEM_MAX = 232448 - 512    # dynamic shared memory of a block
+_BWD_OCC_ARGTYPES = (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
 
 
 def _pow2(n: int) -> int:
@@ -124,13 +136,91 @@ def bwd_blocks(rows: int, group: int, sms: int) -> int:
     return -(-groups // rounds)
 
 
+class BwdPlan(NamedTuple):
+    """The layout of ``csrc/rmsnorm_bwd_sm90.cu`` for one call (see
+    ``bwd_plan``)."""
+    vec: int             # 8: the 16-byte path; 1: the scalar path
+    group: int           # threads per row
+    clusters: int        # clusters of BWD_CLUSTER blocks; rows of `partial`
+    blocks: int
+    rows_per_block: int  # block b owns rows [b * rows_per_block, ...)
+    smem: int            # shared memory bytes the layout uses in a block
+
+
+def bwd_vec_group(ptr: int, d: int):
+    """(vec, group) of the bf16 backward for rows of ``d`` at address
+    ``ptr`` (the OR of every pointer the kernel touches): the 16-byte path
+    where every pointer is 16-byte aligned, d a multiple of 8 and a row at
+    most ``BWD_MAX_UNITS`` 16-byte units a thread (d ≤ 8192), with G
+    threads a row, a power of two from 8 to 256; else the scalar path with
+    the forward's group for one-element units."""
+    vec = 8
+    if ptr % 16 or d % vec or d // vec > BWD_THREADS * BWD_MAX_UNITS:
+        vec = 1
+    units = d // vec
+    if vec == 8:
+        return vec, min(max(_pow2(-(-units // BWD_MAX_UNITS)), 8), BWD_THREADS)
+    return vec, min(_pow2(-(-units // 2)), BWD_THREADS)
+
+
+def bwd_plan(ptr: int, rows: int, d: int, max_clusters: int) -> BwdPlan:
+    """The bf16 backward's layout for ``rows`` rows of ``d`` elements at
+    address ``ptr`` on a card that holds ``max_clusters`` of its clusters at
+    once (one block an SM; ``_max_clusters``).
+
+    One wave: at most ``max_clusters`` clusters (and ``BWD_MAX_CLUSTERS``),
+    fewer where the rows fill fewer passes (``BWD_THREADS / G`` rows a
+    pass), each block a band of ``rows_per_block`` rows. Shared memory: on
+    the 16-byte path one fp32 row of dg sums a warp (G < 32) or row slot,
+    and the cluster's exchange buffer (``BWD_CLUSTER`` slices of
+    ⌈d / BWD_CLUSTER⌉ floats); on the scalar path one row a row slot.
+    """
+    vec, group = bwd_vec_group(ptr, d)
+    slots = BWD_THREADS // group
+    clusters = max(1, min(max_clusters, BWD_MAX_CLUSTERS,
+                          -(-rows // (slots * BWD_CLUSTER))))
+    blocks = clusters * BWD_CLUSTER
+    rows_per_block = -(-rows // blocks)
+    if vec == 8:
+        n_rows = BWD_THREADS // 32 if group < 32 else slots
+        smem = n_rows * d * 4 + BWD_CLUSTER * -(-d // BWD_CLUSTER) * 4
+    else:
+        smem = slots * d * 4
+    if smem > BWD_SMEM_MAX:
+        raise ValueError(f"rmsnorm_bwd: d={d} too wide for the bf16 kernel's "
+                         f"scalar path ({smem} bytes of shared memory)")
+    return BwdPlan(vec, group, clusters, blocks, rows_per_block, smem)
+
+
+@functools.cache
+def _max_clusters(index: int, vec: int, group: int, d: int) -> int:
+    """How many clusters of the bf16 backward's kernel for (vec, group, d)
+    card ``index`` holds at once, one block an SM
+    (``rmsnorm_bwd_bf16_max_clusters``)."""
+    out = ctypes.c_int(0)
+    fn = build.function("rmsnorm_bwd_bf16_max_clusters", _BWD_OCC_ARGTYPES)
+    with torch.cuda.device(index):
+        build.check(fn(vec, group, d, ctypes.byref(out)),
+                    "rmsnorm_bwd_bf16_max_clusters")
+    return out.value
+
+
+def bwd_layout(ptr: int, rows: int, d: int, index: int) -> BwdPlan:
+    """``bwd_plan`` on card ``index``, with as many clusters as it holds at
+    once."""
+    vec, group = bwd_vec_group(ptr, d)
+    return bwd_plan(ptr, rows, d, _max_clusters(index, vec, group, d))
+
+
 def rmsnorm_bwd(x, gain, dy, *, eps: float = 1e-6):
     """(dx, dg) of ``rmsnorm`` at (x, gain) for the output's gradient ``dy``.
 
-    A CPU tensor takes ``rmsnorm_bwd_ref``; a CUDA tensor the kernels of
-    ``csrc/rmsnorm_bwd.cu`` in its dtype, fp32 or bf16 (two per call: dx
-    with per-block fp32 dg partial sums, then their sum, rounded once;
-    ``LAUNCHES["rmsnorm_bwd"]`` counts the call once).
+    A CPU tensor takes ``rmsnorm_bwd_ref``; a CUDA tensor two kernels in its
+    dtype (``LAUNCHES["rmsnorm_bwd"]`` counts the call once): in fp32 those
+    of ``csrc/rmsnorm_bwd.cu`` (dx with per-block fp32 dg partial sums, then
+    their sum), in bf16 those of ``csrc/rmsnorm_bwd_sm90.cu`` (dx with dg
+    summed per thread, block and cluster, then the clusters' rows added);
+    dg summed in fp32 in a fixed order and rounded once.
     """
     if x.device.type == "cpu":
         return rmsnorm_bwd_ref(x, gain, dy, eps=eps)
@@ -144,17 +234,26 @@ def rmsnorm_bwd(x, gain, dy, *, eps: float = 1e-6):
     rows = x.numel() // d
     dx = torch.empty_like(x)
     dg = torch.empty_like(gain)
-    vec, group, _ = plan(x.data_ptr() | gain.data_ptr() | dy.data_ptr()
-                         | dx.data_ptr(), d, x.element_size())
-    blocks = bwd_blocks(rows, group, _sm_count(x.device.index))
-    partial = torch.empty(blocks, d, dtype=torch.float32, device=x.device)
-    fn = build.function("rmsnorm_bwd", _BWD_ARGTYPES)
+    ptr = (x.data_ptr() | gain.data_ptr() | dy.data_ptr() | dx.data_ptr()
+           | dg.data_ptr())
+    if x.dtype == torch.bfloat16:
+        p = bwd_layout(ptr, rows, d, x.device.index)
+        sums, argtypes = p.clusters, _BWD_BF16_ARGTYPES
+        layout = (p.vec, p.group, p.clusters, p.rows_per_block)
+    else:
+        vec, group, _ = plan(ptr, d, x.element_size())
+        sums = bwd_blocks(rows, group, _sm_count(x.device.index))
+        argtypes = _BWD_ARGTYPES
+        layout = (vec, group, sums)
+    partial = torch.empty(sums, d, dtype=torch.float32, device=x.device)
+    entry = _BWD_ENTRY[x.dtype]
+    fn = build.function(entry, argtypes)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(x.data_ptr(), gain.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                  dg.data_ptr(), partial.data_ptr(), _DTYPES[x.dtype], rows, d,
-                  eps, vec, group, blocks, stream)
-    build.check(code, "rmsnorm_bwd")
+                  dg.data_ptr(), partial.data_ptr(), rows, d, eps, *layout,
+                  stream)
+    build.check(code, entry)
     build.LAUNCHES["rmsnorm_bwd"] += 1
     return dx, dg
 

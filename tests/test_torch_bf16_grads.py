@@ -223,9 +223,10 @@ def _c_params(name):
 
 
 def test_bf16_backward_entries_take_what_the_wrappers_pass():
-    """Each dtype has its own backward entry, with the fp32 entry's
-    arguments; the sm90 forward takes an lse pointer; the rmsnorm backward
-    takes the dtype code of the forward."""
+    """Each dtype has its own flash backward entry, with the fp32 entry's
+    arguments; the sm90 forward takes an lse pointer; each dtype has its own
+    rmsnorm backward entry too, the bf16 one taking ``bwd_plan``'s layout
+    where the fp32 one takes the forward's ``plan`` and ``bwd_blocks``."""
     assert flash_module._BWD_ENTRY == {
         torch.float32: "flash_attention_bwd",
         torch.bfloat16: "flash_attention_bwd_bf16"}
@@ -235,8 +236,10 @@ def test_bf16_backward_entries_take_what_the_wrappers_pass():
             flash_module._OCC_ARGTYPES)
     for entry in flash_module._ENTRY.values():
         assert _c_params(entry) == len(flash_module._ARGTYPES[entry]) == 16
+    assert rms_module._BWD_ENTRY == {torch.float32: "rmsnorm_bwd",
+                                     torch.bfloat16: "rmsnorm_bwd_bf16"}
     assert _c_params("rmsnorm_bwd") == len(rms_module._BWD_ARGTYPES)
-    assert rms_module._BWD_ARGTYPES[6] is rms_module._ARGTYPES[3]
+    assert _c_params("rmsnorm_bwd_bf16") == len(rms_module._BWD_BF16_ARGTYPES)
 
 
 def _code(name):
@@ -249,10 +252,12 @@ def test_bf16_backward_kernels_read_bf16_themselves():
     live in ``flash_attention_bwd_sm90.cu``, whose three kernels read bf16
     tiles placed by TMA and run every tile product as a wgmma (none on the
     CUDA cores of ``flash_tiles.cuh``), with no atomics; the fp32 backward
-    no longer instantiates anything in bf16. The two rmsnorm backward
-    kernels are templated on the element type of their loads and stores:
-    the bf16 entry instantiates them with ``__nv_bfloat16`` (no cast of the
-    inputs to fp32 around the fp32 kernels)."""
+    no longer instantiates anything in bf16. So with the rmsnorm backward:
+    its bf16 entry lives in ``rmsnorm_bwd_sm90.cu``, whose kernels read bf16
+    rows themselves (16 bytes a load on the 16-byte path; no cast of the
+    inputs to fp32 around the fp32 kernels) and which launches its own
+    kernels, with no atomics; ``rmsnorm_bwd.cu`` instantiates nothing in
+    bf16."""
     flash = _code("flash_attention_bwd_sm90.cu")
     for entry in ("flash_attention_bwd_bf16",
                   "flash_attention_bwd_bf16_occupancy"):
@@ -272,11 +277,23 @@ def test_bf16_backward_kernels_read_bf16_themselves():
     assert "flash_attention_bwd_bf16" not in fp32
     assert "const __nv_bfloat16* src" not in _code("flash_tiles.cuh")
     rms = _code("rmsnorm_bwd.cu")
-    assert "rmsnorm_bwd_kernel<T, VEC><<<" in rms
-    assert "rmsnorm_bwd_dg_kernel<T><<<" in rms
-    assert "launch<__nv_bfloat16>(" in rms
+    assert "rmsnorm_bwd_kernel<VEC><<<" in rms
+    assert "rmsnorm_bwd_dg_kernel<<<" in rms
+    assert "__nv_bfloat16" not in rms and "rmsnorm_bwd_bf16" not in rms
+    sm90 = _code("rmsnorm_bwd_sm90.cu")
+    assert 'extern "C" int rmsnorm_bwd_bf16(' in sm90
+    for kernel in ("f(rmsnorm_bwd_sm90_rows_kernel<1>)",
+                   "f(rmsnorm_bwd_sm90_rows_kernel<2>)",
+                   "f(rmsnorm_bwd_sm90_rows_kernel<4>)",
+                   "f(rmsnorm_bwd_sm90_scalar_kernel)",
+                   "cudaLaunchKernelEx(&cfg, kernel,",
+                   "rmsnorm_bwd_sm90_dg_kernel<<<"):
+        assert kernel in sm90, kernel
+    for used in ("const bf16* __restrict__ x", "bf16* __restrict__ dx",
+                 "ld_stream(x", "store_peer(", '#include "sm90.cuh"'):
+        assert used in sm90, used
     for name in ("flash_attention_bwd_sm90.cu", "flash_attention_bwd.cu",
-                 "rmsnorm_bwd.cu"):
+                 "rmsnorm_bwd.cu", "rmsnorm_bwd_sm90.cu"):
         assert "atomic" not in _code(name)
 
 
