@@ -161,6 +161,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    Then ``python -m repro_torch.launch.train --arch qwen3-0.6b --steps
    20`` in a subprocess (the reduced config, hd 32): exit 0 and ``done at
    step 20``.
+5e. The paper's launch layer on the card's host, with no JAX (no kernel
+   runs here: the counts, set to 0 just before, must still be 0 after):
+   - the discrete-event reproduction of TX-Green through the port's
+     ``measure_launch``, held to the paper's bounds: TensorFlow 512 x 64
+     (32,768 processes) under 5 s, Octave 512 x 64 under 10 s, Octave
+     512 x 512 (262,144 processes) under 40 s, Octave 512 x 256 at
+     4000-12000 launches/s, MATLAB 625 x 64 flat and cold in 1800-3600 s;
+     each logged in *simulated* TX-Green seconds, not a time of this host;
+   - ``get_backend("sim")``: a map of 16 and a reduce under a seeded
+     ``KILL_LAUNCHER`` plan: all ok, right values, at least one lost
+     attempt, and the event stream replays against the declared protocol
+     (``validate_trace``);
+   - ``get_backend("procpool", n_launchers=2, workers_per_launcher=2)``:
+     8 ``cmd`` tasks while the plan SIGKILLs a launcher: all ok, right
+     values, one crash, at least one lost attempt (as many ``LOST``
+     events), ``validate_trace``, and every launcher it ever spawned
+     reaped;
+   - ``core.realproc.compare(8, 16)``: flat and two-tier launches of 128
+     real processes complete and leave none unreaped; both wall times
+     logged with the host's CPU count and the card line (no rate is
+     compared: it follows the host's load);
+   - the port's lint, ``python -m repro_torch.analysis --baseline
+     src/repro_torch/analysis/baseline.txt``, in a subprocess under a
+     timeout: exit 0.
 6. Print the kernels' JSON line (the fp32 forward and both backward
    kernels with their training and sweep launches beside the serving
    kernels, the bf16 backward kernels with the trainer's launches; ssd_scan
@@ -212,6 +236,9 @@ from repro_torch.kernels.slstm_scan import (slstm_max_clusters,  # noqa: E402
 from repro_torch.kernels.ssd_scan import _launch as ssd_launch  # noqa: E402
 from repro_torch.kernels.ssd_scan import path as ssd_path  # noqa: E402
 from repro_torch.ckpt import latest_step  # noqa: E402
+from repro_torch.core import measure_launch, realproc  # noqa: E402
+from repro_torch.exec import (FAULT, KILL_LAUNCHER, LOST,  # noqa: E402
+                              FaultPlan, get_backend, validate_trace)
 from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
 from repro_torch.models.model import forward_hidden, lm_logits  # noqa: E402
 from repro_torch.launch.sweep import (build_member_step,  # noqa: E402
@@ -220,6 +247,7 @@ from repro_torch.launch.sweep import (build_member_step,  # noqa: E402
 from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
 from repro_torch.optim import adamw_init, adamw_update  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
+from repro_torch.taskarray import RetryPolicy, TaskGraph  # noqa: E402
 from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.train.step import microbatch_grads  # noqa: E402
 
@@ -252,6 +280,23 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def run_module(args, tag: str, timeout: float):
+    """``python -m <args>`` from the checkout's root in a fresh process
+    that finds the port (and phase 2's library) through ``PYTHONPATH``;
+    its output logged line by line. Returns the process and its wall s."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    for line in (proc.stdout + proc.stderr).splitlines():
+        log(f"  {tag}| {line}")
+    return proc, wall
 
 
 def host_ms(fn, iters: int) -> float:
@@ -1968,17 +2013,8 @@ def sweep_cli():
     """``python -m repro_torch.launch.sweep`` as a user runs it (qwen3-0.6b,
     16 members x 5 steps on the card), in a fresh process that finds the
     kernels' library phase 2 built. Returns its metrics."""
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
-                               else []))
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.sweep"],
-                          cwd=ROOT, env=env, capture_output=True, text=True,
-                          timeout=SWEEP_CLI_TIMEOUT)
-    wall = time.perf_counter() - t0
-    for line in (proc.stdout + proc.stderr).splitlines():
-        log(f"  cli| {line}")
+    proc, wall = run_module(["repro_torch.launch.sweep"], "cli",
+                            SWEEP_CLI_TIMEOUT)
     require(proc.returncode == 0, f"the sweep CLI exited {proc.returncode}")
     want = f"launched {SWEEP_MEMBERS}/{SWEEP_MEMBERS} members"
     require(want in proc.stdout, f"the sweep CLI did not print {want!r}")
@@ -2357,25 +2393,147 @@ def trainer_cli():
     """``python -m repro_torch.launch.train --arch qwen3-0.6b --steps 20``
     as a user runs it (the reduced config in bf16, hd 32, one device), in a
     fresh process that finds phase 2's library."""
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
-                               else []))
     with tempfile.TemporaryDirectory(prefix="train_cli_") as ckpt:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-             "qwen3-0.6b", "--steps", str(TRAINER_CLI_STEPS), "--ckpt-dir",
-             ckpt], cwd=ROOT, env=env, capture_output=True, text=True,
-            timeout=TRAINER_CLI_TIMEOUT)
-        wall = time.perf_counter() - t0
-    for line in (proc.stdout + proc.stderr).splitlines():
-        log(f"  train cli| {line}")
+        proc, wall = run_module(
+            ["repro_torch.launch.train", "--arch", "qwen3-0.6b", "--steps",
+             str(TRAINER_CLI_STEPS), "--ckpt-dir", ckpt], "train cli",
+            TRAINER_CLI_TIMEOUT)
     require(proc.returncode == 0, f"the train CLI exited {proc.returncode}")
     want = f"done at step {TRAINER_CLI_STEPS}"
     require(want in proc.stdout, f"the train CLI did not print {want!r}")
     log(f"train cli: process wall {wall:.2f} s")
     return {"process_wall_s": wall}
+
+
+# --------------------------------------------------------------------------
+# phase 5e: the paper's launch layer on the card's host
+# --------------------------------------------------------------------------
+# (app, nodes, processes per node, strategy, prepositioned), the bound of
+# tests/test_scheduler.py:23-49 it must meet, and that bound in words
+PAPER_CELLS = (
+    (("tensorflow", 512, 64, "two-tier", True),
+     lambda r: r.total_procs == 32768 and r.launch_time < 5.0,
+     "32768 processes in under 5 s"),
+    (("octave", 512, 64, "two-tier", True),
+     lambda r: r.launch_time < 10.0, "under 10 s"),
+    (("octave", 512, 512, "two-tier", True),
+     lambda r: r.total_procs == 262144 and r.launch_time < 40.0,
+     "262144 processes in under 40 s"),
+    (("octave", 512, 256, "two-tier", True),
+     lambda r: 4000 <= r.launch_rate <= 12000, "4000-12000 launches/s"),
+    (("matlab", 625, 64, "flat", False),
+     lambda r: 1800 <= r.launch_time <= 3600, "1800-3600 s"),
+)
+CHAOS_SEED = 123
+NO_STRAGGLERS = dict(min_straggler_samples=10 ** 6)
+LINT_TIMEOUT = 120
+
+
+def chaos_plan(n):
+    return FaultPlan.seeded(CHAOS_SEED, n, n_launchers=2,
+                            workers_per_launcher=2, kinds=(KILL_LAUNCHER,))
+
+
+def launch_sim_cells():
+    for (app, n, p, strategy, warm), ok, bound in PAPER_CELLS:
+        r = measure_launch(app, n, p, strategy=strategy, prepositioned=warm)
+        log(f"launch sim {app} {n} x {p} {strategy} "
+            f"{'prepositioned' if warm else 'cold'}: {r.total_procs} "
+            f"processes in {r.launch_time!r} simulated TX-Green s, "
+            f"{r.launch_rate!r} launches per simulated s (the model's "
+            f"seconds, not a time of this host)")
+        require(ok(r), f"measure_launch({app!r}, {n}, {p}) misses the "
+                f"paper's bound: {bound}")
+
+
+def launch_sim_graph():
+    """A map of 16 and a reduce on the simulated cluster while the plan
+    kills a launcher."""
+    n = 16
+    g = TaskGraph("smoke-sim")
+    sq = g.map(lambda p, _: p["x"] * p["x"], [{"x": x} for x in range(n)],
+               cmd="params['x'] * params['x']", name="sq")
+    g.reduce(lambda p, i: sum(i["sq"][p["lo"]:p["hi"]]), sq, name="total")
+    policy = RetryPolicy(max_retries=3, backoff=0.01, scan_period=0.05,
+                         **NO_STRAGGLERS)
+    with get_backend("sim") as b:
+        res = g.run(b, policy, chaos=chaos_plan(n))
+    stats = validate_trace(res.events, max_retries=3)
+    lost = res["sq"].summary.lost
+    log(f"launch sim graph: {res.events.counts()}, lost {lost}, "
+        f"simulated span {stats.span!r} s")
+    require(res.all_ok, "the sim graph did not end all ok")
+    require(res["sq"].values == [x * x for x in range(n)]
+            and res["total"].values == [sum(x * x for x in range(n))],
+            "the sim graph's values are wrong")
+    require(lost >= 1, "the sim graph's kill plan lost no attempt")
+
+
+def launch_procpool_graph():
+    """8 ``cmd`` tasks on the real two-tier pool while the plan SIGKILLs a
+    launcher."""
+    n = 8
+    g = TaskGraph("smoke-procpool")
+    g.map(cmd="time.sleep(0.25) or params['x'] * params['x']",
+          params=[{"x": x} for x in range(n)], name="a")
+    policy = RetryPolicy(max_retries=3, backoff=0.05, scan_period=0.1,
+                         task_deadline=60.0, **NO_STRAGGLERS)
+    t0 = time.perf_counter()
+    with get_backend("procpool", n_launchers=2, workers_per_launcher=2,
+                     ready_timeout=60.0) as b:
+        res = g.run(b, policy, chaos=chaos_plan(n))
+        pool = b.pool
+    wall = time.perf_counter() - t0
+    counts = res.events.counts()
+    stats = validate_trace(res.events, max_retries=3)
+    lost = res["a"].summary.lost
+    log(f"launch procpool graph: {counts}, crashes {pool.crashes}, "
+        f"respawns {pool.respawns}, lost {lost}, "
+        f"{len(pool._all_launchers)} launchers spawned, wall {wall!r} s "
+        f"(host clock)")
+    require(res.all_ok and all(r.status == "ok" for r in res["a"].results),
+            "the procpool graph did not end all ok")
+    require(res["a"].values == [x * x for x in range(n)],
+            "the procpool graph's values are wrong")
+    require(pool.crashes == 1, f"the pool counted {pool.crashes} crashes")
+    require(lost >= 1 and counts.get(LOST, 0) == lost,
+            f"lost {lost} against {counts.get(LOST, 0)} LOST events")
+    require(counts.get(FAULT, 0) >= 2 and stats.faults >= 2,
+            "the kill and the pool's crash report are not both in the trace")
+    require(all(lp.poll() is not None for lp in pool._all_launchers),
+            "a launcher was left unreaped")
+
+
+def launch_real_processes(card):
+    flat, twot = realproc.compare(8, 16)
+    for r in (flat, twot):
+        require(r.total_procs == 128 and r.procs,
+                f"the {r.strategy} launch did not complete")
+        require(all(pr.poll() is not None for pr in r.procs),
+                f"the {r.strategy} launch left a process unreaped")
+        log(f"launch real {r.strategy} 8 x 16: {r.total_procs} processes "
+            f"ready in {r.launch_time!r} s wall ({r.launch_rate!r}/s) on "
+            f"{os.cpu_count()} host CPUs beside {card}")
+
+
+def launch_lint():
+    proc, _ = run_module(["repro_torch.analysis", "--baseline",
+                          "src/repro_torch/analysis/baseline.txt"], "lint",
+                         LINT_TIMEOUT)
+    require(proc.returncode == 0, f"the port's lint exited {proc.returncode}")
+
+
+def launch_layer(card):
+    """Phase 5e; the launch layer runs no kernel."""
+    t0 = time.perf_counter()
+    LAUNCHES.clear()
+    launch_sim_cells()
+    launch_sim_graph()
+    launch_procpool_graph()
+    launch_real_processes(card)
+    launch_lint()
+    require(not LAUNCHES, f"the launch layer launched {dict(LAUNCHES)}")
+    log(f"launch layer: {time.perf_counter() - t0:.1f} s")
 
 
 def main():
@@ -2464,6 +2622,8 @@ def main():
         f"{rms_bwd_bf16_step['library_ms']:.3f}, bound "
         f"{rms_bwd_bf16_step['bound_ms']:.3f})")
     trainer_cli()
+
+    launch_layer(card)                                       # phase 5e
 
     serving = {"qwen3-0.6b serve": qwen, "xlstm-1.3b serve": xlstm,
                "zamba2-2.7b serve": zamba}

@@ -74,11 +74,21 @@ def link_command(objs, out: Path):
 
 
 def _run_all(commands):
-    """Run the commands in parallel; returns their (returncode, output)."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for c in commands]
-    outs = [p.communicate()[0] for p in procs]
+    """Run the commands in parallel; returns their (returncode, output).
+    If a spawn or a wait raises, every child still running is killed and
+    reaped before the exception propagates."""
+    procs = []
+    try:
+        for c in commands:
+            procs.append(subprocess.Popen(c, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+        outs = [p.communicate()[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.returncode is None:      # not waited for: an exception
+                p.kill()
+                p.communicate()
     return [(p.returncode, out) for p, out in zip(procs, outs)]
 
 

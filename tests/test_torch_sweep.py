@@ -8,7 +8,9 @@ supervisor, the copied task-array and exec layers, and
   reference twice: their syntax trees (docstrings dropped, ``repro.`` read as
   ``repro_torch.`` in imports) and one graph run through both inline
   backends (values, per-task statuses and attempts, summary counts, event
-  counts).
+  counts). ``get_backend`` resolves ``sim``, ``procpool`` and its alias
+  ``real`` (the launch layer's own tests are ``test_torch_launch.py``,
+  ``test_torch_procpool.py`` and ``test_torch_analysis.py``).
 - The CLI: 2 members x 3 steps of ``run_sweep`` from converted JAX params
   against the JAX sweep's jitted ``member_step`` driven as its
   ``run_member`` drives it; final losses within 1e-5 relative (fp32, the
@@ -361,8 +363,19 @@ def test_inline_backend_runs_a_graph_as_the_reference_does():
 
 @pytest.mark.parametrize("name", ["sim", "procpool", "real"])
 def test_unported_backends_raise(name):
-    with pytest.raises(KeyError, match="not ported"):
-        port_exec.get_backend(name)
+    """``get_backend`` resolves the launch layer's backends, ``real`` as
+    ``procpool``'s alias, and still raises for an unknown name. (The name
+    is kept from when these three raised, before the launch layer was
+    ported.)"""
+    cls = "SimBackend" if name == "sim" else "ProcPoolBackend"
+    with port_exec.get_backend(name) as b:    # spawns no process yet
+        assert type(b) is getattr(port_exec, cls)
+        assert isinstance(b, port_exec.ExecBackend)
+    assert port_exec.ProcPoolBackend is \
+        type(port_exec.get_backend("real")) is \
+        type(port_exec.get_backend("procpool"))
+    with pytest.raises(KeyError, match="unknown backend"):
+        port_exec.get_backend("slurm")
     assert isinstance(port_exec.get_backend("inline", sleep=False),
                       port_exec.InlineBackend)
 
