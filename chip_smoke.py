@@ -27,12 +27,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    and in bf16, the tensor-core kernel: causal, three windows, non-causal,
    T=1 at q_offset 76, T=37/S=100 at q_offset 63, then bf16 prefill
    lengths, each also held per row against the fp32 result relative to
-   the row's RMS; then hd 80, zamba2's shared block, in both dtypes:
+   the row's RMS; then phase 5f's regimes in bf16 at hd 128, each held per
+   row and timed beside SDPA and the bound over its visible pairs: B=1
+   T=S=1000 at H=40 KV=8 (qwen3-14b), H=12 KV=2 (qwen2-1.5b) and H=KV=16
+   (moonshot), and H=48 KV=8 T=S=5000 with a 4096-key window (mixtral;
+   SDPA on the window's boolean mask); then hd 80, zamba2's shared block, in both dtypes:
    B=1 T=S=137 / 1000 / 1291 H=KV=32, GQA, a window, non-causal and T=1 at
    q_offset 76, the three prefill shapes also held per row in bf16 and
    timed in both dtypes), rmsnorm (both dtypes, the vector path and the scalar
    one: d=100 and a view 16-byte misaligned, the q_norm decode rows
-   64 x 128, and in fp32 every norm shape of both training paths),
+   64 x 128, phase 5f's widths 1000 x 1536 / 5120 / 6144, and in fp32
+   every norm shape of both training paths),
    ssd_scan (outputs and final states, B and C per group, both paths in
    both dtypes with the path each case took logged: the grid, one case
    also with its group expanded to G = H, one N = 128 case on the ordered
@@ -106,6 +111,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    device's busy share and device time by kernel, and shows that bf16
    serving ran no fp32 (CUDA-core) flash kernel and that each model's
    ssd_scan ran the kernels of its path and no other.
+5f. Serve the remaining decoder-only text archs the same way (bf16, 4
+   slots, 8 requests of 32 new tokens), one model on the card at a time
+   (each freed before the next), logging params, GiB, peak memory,
+   seconds, prefill ms, decode ms and tokens/s beside the card line:
+   - qwen3-14b (40 layers, GQA 40:8, qk-norm): 40 flash launches per
+     prefill, 161 rmsnorm per prefill and per decode step;
+   - qwen2-1.5b (28 layers, GQA 12:2, QKV biases): 28 and 57;
+   - moonshot-v1-16b-a3b (48 MoE layers, 64 experts, top 6; 28.06 B
+     params, 52.3 GiB): 48 and 97, and one traced window with the MoE's
+     routing, sort, gather and combine kernels in a group of their own;
+   - mixtral-8x22b cut to 8 of its 56 layers at full width (8 experts,
+     top 2, ~37 GiB; all 56 take 140.6 B params), the phase's one
+     reduction: 8 and 17, prompts of 4200-6000 tokens at max_seq 8192, so
+     every prompt runs past the 4096-token window and the rolling cache
+     wraps in prefill and in decode.
+   The teacher-forced check runs whole where the model's fp32 copy fits
+   beside it (qwen2-1.5b). Otherwise on a depth cut, the first k layers
+   (views of the same weights, same embed and head; the largest k whose
+   fp32 copy fits, logged), which gives the bf16 noise floor; the
+   full-depth model's kernel path must then be within twice that floor of
+   its plain path in bf16. The plain attention runs 2048 query rows a call
+   so a 5000-token prompt's fp32 scores fit beside the model.
 5b. Train: the sweep's member step (``repro_torch.launch.sweep``:
    ``forward_loss`` -> autograd through the kernels' Functions ->
    ``adamw_update``), TF32 off, params in fp32:
@@ -185,9 +212,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    - the port's lint, ``python -m repro_torch.analysis --baseline
      src/repro_torch/analysis/baseline.txt``, in a subprocess under a
      timeout: exit 0.
-6. Print the kernels' JSON line (the fp32 forward and both backward
-   kernels with their training and sweep launches beside the serving
-   kernels, the bf16 backward kernels with the trainer's launches; ssd_scan
+6. Print the kernels' JSON line (flash and rmsnorm with every serving
+   path's launches, phase 5f's four under ``"<arch> serve"``; the fp32
+   forward and both backward kernels with their training and sweep
+   launches beside the serving kernels, the bf16 backward kernels with the trainer's launches; ssd_scan
    as two rows, the ordered walk with xlstm's launches and the
    chunk-parallel path with zamba2's), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -198,6 +226,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -228,7 +257,8 @@ from repro_torch.kernels import (LAUNCHES, build, flash_attention,  # noqa: E402
                                  slstm_scan, slstm_scan_ref, ssd_scan,
                                  ssd_scan_ref)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    _forward as flash_forward, bwd_occupancy, fwd_occupancy, sm90_smem_bytes)
+    _forward as flash_forward, bwd_occupancy, fwd_occupancy, sm90_smem_bytes,
+    visible)
 from repro_torch.kernels.rmsnorm import (  # noqa: E402
     bwd_layout as rmsnorm_bwd_layout, plan as rmsnorm_plan)
 from repro_torch.kernels.slstm_scan import (slstm_max_clusters,  # noqa: E402
@@ -240,7 +270,9 @@ from repro_torch.core import measure_launch, realproc  # noqa: E402
 from repro_torch.exec import (FAULT, KILL_LAUNCHER, LOST,  # noqa: E402
                               FaultPlan, get_backend, validate_trace)
 from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
-from repro_torch.models.model import forward_hidden, lm_logits  # noqa: E402
+from repro_torch.models.blocks import block_forward  # noqa: E402
+from repro_torch.models.model import (embed_tokens, forward_hidden,  # noqa: E402
+                                      lm_logits)
 from repro_torch.launch.sweep import (build_member_step,  # noqa: E402
                                       loss_and_grads, member_config,
                                       run_sweep, to_batch)
@@ -263,6 +295,15 @@ XLSTM_NORMS = XLSTM_MLSTM + 2 * XLSTM_SLSTM + 1   # ln1s, sLSTM ff_ln, final
 ZAMBA_LAYERS, ZAMBA_APPS = 54, 9                   # Mamba-2 layers, shared
 ZAMBA_NORMS = 2 * ZAMBA_LAYERS + 2 * ZAMBA_APPS + 1   # ln1 + mixer norm,
                                                       # ln1 + ln2, final
+# phase 5f: arch, layers served, rmsnorm launches a layer (ln1 and ln2, +
+# q_norm and k_norm with qk-norm), prompt lengths [lo, hi), max_seq
+ARCH_SERVE = (
+    ("qwen3-14b", 40, 4, (100, 1501), 2048),
+    ("qwen2-1.5b", 28, 2, (100, 1501), 2048),
+    ("moonshot-v1-16b-a3b", 48, 2, (100, 1501), 2048),
+    ("mixtral-8x22b", 8, 2, (4200, 6001), 8192),   # 8 of 56 layers
+)
+TRACED_ARCH = "moonshot-v1-16b-a3b"
 
 
 def log(*a):
@@ -451,6 +492,12 @@ TRAIN_NORM_SHAPES = [  # rows, d: every norm of both training paths (fp32)
     (256, 128), (256 * 4, 32), (256 * 2, 32)]         # sweep member, B.T=256
 ZAMBA_FLASH = (1, 32, 32, 80)                # B, H, KV, hd of zamba2's prefill
 ZAMBA_T = (137, 1000, 1291)                  # its prefill lengths here
+ARCH_FLASH = (   # phase 5f's regimes (bf16, hd 128, causal): H, KV, T, window
+    (40, 8, 1000, 0),            # qwen3-14b: GQA group 5
+    (12, 2, 1000, 0),            # qwen2-1.5b: group 6
+    (16, 16, 1000, 0),           # moonshot-v1-16b-a3b: no grouping
+    (48, 8, 5000, 4096))         # mixtral-8x22b: a 4096-key window, T > W
+ARCH_RMS_D = (1536, 5120, 6144)              # with 2048: phase 5f's d_model
 REPORT_T = 1000                              # the JSON line's flash shape
 REPORT_RMS = "rows=16000 d=128 bfloat16"     # q_norm rows at T=1000
 
@@ -469,6 +516,8 @@ def check_flash(gen):
                   (1, 37, 100, 4, 2, 64, dtype, True, 0, 63)]
     for T in PATH_T:
         cases.append((1, T, T, 16, 8, 128, torch.bfloat16, True, 0, 0))
+    for H, KV, T, window in ARCH_FLASH:
+        cases.append((1, T, T, H, KV, 128, torch.bfloat16, True, window, 0))
     B, H, KV, hd = ZAMBA_FLASH
     for dtype in (torch.float32, torch.bfloat16):
         cases += [(B, T, T, H, KV, hd, dtype, True, 0, 0)
@@ -492,8 +541,11 @@ def check_flash(gen):
         log(f"flash_attention {name}: max_abs_err={err:.3e} "
             f"tol={TOL[dtype]:.0e} {'ok' if ok else 'FAIL'}")
         require(ok, f"flash_attention disagrees with its plain version: {name}")
-        if (B, H, KV, hd, dtype) == (1, 16, 8, 128, torch.bfloat16) \
-                and T == S and causal and off == 0:
+        if (H, KV, T, window) in ARCH_FLASH and dtype == torch.bfloat16:
+            check_flash_rows(q, k, v, got, name, window)
+            path[H, KV, T, window] = time_flash(q, k, v, err, window)
+        elif (B, H, KV, hd, dtype) == (1, 16, 8, 128, torch.bfloat16) \
+                and T == S and causal and off == 0 and window == 0:
             check_flash_rows(q, k, v, got, name)
             path[T] = time_flash(q, k, v, err)
         if (B, H, KV, hd) == ZAMBA_FLASH and T in ZAMBA_T:
@@ -513,20 +565,21 @@ def row_rel_err(got, want) -> float:
     return float(((got - want).abs().amax(dim=-1) / rms).max())
 
 
-def check_flash_rows(q, k, v, got, name):
+def check_flash_rows(q, k, v, got, name, window: int = 0):
     """At a prefill shape, where outputs are ~0.05 and 2e-2 absolute would
     pass a kernel that dropped a KV tile: the bf16 kernel's error per row
     against the plain version in fp32 (same bf16 inputs), relative to the
     row's RMS, within twice the plain version's own bf16 rounding of the
-    same rows. A plain run without the first 64 keys of the last rows must
-    fail the same limit, or the check could not see a missing tile."""
+    same rows. A plain run without the first 64 keys of the last rows (with
+    a window: the oldest 64 keys of every full window) must fail the same
+    limit, or the check could not see a missing tile."""
     T = q.shape[1]
     qf, kf, vf = q.float(), k.float(), v.float()
-    want = flash_attention_ref(qf, kf, vf)
+    want = plain_attention(qf, kf, vf, window=window)
     limit = 2 * row_rel_err(want.to(torch.bfloat16), want)
     err = row_rel_err(got, want)
-    dropped = row_rel_err(flash_attention_ref(
-        qf, kf, vf, window=T - 64).to(torch.bfloat16), want)
+    dropped = row_rel_err(plain_attention(
+        qf, kf, vf, window=(window or T) - 64).to(torch.bfloat16), want)
     ok = err <= limit < dropped
     log(f"  per row {name}: max |err| / row RMS {err:.3e}, limit {limit:.3e} "
         f"(2x the bf16 rounding of the fp32 result), first tile dropped "
@@ -535,27 +588,40 @@ def check_flash_rows(q, k, v, got, name):
     require(dropped > limit, f"per-row check cannot see a dropped tile: {name}")
 
 
-def time_flash(q, k, v, err):
+def time_flash(q, k, v, err, window: int = 0):
+    """Causal, T == S: the kernel, its plain version, SDPA (with a window:
+    on the window's boolean mask, k and v repeated to every head) and the
+    bound over the visible (t, s) pairs."""
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
-    pairs = T * (T + 1) // 2       # visible (t, s) pairs: causal, T == S
+    W = window or T
+    pairs = sum(min(t + 1, W) for t in range(T))    # visible (t, s) pairs
     flops = 4 * B * H * hd * pairs
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
     bound = {"operations": flops / PEAK_BF16 * 1e3,
              "bytes": nbytes / HBM * 1e3}
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    kernel = lambda: flash_attention(q, k, v)
+    if window:
+        mask = visible(T, S, 0, True, window, q.device)
+        kt, vt = (x.repeat_interleave(H // KV, dim=1) for x in (kt, vt))
+        library = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                         attn_mask=mask)
+    else:
+        library = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    kernel = lambda: flash_attention(q, k, v, window=window)
     row = {
         "max_abs_err": err,
         "ms": device_ms(kernel, 20),
-        "plain_ms": device_ms(lambda: flash_attention_ref(q, k, v), 5),
-        "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 20),
+        "plain_ms": device_ms(lambda: flash_attention_ref(q, k, v,
+                                                          window=window), 5),
+        "library_ms": device_ms(library, 20),
         "bound_by": max(bound, key=bound.get),
         "bound_ms": max(bound.values()),
-        "shape": f"B=1 T=S={T} H={H} KV={KV} hd={hd} bf16 causal",
+        "shape": (f"B=1 T=S={T} H={H} KV={KV} hd={hd} bf16 causal"
+                  + (f" window={window}" if window else "")),
     }
-    log(f"  device time T={T}: kernel {row['ms']:.4f} ms, plain "
+    log(f"  device time {row['shape']}: kernel {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']}); kernel / sdpa "
         f"{row['ms'] / row['library_ms']:.3f}, {row['bound_ms'] / row['ms']:.1%} "
@@ -565,13 +631,15 @@ def time_flash(q, k, v, err):
 
 
 def rmsnorm_cases(gen, dtype):
-    """(name, x, g): the grid, the q_norm decode rows, tails of d = 100, in
-    fp32 the training paths' norm shapes, and two contiguous views off 16-byte alignment: ``x[1:]`` of a [1001, 100]
+    """(name, x, g): the grid, the q_norm decode rows, tails of d = 100,
+    phase 5f's widths (1000 rows at d = 1536, 5120 and 6144; 2048 is in the
+    grid), in fp32 the training paths' norm shapes, and two contiguous
+    views off 16-byte alignment: ``x[1:]`` of a [1001, 100]
     tensor (200 bytes in: the scalar path in bf16; 400 bytes, aligned, in
     fp32) and rows of 1024 starting one element into a flat buffer (the
     scalar path in both dtypes, a row too wide to hold: streamed)."""
     shapes = [(rows, d) for rows in RMS_ROWS for d in (128, 1024, 2048)]
-    shapes += RMS_EXTRA
+    shapes += list(RMS_EXTRA) + [(1000, d) for d in ARCH_RMS_D]
     if dtype == torch.float32:
         shapes += TRAIN_NORM_SHAPES
     for rows, d in shapes:
@@ -1475,12 +1543,25 @@ def time_slstm(wx, r, b, err):
 # --------------------------------------------------------------------------
 # phase 5: serve
 # --------------------------------------------------------------------------
+PLAIN_ROWS = 2048       # query rows per call of the plain attention
+
+
+def plain_attention(q, k, v, *, causal=True, window=0, q_offset=0):
+    """``flash_attention_ref`` over blocks of ``PLAIN_ROWS`` query rows, the
+    same arithmetic per row, so the fp32 scores of a 5000-token prompt (4.8
+    GB at 48 heads in one call) fit beside a large model."""
+    return torch.cat([flash_attention_ref(
+        q[:, i:i + PLAIN_ROWS], k, v, causal=causal, window=window,
+        q_offset=q_offset + i) for i in range(0, q.shape[1], PLAIN_ROWS)],
+        dim=1)
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Route the model's kernel calls to the plain versions (reference run
     on the card; the port itself never does this)."""
     saved = ops.attention, ops.norm, ops.ssd, ops.slstm
-    ops.attention = lambda q, k, v, **kw: flash_attention_ref(q, k, v, **kw)
+    ops.attention = plain_attention
     ops.norm = lambda x, gain, **kw: rmsnorm_ref(x, gain, **kw)
     ops.ssd = lambda x, a, B, C, **kw: ssd_scan_ref(x, a, B, C, **kw)
     ops.slstm = lambda wx, r, b: slstm_scan_ref(wx, r, b)
@@ -1510,18 +1591,24 @@ SSD_KERNELS = {"chunks": ("ssd_scan_chunk_state_kernel",
 
 
 def serve(arch: str, n_layers: int, per_prefill: dict, per_step: dict,
-          ssd: str = None):
-    """Serve 8 requests on ``arch`` at full width; require the launch counts
-    ``per_prefill`` x prefills + ``per_step`` x decode steps exactly, and
-    that the traced ssd_scan kernels are those of the path ``ssd``."""
-    cfg = get_config(arch)
+          ssd: str = None, *, cfg=None, prompt_range=(100, 1501),
+          max_seq: int = 2048, trace: bool = True, norms_per_layer=None,
+          card: str = ""):
+    """Serve 8 requests on ``arch`` at full width (``cfg``, default the
+    registry's); require the launch counts ``per_prefill`` x prefills +
+    ``per_step`` x decode steps exactly, and that the traced ssd_scan
+    kernels are those of the path ``ssd``. Then the teacher-forced logits
+    check, on the model itself or, where its fp32 copy does not fit beside
+    it, on a depth cut (``check_serving_logits``)."""
+    cfg = cfg or get_config(arch)
     require(cfg.n_layers == n_layers and cfg.param_dtype == "bfloat16")
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
+    t_phase = t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator("cuda").manual_seed(0),
                          device="cuda")
-    eng = ServeEngine(cfg, params, slots=4, max_seq=2048, device="cuda")
+    eng = ServeEngine(cfg, params, slots=4, max_seq=max_seq, device="cuda")
     torch.cuda.synchronize()
     leaves = tree_leaves(params)
     n_params = sum(t.numel() for t in leaves)
@@ -1532,7 +1619,7 @@ def serve(arch: str, n_layers: int, per_prefill: dict, per_step: dict,
         f"{n_bytes / 2**30:.2f} GiB), weights+cache set up in "
         f"{time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(0)
-    lens = rng.integers(100, 1501, size=8)
+    lens = rng.integers(*prompt_range, size=8)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
 
     LAUNCHES.clear()
@@ -1555,6 +1642,8 @@ def serve(arch: str, n_layers: int, per_prefill: dict, per_step: dict,
     require(launches == want, f"launch counts {launches} != {want}")
     tokens = sum(len(done[r].tokens) for r in rids)
     metrics = {
+        "params_b": n_params / 1e9,
+        "params_gib": n_bytes / 2**30,
         "prefill_ms_per_request": st["prefill_s"] / st["prefills"] * 1e3,
         "decode_ms_per_step": st["decode_s"] / st["decode_steps"] * 1e3,
         "tokens_per_s": tokens / wall,
@@ -1562,25 +1651,190 @@ def serve(arch: str, n_layers: int, per_prefill: dict, per_step: dict,
         "generated_tokens": tokens,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
-    log(f"serve metrics {arch}: " + json.dumps(metrics))
+    log(f"serve metrics {arch}: " + json.dumps(metrics)
+        + (f" ({card})" if card else ""))
 
-    check_teacher_forced(params, cfg, prompts[0], done[rids[0]].tokens[:8],
-                         per_prefill, per_step)
-    traced = profile_serving(eng, prompts[:4])
-    if ssd is not None:
-        ran = [k for k in traced if "ssd_scan" in k]
-        log(f"serve: {arch} traced ssd_scan kernels {ran}")
-        names = SSD_KERNELS[ssd]
-        require(all(any(n in k for k in ran) for n in names)
-                and all(any(n in k for n in names) for k in ran),
-                f"{arch} ran ssd_scan kernels {ran}, not path {ssd}")
+    if trace:
+        traced = profile_serving(eng, prompts[:4])
+        if ssd is not None:
+            ran = [k for k in traced if "ssd_scan" in k]
+            log(f"serve: {arch} traced ssd_scan kernels {ran}")
+            names = SSD_KERNELS[ssd]
+            require(all(any(n in k for k in ran) for n in names)
+                    and all(any(n in k for n in names) for k in ran),
+                    f"{arch} ran ssd_scan kernels {ran}, not path {ssd}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_serving_logits(params, cfg, prompts[0], done[rids[0]].tokens[:8],
+                         per_prefill, per_step, norms_per_layer)
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    log(f"serve: {arch} done in {metrics['phase_s']:.1f} s"
+        + (f" ({card})" if card else ""))
     return launches, metrics
+
+
+def serve_archs(card: str) -> dict:
+    """Phase 5f: the remaining decoder-only text archs served at full
+    width in bf16, one model on the card at a time. mixtral-8x22b keeps 8
+    of its 56 layers (all 56 take 140.6 B params), its one reduction; its
+    prompts all run past the 4096-token window. Returns each path's
+    launches under ``"<arch> serve"``."""
+    t0 = time.perf_counter()
+    out = {}
+    for arch, layers, norms, prompt_range, max_seq in ARCH_SERVE:
+        cfg = get_config(arch)
+        if layers < cfg.n_layers:
+            log(f"serve: {arch} depth cut to {layers} of {cfg.n_layers} "
+                f"layers at full width (the phase's one reduction)")
+            cfg = dataclasses.replace(cfg, n_layers=layers, block_pattern=())
+        if cfg.sliding_window:
+            require(prompt_range[0] > cfg.sliding_window,
+                    "every prompt must run past the window")
+        per_prefill, per_step = arch_launches(layers, norms)
+        out[f"{arch} serve"], _ = serve(
+            arch, layers, per_prefill, per_step, cfg=cfg,
+            prompt_range=prompt_range, max_seq=max_seq,
+            trace=arch == TRACED_ARCH, norms_per_layer=norms, card=card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 5f: {time.perf_counter() - t0:.1f} s ({card})")
+    return out
 
 
 def expected_launches(per_prefill, per_step, prefills, steps):
     want = Counter({k: v * prefills for k, v in per_prefill.items()})
     want.update({k: v * steps for k, v in per_step.items()})
     return dict(want)
+
+
+FP32_HEADROOM = 10 * 2**30   # bytes kept free beside an fp32 copy: the
+                             # activations of a 5000-token plain fp32 run
+
+
+def fp32_bytes(tree) -> int:
+    return sum(t.numel() * 4 for t in tree_leaves(tree))
+
+
+def depth_cut(params, cfg, k: int):
+    """The first ``k`` layers of a one-stage model: views of the same
+    weights, with the same embed, head and final norm."""
+    require(len(params["stages"]) == 1 and not cfg.shared_attn_every)
+    cut = dataclasses.replace(cfg, n_layers=k, block_pattern=())
+    return {**params, "stages": [tree_map(lambda t: t[:k],
+                                          params["stages"][0])]}, cut
+
+
+def arch_launches(L: int, norms_per_layer: int):
+    """A one-stage ATTN / MOE model of L layers: one flash launch a layer
+    per prefill, ``norms_per_layer`` rmsnorm launches a layer and the final
+    norm per prefill and per decode step."""
+    norms = norms_per_layer * L + 1
+    return {"flash_attention": L, "rmsnorm": norms}, {"rmsnorm": norms}
+
+
+def check_serving_logits(params, cfg, prompt, forced, per_prefill, per_step,
+                         norms_per_layer=None):
+    """``check_teacher_forced`` on the model where its fp32 copy fits
+    beside it (with ``FP32_HEADROOM`` to spare). Otherwise:
+    - on a depth cut, the first k layers (the largest k whose fp32 copy
+      fits, logged), which measures the bf16 noise floor and holds the
+      kernel path to it in both dtypes, prefill and decode;
+    - at full depth, every layer on the kernel path's own input
+      (``check_layers``);
+    - at full depth end to end, the kernel path's logits against its plain
+      path's in bf16, within twice the cut's floor. Required for a dense
+      model; logged for an MoE one, whose router turns the two paths'
+      rounding differences into other experts (a discrete jump) at near
+      ties, which later layers carry on: with random weights 48 such layers
+      leave the two paths' logits unrelated (PERF.md §6)."""
+    free = torch.cuda.mem_get_info()[0] - FP32_HEADROOM
+    if fp32_bytes(params) <= free:
+        check_teacher_forced(params, cfg, prompt, forced, per_prefill,
+                             per_step)
+        return
+    require(norms_per_layer is not None, f"{cfg.name}: no depth cut given")
+    stage = params["stages"][0]
+    per_layer = fp32_bytes(stage) // cfg.n_layers
+    rest = fp32_bytes({k: v for k, v in params.items() if k != "stages"})
+    k = int(min(cfg.n_layers - 1, (free - rest) // per_layer))
+    require(k >= 1, f"{cfg.name}: not one layer's fp32 copy fits")
+    log(f"teacher-forced: {cfg.name}'s fp32 copy "
+        f"({fp32_bytes(params) / 2**30:.1f} GiB) does not fit beside it "
+        f"({free / 2**30:.1f} GiB free after {FP32_HEADROOM / 2**30:.0f} GiB "
+        f"headroom); depth cut: the first {k} of {cfg.n_layers} layers "
+        f"({(rest + k * per_layer) / 2**30:.1f} GiB in fp32)")
+
+    LAUNCHES.clear()
+    got = teacher_forced(params, cfg, prompt, forced)
+    require(dict(LAUNCHES) == expected_launches(per_prefill, per_step, 1,
+                                                len(forced)),
+            f"teacher-forced run launched {dict(LAUNCHES)}")
+    with plain_versions():
+        plain = teacher_forced(params, cfg, prompt, forced)
+    require(torch.isfinite(got).all() and torch.isfinite(plain).all())
+    cut_params, cut_cfg = depth_cut(params, cfg, k)
+    floor = check_teacher_forced(cut_params, cut_cfg, prompt, forced,
+                                 *arch_launches(k, norms_per_layer))
+    check_layers(params, cfg, prompt, norms_per_layer)
+    diff = float((got - plain).abs().max())
+    agree = float((got.argmax(-1) == plain.argmax(-1)).float().mean())
+    required = not cfg.n_experts
+    log(f"teacher-forced logits, full depth ({cfg.n_layers} layers, bf16): "
+        f"kernel vs plain max|diff| {diff:.4e} beside max|logit| "
+        f"{float(plain.abs().max()):.4e}; 2x the {k}-layer cut's bf16 noise "
+        f"floor {2 * floor:.4e} ({'required' if required else 'logged: MoE'}"
+        f", {'within' if diff <= 2 * floor else 'beyond'}); argmax "
+        f"agreement {agree:.3f}")
+    require(not required or diff <= 2 * floor,
+            "full-depth kernel path disagrees with the plain path")
+
+
+def check_layers(params, cfg, prompt, norms_per_layer):
+    """Every layer of the full-depth model on the kernel path's own input
+    (the prompt's embeddings through the layers before it, kernel path),
+    as ``check_teacher_forced`` holds a whole model: the block through the
+    kernels must be within twice that layer's own bf16 noise floor of the
+    block through the plain versions and of the same block in fp32, the
+    floor being the plain block's distance from the fp32 one (that layer's
+    weights and input in fp32, one layer's copy at a time). Each layer
+    launches one flash and ``norms_per_layer`` rmsnorm."""
+    kind, stage = cfg.block_pattern[0], params["stages"][0]
+    toks = torch.as_tensor(prompt[None], device="cuda")
+    pos = torch.arange(toks.shape[1], device="cuda")[None]
+    ratios, worst = [], (0.0, 0.0, 0.0, -1)
+    LAUNCHES.clear()
+    with torch.no_grad():
+        h = embed_tokens(params, cfg, toks)
+        for i in range(cfg.n_layers):
+            lp = tree_map(lambda t: t[i], stage)
+            got, _ = block_forward(kind, lp, cfg, h, pos=pos)
+            with plain_versions():
+                plain, _ = block_forward(kind, lp, cfg, h, pos=pos)
+                ref, _ = block_forward(kind, tree_map(lambda t: t.float(), lp),
+                                       cfg, h.float(), pos=pos)
+            require(torch.isfinite(got).all(), f"layer {i}: non-finite")
+            diff = float((got.float() - plain.float()).abs().max())
+            to32 = float((got.float() - ref).abs().max())
+            floor = float((plain.float() - ref).abs().max())
+            ratios.append(max(diff, to32) / max(floor, 1e-30))
+            if ratios[-1] >= max(ratios):
+                worst = (diff, to32, floor, i)
+            require(max(diff, to32) <= 2 * floor,
+                    f"layer {i}: kernel block {diff:.4e} from the plain "
+                    f"block and {to32:.4e} from fp32, beyond 2x its floor "
+                    f"{floor:.4e}")
+            h = got
+            del got, plain, ref
+    want = {"flash_attention": cfg.n_layers,
+            "rmsnorm": norms_per_layer * cfg.n_layers}
+    require(dict(LAUNCHES) == want, f"layer check launched {dict(LAUNCHES)}")
+    log(f"layer check, full depth ({cfg.n_layers} layers, prompt "
+        f"{toks.shape[1]}): kernel block vs plain block and vs fp32 within "
+        f"2x each layer's bf16 floor; the larger of the two over the floor "
+        f"by layer {[round(r, 3) for r in ratios]}; worst layer {worst[3]}: "
+        f"{worst[0]:.4e} from plain, {worst[1]:.4e} from fp32, floor "
+        f"{worst[2]:.4e}; final |h| {float(h.float().abs().max()):.4e}")
 
 
 def check_teacher_forced(params, cfg, prompt, forced, per_prefill, per_step):
@@ -1631,6 +1885,7 @@ def check_teacher_forced(params, cfg, prompt, forced, per_prefill, per_step):
     require(diff <= 2 * floor, "kernel path disagrees with the plain path")
     require(to32 <= 2 * floor, "kernel path further from fp32 than plain")
     require(diff32 <= floor, "fp32 kernel path disagrees with fp32 plain")
+    return floor
 
 
 def log_flips(got, plain, ref32, flipped):
@@ -1654,6 +1909,14 @@ def log_flips(got, plain, ref32, flipped):
             f"{floor:.4e}: {'a tie' if tie else 'NOT a tie'}")
 
 
+# the MoE's routing, sort, gathers and combine (models/mlp.py): top-k,
+# the stable argsort (cub radix sort), bincount, cumsum, index_select,
+# scatter_ / gather. Grouped only for a model with experts: index_select
+# is also the embedding lookup's kernel (one small launch a step)
+MOE_KERNELS = ("topk", "sort", "radix", "histogram", "scan", "indexselect",
+               "index_select", "scatter_gather")
+
+
 def profile_serving(eng, prompts):
     """Trace the engine serving a few more requests: device busy share of
     the window and device time by kernel (the tracer's own host cost makes
@@ -1672,7 +1935,9 @@ def profile_serving(eng, prompts):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels)
     groups = {"flash_attention": 0.0, "rmsnorm": 0.0, "ssd_scan": 0.0,
-              "slstm_scan": 0.0, "matmul": 0.0, "other": 0.0}
+              "slstm_scan": 0.0, "matmul": 0.0, "moe dispatch": 0.0,
+              "other": 0.0}
+    moe = Counter()
     for e in kernels:
         name = e.key.lower()
         group = ("flash_attention" if "flash_fwd" in name else
@@ -1682,8 +1947,12 @@ def profile_serving(eng, prompts):
                  "matmul" if any(w in name for w in ("gemm", "cutlass",
                                                       "xmma", "sm90_",
                                                       "nvjet"))
+                 else "moe dispatch" if eng.cfg.n_experts and any(
+                     w in name for w in MOE_KERNELS)
                  else "other")
         groups[group] += e.self_device_time_total / 1e3
+        if group == "moe dispatch":
+            moe[e.key[:60]] += e.self_device_time_total / 1e3
     cuda_core = [e.key for e in kernels if "flash_fwd_kernel" in e.key]
     require(not cuda_core, f"bf16 serving ran the fp32 flash kernel: {cuda_core}")
     copies = sum(e.self_device_time_total for e in kernels
@@ -1693,6 +1962,9 @@ def profile_serving(eng, prompts):
         f"({busy / wall_us:.1%}), {len(kernels)} kernel names; device ms by "
         f"group {json.dumps({k: round(v, 3) for k, v in groups.items()})}; "
         f"direct_copy kernels (in other) {copies:.3f} ms")
+    if moe:
+        log("  moe dispatch kernels (ms): " + json.dumps(
+            {k: round(v, 3) for k, v in moe.most_common()}))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
             f"{e.key[:100]}")
@@ -2604,6 +2876,7 @@ def main():
                      {"ssd_scan": ZAMBA_LAYERS, "flash_attention": ZAMBA_APPS,
                       "rmsnorm": ZAMBA_NORMS},
                      {"rmsnorm": ZAMBA_NORMS}, ssd="chunks")
+    archs = serve_archs(card)                                # phase 5f
     torch.cuda.empty_cache()
     train, train_metrics = train_full_width()                # phase 5b
     sweep, sweep_metrics = train_sweep()
@@ -2626,7 +2899,7 @@ def main():
     launch_layer(card)                                       # phase 5e
 
     serving = {"qwen3-0.6b serve": qwen, "xlstm-1.3b serve": xlstm,
-               "zamba2-2.7b serve": zamba}
+               "zamba2-2.7b serve": zamba, **archs}
     bf16_training = {"qwen3-0.6b Trainer (bf16, full width)": trainer}
     training = {"qwen3-0.6b train (fp32, full width)": train,
                 "sweep member (qwen3-0.6b reduced, fp32)": sweep,

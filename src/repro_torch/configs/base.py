@@ -14,8 +14,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
 
-# Block kinds of the JAX package (the port implements ATTN, MAMBA2, MLSTM and
-# SLSTM)
+# Block kinds of the JAX package (the port implements all five)
 ATTN = "attn"          # full transformer block (attention + MLP)
 MOE = "moe"            # transformer block with MoE MLP
 MAMBA2 = "mamba2"      # Mamba-2 SSD block

@@ -6,7 +6,7 @@ requests (counterpart of ``repro/launch/serve.py``; same flags plus
         --requests 16 [--slots 4] [--device cpu]
 
 ``--arch`` takes any id the port's registry lists (qwen3-0.6b, xlstm-1.3b,
-zamba2-2.7b);
+zamba2-2.7b, qwen3-14b, qwen2-1.5b, moonshot-v1-16b-a3b, mixtral-8x22b);
 the launcher serves its reduced config in fp32.
 """
 from __future__ import annotations

@@ -1,8 +1,9 @@
-"""Model functions of the port (decoder-only stacks: qwen3, xlstm, zamba2)."""
+"""Model functions of the port (decoder-only stacks: qwen3, qwen2, moonshot,
+mixtral, xlstm, zamba2)."""
 from .model import (decode_step, embed_tokens, forward_hidden, forward_loss,
-                    init_cache, init_params, lm_logits, n_shared_applications,
-                    pattern_stages, prefill)
+                    init_cache, init_params, kv_cache_size, lm_logits,
+                    n_shared_applications, pattern_stages, prefill)
 
 __all__ = ["decode_step", "embed_tokens", "forward_hidden", "forward_loss",
-           "init_cache", "init_params", "lm_logits", "n_shared_applications",
-           "pattern_stages", "prefill"]
+           "init_cache", "init_params", "kv_cache_size", "lm_logits",
+           "n_shared_applications", "pattern_stages", "prefill"]

@@ -1,5 +1,5 @@
-"""GQA attention with qk-norm and RoPE (counterpart of
-``repro/models/attention.py``, single device, no sliding window yet).
+"""GQA attention with QKV biases, qk-norm, RoPE and a sliding window
+(counterpart of ``repro/models/attention.py``, single device).
 
 ``attend`` sends ``attn_impl`` "pallas" and "chunked" (the JAX default, the
 same flash schedule written in jnp) to the port's flash kernel, so the
@@ -8,6 +8,8 @@ plain torch, as in the JAX package: no TPU kernel covers it.
 
 Decode writes the new token's k/v into the cache tensors in place (the JAX
 functions return updated copies), so a step never copies the whole cache.
+A sliding-window model (mixtral) decodes against a rolling cache of
+``window`` slots: position p lives in slot ``p % window``.
 """
 from __future__ import annotations
 
@@ -33,7 +35,9 @@ def init_attn_params(generator, cfg, dtype, device, lead=()):
                          scale=1.0 / math.sqrt(2 * max(cfg.n_layers, 1))),
     }
     if cfg.qkv_bias:
-        raise NotImplementedError("qkv_bias (qwen2) is not ported yet")
+        p["bq"] = torch.zeros(*lead, qd, dtype=dtype, device=device)
+        p["bk"] = torch.zeros(*lead, kvd, dtype=dtype, device=device)
+        p["bv"] = torch.zeros(*lead, kvd, dtype=dtype, device=device)
     if cfg.qk_norm:
         p["q_norm"] = torch.ones(*lead, cfg.head_dim, dtype=dtype, device=device)
         p["k_norm"] = torch.ones(*lead, cfg.head_dim, dtype=dtype, device=device)
@@ -41,11 +45,17 @@ def init_attn_params(generator, cfg, dtype, device, lead=()):
 
 
 def _project_qkv(p, cfg, x):
-    """x: [B, T, d] -> q [B,T,H,hd], k/v [B,T,KV,hd], qk-normed."""
+    """x: [B, T, d] -> q [B,T,H,hd], k/v [B,T,KV,hd]: biased (qwen2) after
+    each product, then qk-normed (qwen3)."""
     B, T = x.shape[:2]
-    q = matmul(x, p["wq"]).reshape(B, T, cfg.n_heads, cfg.head_dim)
-    k = matmul(x, p["wk"]).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
-    v = matmul(x, p["wv"]).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    q, k, v = matmul(x, p["wq"]), matmul(x, p["wk"]), matmul(x, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    q = q.reshape(B, T, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -98,18 +108,17 @@ def attn_prefill(p, cfg, x, *, pos):
     return matmul(out.reshape(B, T, cfg.q_dim), p["wo"]), (k, v)
 
 
-def attn_decode(p, cfg, x, cache, *, cache_len):
+def attn_decode(p, cfg, x, cache, *, cache_len, rolling: bool = False):
     """One-token decode. x: [B, 1, d]; cache: (k, v) [B, S, KV, hd].
 
     ``cache_len`` is the number of valid positions already in the cache: a
     scalar (every row writes the same slot, as JAX's dynamic-update-slice)
     or a per-row ``[B]`` tensor (continuous batching, a row scatter). The
-    new token goes to slot ``min(cache_len, S-1)``. The cache is updated in
+    new token goes to slot ``cache_len % S`` when ``rolling`` (a sliding
+    window of S slots) and to ``min(cache_len, S-1)`` otherwise; RoPE takes
+    the absolute position ``cache_len`` either way. The cache is updated in
     place; returns (out [B,1,d], cache).
     """
-    if cfg.sliding_window:
-        raise NotImplementedError("rolling (sliding-window) caches are not "
-                                  "ported yet")
     k_cache, v_cache = cache
     B, S = k_cache.shape[0], k_cache.shape[1]
     scalar = not (torch.is_tensor(cache_len) and cache_len.dim() == 1)
@@ -118,12 +127,12 @@ def attn_decode(p, cfg, x, cache, *, cache_len):
     q, k_new, v_new = _project_qkv(p, cfg, x)
     q, k_new = _rope_qk(q, k_new, cfg, cl[:, None])
     if scalar:
-        s0 = min(int(cache_len), S - 1)
+        s0 = int(cache_len) % S if rolling else min(int(cache_len), S - 1)
         k_cache[:, s0] = k_new[:, 0].to(k_cache.dtype)
         v_cache[:, s0] = v_new[:, 0].to(v_cache.dtype)
     else:
         rows = torch.arange(B, device=x.device)
-        slot = torch.clamp(cl, max=S - 1)
+        slot = cl % S if rolling else torch.clamp(cl, max=S - 1)
         k_cache[rows, slot] = k_new[:, 0].to(k_cache.dtype)
         v_cache[rows, slot] = v_new[:, 0].to(v_cache.dtype)
 
@@ -133,7 +142,10 @@ def attn_decode(p, cfg, x, cache, *, cache_len):
     KV = cfg.n_kv_heads
     G = cfg.n_heads // KV
     scale = 1.0 / math.sqrt(cfg.head_dim)
-    valid = torch.arange(S, device=x.device)[None, :] <= cl[:, None]   # [B,S]
+    # slots written so far: rolling, min(cache_len + 1, S) (slot p % S for
+    # position p); otherwise every slot up to cache_len
+    last = torch.clamp(cl, max=S - 1) if rolling else cl
+    valid = torch.arange(S, device=x.device)[None, :] <= last[:, None]  # [B,S]
     qg = q[:, 0].reshape(B, KV, G, cfg.head_dim)
     scores = torch.einsum("bkgd,bskd->bkgs", qg.float(), k_cache.float())
     scores = torch.where(valid[:, None, None, :], scores * scale, NEG_INF)

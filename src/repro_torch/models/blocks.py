@@ -1,10 +1,12 @@
 """Blocks of the port: init / forward / prefill / decode / cache-init
-(counterpart of ``repro/models/blocks.py``). Ported kinds: ATTN (attention
-+ dense MLP, also zamba2's shared block), MAMBA2, MLSTM and SLSTM; other
-kinds raise.
+(counterpart of ``repro/models/blocks.py``). Kinds: ATTN (attention +
+dense MLP, also zamba2's shared block), MOE (attention + MoE), MAMBA2,
+MLSTM and SLSTM.
 
 Forwards return (x, aux) like the JAX package, aux being the MoE balance
-loss there and always 0 here. Decode updates the cache in place.
+loss (0 for the other kinds). Decode updates the cache in place. A
+sliding-window model's prefill leaves a rolling cache of ``cache_size``
+slots, position p in slot ``p % cache_size``.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ from . import ssm as S
 from . import xlstm as X
 from .attention import attn_decode, attn_prefill, init_attn_params, init_kv_cache
 from .common import rms_norm, tree_map
-from .mlp import init_mlp_params, mlp_forward
+from .mlp import init_mlp_params, init_moe_params, mlp_forward, moe_forward
 
 # the recurrent kinds: a mixer after ln1, with a residual around it
 _INIT = {"mamba2": S.init_mamba2_params, "mlstm": X.init_mlstm_params,
@@ -29,8 +31,8 @@ _CACHE = {"mamba2": S.init_mamba2_cache, "mlstm": X.init_mlstm_cache,
 
 
 def _check_kind(kind: str):
-    if kind != "attn" and kind not in _INIT:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    if kind not in ("attn", "moe") and kind not in _INIT:
+        raise ValueError(f"unknown block kind {kind!r}")
 
 
 def init_block(kind: str, generator, cfg, dtype, device, lead=()):
@@ -40,26 +42,39 @@ def init_block(kind: str, generator, cfg, dtype, device, lead=()):
     if kind in _INIT:
         return {"ln1": ones(),
                 "mixer": _INIT[kind](generator, cfg, dtype, device, lead)}
-    return {"ln1": ones(),
-            "attn": init_attn_params(generator, cfg, dtype, device, lead),
-            "ln2": ones(),
-            "mlp": init_mlp_params(generator, cfg, dtype, device, lead)}
+    p = {"ln1": ones(),
+         "attn": init_attn_params(generator, cfg, dtype, device, lead),
+         "ln2": ones()}
+    if kind == "moe":
+        p["moe"] = init_moe_params(generator, cfg, dtype, device, lead)
+    else:
+        p["mlp"] = init_mlp_params(generator, cfg, dtype, device, lead)
+    return p
 
 
-def _attn_mlp(p, cfg, x, pos):
+def _ffn(p, cfg, hn, *, inference: bool):
+    """The MLP or the MoE after ln2: (y, aux)."""
+    if "moe" in p:
+        return moe_forward(p["moe"], cfg, hn, inference=inference)
+    return mlp_forward(p["mlp"], cfg, hn), torch.zeros((), device=hn.device)
+
+
+def _attn_ffn(p, cfg, x, pos):
+    """ATTN / MOE over a whole sequence: (y, aux, (k, v))."""
     a_out, kv = attn_prefill(p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps),
                              pos=pos)
     h = x + a_out
-    return h + mlp_forward(p["mlp"], cfg, rms_norm(h, p["ln2"], cfg.norm_eps)), kv
+    y, aux = _ffn(p, cfg, rms_norm(h, p["ln2"], cfg.norm_eps), inference=False)
+    return h + y, aux, kv
 
 
 def block_forward(kind: str, p, cfg, x, *, pos):
     _check_kind(kind)
-    zero = torch.zeros((), device=x.device)
     if kind in _FORWARD:
         y = _FORWARD[kind](p["mixer"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps))
-        return x + y, zero
-    return _attn_mlp(p, cfg, x, pos)[0], zero
+        return x + y, torch.zeros((), device=x.device)
+    y, aux, _ = _attn_ffn(p, cfg, x, pos)
+    return y, aux
 
 
 def _conv_state(xb, cfg):
@@ -98,28 +113,40 @@ _PREFILLS = {"mamba2": _recurrent_prefill_mamba2,
              "slstm": _recurrent_prefill_slstm}
 
 
+def _rolling(t, W: int):
+    """A prompt's [B, T, ...] keys or values as a rolling cache of W slots
+    (``repro/models/blocks.py:124-135``): the last W positions, rolled so
+    that position p sits in slot p % W, or zero-padded up to W."""
+    T = t.shape[1]
+    if T >= W:
+        return torch.roll(t[:, -W:], T % W, dims=1)
+    return F.pad(t, (0, 0, 0, 0, 0, W - T))
+
+
 def block_prefill(kind: str, p, cfg, x, *, pos, cache_size: int = 0):
-    """Returns (x, cache). For ATTN the (k, v) cache is zero-padded on the
-    sequence axis up to ``cache_size`` slots, headroom for generated tokens;
-    a recurrent kind's cache is its final state."""
+    """Returns (x, cache). For ATTN and MOE the (k, v) cache is zero-padded
+    on the sequence axis up to ``cache_size`` slots, headroom for generated
+    tokens, or with a sliding window is the rolling cache of ``cache_size``
+    slots; a recurrent kind's cache is its final state."""
     _check_kind(kind)
     if kind in _PREFILLS:
         y, cache = _PREFILLS[kind](p["mixer"], cfg,
                                    rms_norm(x, p["ln1"], cfg.norm_eps))
         return x + y, cache
-    if cfg.sliding_window:
-        raise NotImplementedError("rolling (sliding-window) caches are not "
-                                  "ported yet")
-    y, (k, v) = _attn_mlp(p, cfg, x, pos)
-    pad = cache_size - x.shape[1]
-    if pad > 0:
+    y, _, (k, v) = _attn_ffn(p, cfg, x, pos)
+    if cfg.sliding_window and cache_size:
+        k, v = _rolling(k, cache_size), _rolling(v, cache_size)
+    elif cache_size > x.shape[1]:
+        pad = cache_size - x.shape[1]
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
     return y, {"kv": (k, v)}
 
 
-def block_decode(kind: str, p, cfg, x, cache, *, cache_len):
-    """One token; the cache is updated in place and returned."""
+def block_decode(kind: str, p, cfg, x, cache, *, cache_len,
+                 rolling: bool = False):
+    """One token; the cache is updated in place and returned. The MoE runs
+    drop-free here (``inference``), as JAX's ``block_decode``."""
     _check_kind(kind)
     if kind in _DECODE:
         y, new = _DECODE[kind](p["mixer"], cfg,
@@ -127,10 +154,10 @@ def block_decode(kind: str, p, cfg, x, cache, *, cache_len):
         tree_map(lambda old, val: old.copy_(val), cache, new)
         return x + y, cache
     a_out, kv = attn_decode(p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps),
-                            cache["kv"], cache_len=cache_len)
+                            cache["kv"], cache_len=cache_len, rolling=rolling)
     h = x + a_out
-    y = h + mlp_forward(p["mlp"], cfg, rms_norm(h, p["ln2"], cfg.norm_eps))
-    return y, {**cache, "kv": kv}
+    y, _ = _ffn(p, cfg, rms_norm(h, p["ln2"], cfg.norm_eps), inference=True)
+    return h + y, {**cache, "kv": kv}
 
 
 def init_block_cache(kind: str, cfg, batch: int, cache_size: int, dtype,

@@ -42,12 +42,30 @@ def dtype_of(name: str) -> torch.dtype:
 # --------------------------------------------------------------------------
 # init helpers: the distributions of repro/models/common.py:25-31
 # --------------------------------------------------------------------------
+DRAW_ELEMENTS = 1 << 30      # the most fp32 values one draw makes
+
+
 def normal_init(generator, shape, std: float, dtype, device):
     """N(0, std^2) of ``shape``, drawn from ``generator`` on its own device
-    and placed on ``device`` in ``dtype``."""
-    x = torch.randn(shape, generator=generator, dtype=F32,
-                    device=generator.device).to(device)
-    return (x * std).to(dtype)
+    and placed on ``device`` in ``dtype``. A tensor of more than
+    ``DRAW_ELEMENTS`` values (a stack of full-width expert weights) is drawn
+    a block of leading rows at a time, so its fp32 draw never needs more
+    than 4 GiB beside the weights."""
+    shape = tuple(shape)
+    if math.prod(shape) <= DRAW_ELEMENTS:
+        x = torch.randn(shape, generator=generator, dtype=F32,
+                        device=generator.device).to(device)
+        return (x * std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = DRAW_ELEMENTS // math.prod(shape[1:])
+    if rows == 0:                       # one leading row is itself too big
+        for i in range(shape[0]):
+            out[i] = normal_init(generator, shape[1:], std, dtype, device)
+        return out
+    for i in range(0, shape[0], rows):
+        out[i:i + rows] = normal_init(generator, out[i:i + rows].shape, std,
+                                      dtype, device)
+    return out
 
 
 def dense_init(generator, d_in: int, d_out: int, dtype, device,

@@ -1,6 +1,7 @@
 """Model assembly of the port: stages, init, forward, prefill and decode
 (counterpart of ``repro/models/model.py`` for decoder-only stacks of ATTN,
-MAMBA2, MLSTM and SLSTM blocks: qwen3, xlstm, zamba2).
+MOE, MAMBA2, MLSTM and SLSTM blocks: qwen3, qwen2, moonshot, mixtral,
+xlstm, zamba2).
 
 Params keep the JAX package's tree: ``{"embed", "final_norm", "stages":
 [...]}`` with each stage's blocks stacked on a leading layer axis, so
@@ -8,7 +9,9 @@ Params keep the JAX package's tree: ``{"embed", "final_norm", "stages":
 JAX scans a stage, the port loops over its layers. The serving cache is
 ``{"stages": [...]}``, one tree per stage whose leaves put the layer axis
 first and batch at dim 1: ``{"kv": (k, v)}`` of ``[L, B, S, KV, hd]`` for
-ATTN, the recurrent state (``[L, B, ...]``) for MAMBA2, MLSTM and SLSTM.
+ATTN and MOE (S is the window for a sliding-window model: a rolling
+cache, ``kv_cache_size``), the recurrent state (``[L, B, ...]``) for
+MAMBA2, MLSTM and SLSTM.
 
 zamba2 adds one shared ATTN block, ``p["shared"]`` (unstacked: its weights
 serve every application), applied after every stage (stages are cut at
@@ -29,6 +32,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -128,7 +132,12 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> Dict[str, Any
 
 
 def embed_tokens(p, cfg, tokens):
-    return p["embed"][tokens]
+    """The embedding rows of ``tokens``. ``F.embedding`` and not indexing:
+    the backward of ``embed[tokens]`` on a CPU tensor is an index_put with
+    accumulate, whose threads add into shared rows in no fixed order, so
+    two identical steps could differ in the last bit; the embedding's
+    backward sums each row in a fixed order on the CPU and the card."""
+    return F.embedding(tokens, p["embed"])
 
 
 def lm_logits(p, cfg, h):
@@ -181,15 +190,22 @@ def forward_loss(p, cfg, batch):
     return loss + aux, metrics
 
 
+def kv_cache_size(cfg, seq_len: int) -> int:
+    """KV slots for ``seq_len`` positions: the window for a sliding-window
+    model (a rolling cache, slot = position % window), else ``seq_len``."""
+    return cfg.sliding_window or seq_len
+
+
 def init_cache(cfg, batch: int, seq_len: int, dtype=None, device="cuda"):
     _check_ported(cfg)
     dtype = dtype or dtype_of(cfg.param_dtype)
-    cache = {"stages": [init_block_cache(kind, cfg, batch, seq_len, dtype,
+    size = kv_cache_size(cfg, seq_len)
+    cache = {"stages": [init_block_cache(kind, cfg, batch, size, dtype,
                                          device, lead=(count,))
                         for kind, count in pattern_stages(cfg)]}
     if cfg.shared_attn_every:
         cache["shared"] = init_block_cache(
-            "attn", cfg, batch, seq_len, dtype, device,
+            "attn", cfg, batch, size, dtype, device,
             lead=(n_shared_applications(cfg),))
     return cache
 
@@ -198,27 +214,28 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=None, device="cuda"):
 def prefill(p, cfg, tokens, *, pad: int = 64):
     """Process the prompt; returns (last-position logits [B, V], cache).
 
-    ``pad`` — extra KV slots reserved for tokens generated after prefill.
-    Runs without autograd, as ``decode_step`` does: JAX keeps no tape, and
-    params left requiring grad must not chain each step's graph onto the
-    cache.
+    ``pad`` — extra KV slots reserved for tokens generated after prefill
+    (ignored for a rolling sliding-window cache). Runs without autograd, as
+    ``decode_step`` does: JAX keeps no tape, and params left requiring grad
+    must not chain each step's graph onto the cache.
     """
     _check_ported(cfg)
     B, T = tokens.shape
     pos = _positions(B, T, tokens.device)
     h = embed_tokens(p, cfg, tokens)
+    size = kv_cache_size(cfg, T) if cfg.sliding_window else T + pad
     stack = lambda caches: tree_map(lambda *xs: torch.stack(xs), *caches)
     caches, shared = [], []
     for (kind, count), stage in zip(pattern_stages(cfg), p["stages"]):
         layer_caches = []
         for i in range(count):
             h, c = block_prefill(kind, _layer(stage, i), cfg, h, pos=pos,
-                                 cache_size=T + pad)
+                                 cache_size=size)
             layer_caches.append(c)
         caches.append(stack(layer_caches))
         if cfg.shared_attn_every:
             h, c = block_prefill("attn", p["shared"], cfg, h, pos=pos,
-                                 cache_size=T + pad)
+                                 cache_size=size)
             shared.append(c)
     cache = {"stages": caches}
     if shared:
@@ -234,15 +251,17 @@ def decode_step(p, cfg, token, cache, cache_len):
     cache). The shared block's applications write their own KV caches
     through views of ``cache["shared"]``."""
     _check_ported(cfg)
+    rolling = cfg.sliding_window > 0
     h = embed_tokens(p, cfg, token[:, None])
     for app, ((kind, count), stage, stage_cache) in enumerate(zip(
             pattern_stages(cfg), p["stages"], cache["stages"])):
         for i in range(count):
             h, _ = block_decode(kind, _layer(stage, i), cfg, h,
-                                _layer(stage_cache, i), cache_len=cache_len)
+                                _layer(stage_cache, i), cache_len=cache_len,
+                                rolling=rolling)
         if cfg.shared_attn_every:
             h, _ = block_decode("attn", p["shared"], cfg, h,
                                 _layer(cache["shared"], app),
-                                cache_len=cache_len)
+                                cache_len=cache_len, rolling=rolling)
     logits = lm_logits(p, cfg, h)
     return logits[:, 0], cache

@@ -7,7 +7,10 @@
               decode step for every active slot; finished sequences free
               their slots.
 
-Per-slot cache lengths make heterogeneous prompt lengths exact. Slots that
+Per-slot cache lengths make heterogeneous prompt lengths exact. The cache
+holds ``kv_cache_size(cfg, max_seq)`` slots a layer: ``max_seq``, or for a
+sliding-window model (mixtral) its window, a rolling cache that serves
+prompts longer than the window. Slots that
 are not active still decode (cache_len 0, a stale token) and their output is
 ignored; admission overwrites the whole slot. PyTorch runs eagerly, so there
 is no per-length compile cache to keep. ``stats`` adds the wall seconds
@@ -43,7 +46,8 @@ class Request:
 def _insert_slot(cache, slot_cache, idx: int):
     """Copy a single-request cache (B=1) into slot ``idx`` of the batched
     cache, in place. Every leaf has batch at dim 1: [L, B, ...] for a
-    stage, [n_app, B, ...] for zamba2's shared block."""
+    stage, [n_app, B, ...] for zamba2's shared block; a rolling cache has
+    the window's slots on both sides."""
     tree_map(lambda big, one: big[:, idx].copy_(one[:, 0]), cache, slot_cache)
 
 

@@ -64,11 +64,19 @@ def _layer0(tree):
 
 
 def test_config_matches_jax_and_other_archs_raise():
+    """Every ported arch's config, full and reduced, equals the JAX
+    package's field for field (by id and by dashed name); the archs still
+    missing raise."""
     want = ArchConfig(**dataclasses.asdict(jax_get_config("qwen3_0_6b")))
     assert get_config("qwen3-0.6b") == want == get_config("qwen3_0_6b")
-    assert get_config("qwen3-0.6b").reduced() == ArchConfig(
-        **dataclasses.asdict(jax_get_config("qwen3_0_6b").reduced()))
-    for other in ("qwen3_14b", "mixtral_8x22b", "whisper_small"):
+    for arch in ("qwen3_0_6b", "qwen3_14b", "qwen2_1_5b",
+                 "moonshot_v1_16b_a3b", "mixtral_8x22b"):
+        jcfg = jax_get_config(arch)
+        assert get_config(arch) == ArchConfig(**dataclasses.asdict(jcfg))
+        assert get_config(jcfg.name) == get_config(arch)
+        assert get_config(arch).reduced() == ArchConfig(
+            **dataclasses.asdict(jcfg.reduced()))
+    for other in ("whisper_small", "qwen2_vl_7b", "nemotron_4_340b"):
         with pytest.raises(NotImplementedError, match="not ported"):
             get_config(other)
 
