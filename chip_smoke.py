@@ -85,7 +85,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    same dtype, the flash backward's three kernels also apart; the bf16
    rmsnorm backward at the Trainer's three norm shapes (2048 x 1024, 32768
    x 128, 16384 x 128), with those times summed over one Trainer step's
-   114 / 56 / 56 launches.
+   114 / 56 / 56 launches. Last, phase 5g's regimes on a generator of
+   their own: flash non-causal with S != T in both dtypes (whisper's
+   cross attention, H = KV = 12 hd 64, B, T = 1, 4 / 2, 37 / 4, 224
+   against S = 1500: a ragged last key tile and query tiles under 64
+   rows), each also held per row in bf16; in bf16, held, held per row
+   and timed beside SDPA and the bound: non-causal B=4 T=S=1500 H=KV=12
+   hd 64 (whisper's encoder) and causal B=1 T=S=1000 H=28 KV=4 hd 128
+   (qwen2-vl's GQA group of 7); rmsnorm at 6000 x 768 (the encoder's
+   rows) and 1000 x 3584 in both dtypes, timed in bf16.
 5. Serve: ``ServeEngine`` at full width, bf16 weights drawn from a seeded
    generator, 4 slots, 8 requests (prompt lengths from ``default_rng(0)`` in
    [100, 1500], 32 new tokens each), for three models in turn:
@@ -133,6 +141,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    full-depth model's kernel path must then be within twice that floor of
    its plain path in bf16. The plain attention runs 2048 query rows a call
    so a 5000-token prompt's fp32 scores fit beside the model.
+5g. Serve the frontend archs at full width in bf16 through the model's
+   own entry points, ``prefill`` with the modality inputs and then
+   ``decode_step`` (``ServeEngine`` refuses both: its requests carry
+   tokens only, and the JAX package's engine cannot serve them either),
+   one model on the card at a time, random weights from seed 0: two
+   batches of 4 prompts of one length (``default_rng(0)``), then 32
+   greedy decode steps at a scalar cache_len, the tokens chosen on the
+   card:
+   - qwen2-vl-7b (28 layers, GQA 28:4, QKV biases, M-RoPE (16, 24, 24);
+     7.6 B params): prompts in [300, 1300], max_seq 2048, each holding one
+     16 x 16 grid of patch embeddings (N(0, 0.02^2), bf16) at positions
+     8-263 with Qwen2-VL's M-RoPE ids (text before the grid at t = h = w
+     = i, patch (r, c) at (8, 8 + r, 8 + c), text after it from 24 on):
+     28 flash and 57 rmsnorm launches per prefill, 57 per decode step;
+   - whisper-small (12 encoder + 12 decoder layers, d 768, hd 64, the
+     ungated GELU MLP, sinusoidal positions): 1500 frames per request
+     (N(0, 0.02^2), bf16), prompts in [4, 224], max_seq 448: 36 flash (12
+     encoder, non-causal 1500 x 1500; 12 causal self; 12 cross, T against
+     1500) and 62 rmsnorm per prefill, 37 rmsnorm per decode step.
+   The exact launch counts, prefill ms per request, decode ms per step,
+   tokens/s and peak memory beside the card line, and the teacher-forced
+   check of each model whole (its fp32 copy fits), with the first
+   request's frames or patches and M-RoPE ids.
 5b. Train: the sweep's member step (``repro_torch.launch.sweep``:
    ``forward_loss`` -> autograd through the kernels' Functions ->
    ``adamw_update``), TF32 off, params in fp32:
@@ -213,7 +244,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      src/repro_torch/analysis/baseline.txt``, in a subprocess under a
      timeout: exit 0.
 6. Print the kernels' JSON line (flash and rmsnorm with every serving
-   path's launches, phase 5f's four under ``"<arch> serve"``; the fp32
+   path's launches, phase 5f's four and 5g's two under ``"<arch>
+   serve"``, and under ``"regimes"`` the rows timed for phase 5g; the fp32
    forward and both backward kernels with their training and sweep
    launches beside the serving kernels, the bf16 backward kernels with the trainer's launches; ssd_scan
    as two rows, the ordered walk with xlstm's launches and the
@@ -498,6 +530,12 @@ ARCH_FLASH = (   # phase 5f's regimes (bf16, hd 128, causal): H, KV, T, window
     (16, 16, 1000, 0),           # moonshot-v1-16b-a3b: no grouping
     (48, 8, 5000, 4096))         # mixtral-8x22b: a 4096-key window, T > W
 ARCH_RMS_D = (1536, 5120, 6144)              # with 2048: phase 5f's d_model
+ENC_LEN = 1500                               # whisper's encoder frames
+CROSS_FLASH = ((1, 4), (2, 37), (4, 224))    # B, T: cross attention, S=1500
+MODAL_FLASH = (   # phase 5g's timed regimes (bf16): B, T, S, H, KV, hd, causal
+    (4, ENC_LEN, ENC_LEN, 12, 12, 64, False),   # whisper's encoder
+    (1, 1000, 1000, 28, 4, 128, True))          # qwen2-vl: GQA group 7
+MODAL_RMS = ((4 * ENC_LEN, 768), (1000, 3584))  # whisper's encoder rows, qwen2-vl
 REPORT_T = 1000                              # the JSON line's flash shape
 REPORT_RMS = "rows=16000 d=128 bfloat16"     # q_norm rows at T=1000
 
@@ -528,19 +566,8 @@ def check_flash(gen):
                   (1, 1, 77, 4, 2, hd, dtype, True, 0, 76)]
     path = {}
     for B, T, S, H, KV, hd, dtype, causal, window, off in cases:
-        q = randn(gen, B, T, H, hd, dtype=dtype)
-        k = randn(gen, B, S, KV, hd, dtype=dtype)
-        v = randn(gen, B, S, KV, hd, dtype=dtype)
-        kw = dict(causal=causal, window=window, q_offset=off)
-        got = flash_attention(q, k, v, **kw)
-        torch.cuda.synchronize()
-        err, ok = max_err(got, flash_attention_ref(q, k, v, **kw), TOL[dtype])
-        name = (f"B={B} T={T} S={S} H={H} KV={KV} hd={hd} "
-                f"{str(dtype)[6:]} causal={causal} window={window} "
-                f"q_offset={off}")
-        log(f"flash_attention {name}: max_abs_err={err:.3e} "
-            f"tol={TOL[dtype]:.0e} {'ok' if ok else 'FAIL'}")
-        require(ok, f"flash_attention disagrees with its plain version: {name}")
+        q, k, v, got, err, name = hold_flash(gen, B, T, S, H, KV, hd, dtype,
+                                             causal, window, off)
         if (H, KV, T, window) in ARCH_FLASH and dtype == torch.bfloat16:
             check_flash_rows(q, k, v, got, name, window)
             path[H, KV, T, window] = time_flash(q, k, v, err, window)
@@ -557,6 +584,25 @@ def check_flash(gen):
     return path
 
 
+def hold_flash(gen, B, T, S, H, KV, hd, dtype, causal, window=0, off=0):
+    """One case drawn from ``gen``, the kernel held against its plain
+    version; returns (q, k, v, got, err, name)."""
+    q = randn(gen, B, T, H, hd, dtype=dtype)
+    k = randn(gen, B, S, KV, hd, dtype=dtype)
+    v = randn(gen, B, S, KV, hd, dtype=dtype)
+    kw = dict(causal=causal, window=window, q_offset=off)
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err, ok = max_err(got, flash_attention_ref(q, k, v, **kw), TOL[dtype])
+    name = (f"B={B} T={T} S={S} H={H} KV={KV} hd={hd} "
+            f"{str(dtype)[6:]} causal={causal} window={window} "
+            f"q_offset={off}")
+    log(f"flash_attention {name}: max_abs_err={err:.3e} "
+        f"tol={TOL[dtype]:.0e} {'ok' if ok else 'FAIL'}")
+    require(ok, f"flash_attention disagrees with its plain version: {name}")
+    return q, k, v, got, err, name
+
+
 def row_rel_err(got, want) -> float:
     """The largest error in any (batch, position, head) row of ``got``,
     relative to the RMS of that row of ``want``."""
@@ -565,21 +611,26 @@ def row_rel_err(got, want) -> float:
     return float(((got - want).abs().amax(dim=-1) / rms).max())
 
 
-def check_flash_rows(q, k, v, got, name, window: int = 0):
+def check_flash_rows(q, k, v, got, name, window: int = 0,
+                     causal: bool = True):
     """At a prefill shape, where outputs are ~0.05 and 2e-2 absolute would
     pass a kernel that dropped a KV tile: the bf16 kernel's error per row
     against the plain version in fp32 (same bf16 inputs), relative to the
     row's RMS, within twice the plain version's own bf16 rounding of the
     same rows. A plain run without the first 64 keys of the last rows (with
-    a window: the oldest 64 keys of every full window) must fail the same
-    limit, or the check could not see a missing tile."""
+    a window: the oldest 64 keys of every full window; non-causal: the
+    first 64 keys of every row) must fail the same limit, or the check
+    could not see a missing tile."""
     T = q.shape[1]
     qf, kf, vf = q.float(), k.float(), v.float()
-    want = plain_attention(qf, kf, vf, window=window)
+    want = plain_attention(qf, kf, vf, causal=causal, window=window)
     limit = 2 * row_rel_err(want.to(torch.bfloat16), want)
     err = row_rel_err(got, want)
-    dropped = row_rel_err(plain_attention(
-        qf, kf, vf, window=(window or T) - 64).to(torch.bfloat16), want)
+    if causal:
+        short = plain_attention(qf, kf, vf, window=(window or T) - 64)
+    else:
+        short = plain_attention(qf, kf[:, 64:], vf[:, 64:], causal=False)
+    dropped = row_rel_err(short.to(torch.bfloat16), want)
     ok = err <= limit < dropped
     log(f"  per row {name}: max |err| / row RMS {err:.3e}, limit {limit:.3e} "
         f"(2x the bf16 rounding of the fp32 result), first tile dropped "
@@ -588,14 +639,16 @@ def check_flash_rows(q, k, v, got, name, window: int = 0):
     require(dropped > limit, f"per-row check cannot see a dropped tile: {name}")
 
 
-def time_flash(q, k, v, err, window: int = 0):
-    """Causal, T == S: the kernel, its plain version, SDPA (with a window:
-    on the window's boolean mask, k and v repeated to every head) and the
-    bound over the visible (t, s) pairs."""
+def time_flash(q, k, v, err, window: int = 0, causal: bool = True):
+    """Causal with T == S, or non-causal at any T and S: the kernel, its
+    plain version, SDPA (with a window: on the window's boolean mask, k and
+    v repeated to every head) and the bound over the visible (t, s)
+    pairs."""
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     W = window or T
-    pairs = sum(min(t + 1, W) for t in range(T))    # visible (t, s) pairs
+    pairs = (sum(min(t + 1, W) for t in range(T)) if causal
+             else T * S)                             # visible (t, s) pairs
     flops = 4 * B * H * hd * pairs
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
     bound = {"operations": flops / PEAK_BF16 * 1e3,
@@ -608,17 +661,19 @@ def time_flash(q, k, v, err, window: int = 0):
                                                          attn_mask=mask)
     else:
         library = lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
-    kernel = lambda: flash_attention(q, k, v, window=window)
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+    kernel = lambda: flash_attention(q, k, v, causal=causal, window=window)
     row = {
         "max_abs_err": err,
         "ms": device_ms(kernel, 20),
-        "plain_ms": device_ms(lambda: flash_attention_ref(q, k, v,
-                                                          window=window), 5),
+        "plain_ms": device_ms(lambda: flash_attention_ref(
+            q, k, v, causal=causal, window=window), 5),
         "library_ms": device_ms(library, 20),
         "bound_by": max(bound, key=bound.get),
         "bound_ms": max(bound.values()),
-        "shape": (f"B=1 T=S={T} H={H} KV={KV} hd={hd} bf16 causal"
+        "shape": (f"B={B} " + (f"T=S={T}" if T == S else f"T={T} S={S}")
+                  + f" H={H} KV={KV} hd={hd} bf16 "
+                  + ("causal" if causal else "non-causal")
                   + (f" window={window}" if window else "")),
     }
     log(f"  device time {row['shape']}: kernel {row['ms']:.4f} ms, plain "
@@ -660,20 +715,26 @@ def check_rmsnorm(gen):
     path = {}
     for dtype in (torch.float32, torch.bfloat16):
         for name, x, g in rmsnorm_cases(gen, dtype):
-            got = rmsnorm(x, g, eps=1e-6)
-            torch.cuda.synchronize()
-            err, ok = max_err(got, rmsnorm_ref(x, g, eps=1e-6), TOL[dtype])
-            vec, group, held = rmsnorm_plan(
-                x.data_ptr() | g.data_ptr() | got.data_ptr(), x.shape[-1],
-                x.element_size())
-            log(f"rmsnorm {name}: path vec={vec} group={group} "
-                f"{'held' if held else 'streamed'} "
-                f"max_abs_err={err:.3e} tol={TOL[dtype]:.0e} "
-                f"{'ok' if ok else 'FAIL'}")
-            require(ok, f"rmsnorm disagrees with its plain version: {name}")
+            err = hold_rmsnorm(name, x, g)
             if dtype == torch.bfloat16:
                 path[name] = time_rmsnorm(name, x, g, err)
     return path
+
+
+def hold_rmsnorm(name, x, g) -> float:
+    """The kernel against its plain version (the path it took logged)."""
+    got = rmsnorm(x, g, eps=1e-6)
+    torch.cuda.synchronize()
+    err, ok = max_err(got, rmsnorm_ref(x, g, eps=1e-6), TOL[x.dtype])
+    vec, group, held = rmsnorm_plan(
+        x.data_ptr() | g.data_ptr() | got.data_ptr(), x.shape[-1],
+        x.element_size())
+    log(f"rmsnorm {name}: path vec={vec} group={group} "
+        f"{'held' if held else 'streamed'} "
+        f"max_abs_err={err:.3e} tol={TOL[x.dtype]:.0e} "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, f"rmsnorm disagrees with its plain version: {name}")
+    return err
 
 
 def time_rmsnorm(name, x, g, err):
@@ -699,6 +760,39 @@ def time_rmsnorm(name, x, g, err):
         f"{nbytes / row['ms'] / 1e6:.1f} GB/s; one call from Python "
         f"{host_ms(kernel, 50):.4f} ms")
     return row
+
+
+def check_modal_kernels(gen):
+    """Phase 5g's regimes, on a generator of their own (the earlier cases
+    keep their draws): flash non-causal with S != T in both dtypes,
+    whisper's cross attention at (B, T) of ``CROSS_FLASH`` against its
+    1500 frames (H = KV = 12, hd 64; a ragged last key tile, T < 64 in one
+    query tile), each held against the plain version and in bf16 per row;
+    ``MODAL_FLASH`` in bf16, held, held per row and timed; rmsnorm at
+    ``MODAL_RMS`` in both dtypes, timed in bf16. Returns the timed flash
+    and rmsnorm rows."""
+    cases = [(B, T, ENC_LEN, 12, 12, 64, dtype, False)
+             for dtype in (torch.float32, torch.bfloat16)
+             for B, T in CROSS_FLASH]
+    cases += [(*shape, torch.bfloat16, causal)
+              for *shape, causal in MODAL_FLASH]
+    flash_rows, rms_rows = [], []
+    for B, T, S, H, KV, hd, dtype, causal in cases:
+        q, k, v, got, err, name = hold_flash(gen, B, T, S, H, KV, hd, dtype,
+                                             causal)
+        if dtype == torch.bfloat16:
+            check_flash_rows(q, k, v, got, name, causal=causal)
+            if (B, T, S, H, KV, hd, causal) in MODAL_FLASH:
+                flash_rows.append(time_flash(q, k, v, err, causal=causal))
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, d in MODAL_RMS:
+            x = randn(gen, n, d, dtype=dtype)
+            g = (1 + 0.1 * randn(gen, d, dtype=torch.float32)).to(dtype)
+            name = f"rows={n} d={d} {str(dtype)[6:]}"
+            err = hold_rmsnorm(name, x, g)
+            if dtype == torch.bfloat16:
+                rms_rows.append(time_rmsnorm(name, x, g, err))
+    return flash_rows, rms_rows
 
 
 # --------------------------------------------------------------------------
@@ -1571,10 +1665,15 @@ def plain_versions():
         ops.attention, ops.norm, ops.ssd, ops.slstm = saved
 
 
-def teacher_forced(params, cfg, prompt, forced):
-    """Logits of prefill and one decode step per forced token, [n+1, V]."""
+def teacher_forced(params, cfg, prompt, forced, extra=None):
+    """Logits of prefill and one decode step per forced token, [n+1, V].
+    ``extra``: the prompt's modality inputs for ``prefill`` (batch 1),
+    frames and patches cast to the params' dtype."""
     toks = torch.as_tensor(prompt[None], device="cuda")
-    logits, cache = prefill(params, cfg, toks, pad=len(forced) + 1)
+    dtype = params["embed"].dtype
+    extra = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in (extra or {}).items()}
+    logits, cache = prefill(params, cfg, toks, pad=len(forced) + 1, **extra)
     out = [logits[0]]
     for i, tok in enumerate(forced):
         logits, cache = decode_step(
@@ -1699,6 +1798,167 @@ def serve_archs(card: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     log(f"phase 5f: {time.perf_counter() - t0:.1f} s ({card})")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 5g: the frontend archs through prefill / decode_step
+# --------------------------------------------------------------------------
+# arch, prompt lengths [lo, hi), max_seq
+MODAL_SERVE = (("qwen2-vl-7b", (300, 1301), 2048),
+               ("whisper-small", (4, 225), 448))
+MODAL_BATCH, MODAL_BATCHES, MODAL_STEPS = 4, 2, 32
+VLM_GRID, VLM_AT = 16, 8          # one 16 x 16 grid of patches at 8-263
+
+
+def vlm_pos3(B: int, T: int):
+    """[3, B, T] M-RoPE ids as Qwen2-VL's rope index lays out one image of
+    ``VLM_GRID`` x ``VLM_GRID`` patches at ``VLM_AT``: text before it at
+    t = h = w = i, patch (r, c) at (VLM_AT, VLM_AT + r, VLM_AT + c), text
+    after it from VLM_AT + VLM_GRID on."""
+    end = VLM_AT + VLM_GRID * VLM_GRID
+    ids = torch.empty(3, T, dtype=torch.long)
+    ids[:, :VLM_AT] = torch.arange(VLM_AT)
+    patch = torch.arange(VLM_GRID * VLM_GRID)
+    r, c = patch // VLM_GRID, patch % VLM_GRID
+    ids[0, VLM_AT:end] = VLM_AT
+    ids[1, VLM_AT:end] = VLM_AT + r
+    ids[2, VLM_AT:end] = VLM_AT + c
+    ids[:, end:] = VLM_AT + VLM_GRID + torch.arange(T - end)
+    return ids[:, None].expand(3, B, T).contiguous().cuda()
+
+
+def modal_inputs(cfg, gen, B: int, T: int) -> dict:
+    """``prefill``'s modality inputs for B prompts of T tokens: whisper's
+    frames [B, 1500, d], or qwen2-vl's patch embeddings [B, 256, d] at
+    positions 8-263 with their M-RoPE ids; N(0, 0.02^2), bf16."""
+    if cfg.enc_dec:
+        return {"frames": randn(gen, B, cfg.enc_len, cfg.d_model,
+                                dtype=torch.bfloat16, scale=0.02)}
+    P = VLM_GRID * VLM_GRID
+    return {"patch_embeds": randn(gen, B, P, cfg.d_model,
+                                  dtype=torch.bfloat16, scale=0.02),
+            "patch_pos": torch.arange(VLM_AT, VLM_AT + P,
+                                      device="cuda")[None].expand(B, P),
+            "pos3": vlm_pos3(B, T)}
+
+
+def modal_launches(cfg):
+    """Per prefill and per decode step. whisper: one flash a layer in the
+    encoder (non-causal) and two in the decoder (self and cross); ln1 and
+    ln2 a layer and enc_norm in the encoder, ln1, ln_x and ln2 a layer and
+    final_norm in the decoder. qwen2-vl as any one-stage ATTN model."""
+    if not cfg.enc_dec:
+        return arch_launches(cfg.n_layers, 2)
+    E, L = cfg.n_enc_layers, cfg.n_layers
+    step = {"rmsnorm": 3 * L + 1}
+    return {"flash_attention": E + 2 * L,
+            "rmsnorm": 2 * E + 1 + step["rmsnorm"]}, step
+
+
+def serve_modal(arch: str, prompt_range, max_seq: int, card: str):
+    """One arch at full width in bf16 through ``prefill`` (with its
+    modality inputs) and ``MODAL_STEPS`` greedy ``decode_step``s at a
+    scalar cache_len, for ``MODAL_BATCHES`` batches of ``MODAL_BATCH``
+    prompts of one length each; the exact launch counts; then the
+    teacher-forced check of the first request, whole. Returns the path's
+    launches and metrics."""
+    cfg = get_config(arch)
+    require(cfg.param_dtype == "bfloat16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                         device="cuda")
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    log(f"serve: {arch} full width ({cfg.n_layers} layers"
+        + (f" + {cfg.n_enc_layers} encoder layers over {cfg.enc_len} frames"
+           if cfg.enc_dec else f", M-RoPE {cfg.mrope_sections}")
+        + f", d_model {cfg.d_model}, H {cfg.n_heads} KV {cfg.n_kv_heads} hd "
+        f"{cfg.head_dim}, vocab {cfg.vocab_size}; {n_params / 1e9:.3f} B "
+        f"params, {n_bytes / 2**30:.2f} GiB) set up in "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    per_prefill, per_step = modal_launches(cfg)
+    rng = np.random.default_rng(0)
+    gen = torch.Generator("cuda").manual_seed(0)
+    B = MODAL_BATCH
+    first = None
+    prefill_s = decode_s = 0.0
+    LAUNCHES.clear()
+    t_all = time.perf_counter()
+    for _ in range(MODAL_BATCHES):
+        T = int(rng.integers(*prompt_range))
+        prompts = rng.integers(0, cfg.vocab_size, (B, T))
+        extra = modal_inputs(cfg, gen, B, T)
+        toks = torch.as_tensor(prompts, device="cuda")
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, cfg, toks, pad=max_seq - T, **extra)
+        out = [logits.argmax(-1)]
+        torch.cuda.synchronize()
+        prefill_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i in range(MODAL_STEPS):            # greedy, on the card
+            logits, cache = decode_step(params, cfg, out[-1], cache, T + i)
+            out.append(logits.argmax(-1))
+        out = torch.stack(out, dim=1).cpu()
+        decode_s += time.perf_counter() - t0
+        require(torch.isfinite(logits).all(), f"{arch}: non-finite logits")
+        require(bool(((out >= 0) & (out < cfg.vocab_size)).all()))
+        log(f"serve: {arch} batch of {B} x {T} tokens -> {out.shape[1]} "
+            f"tokens each; request 0: {out[0, :8].tolist()}")
+        if first is None:
+            first = (prompts[0], out[0, :8].tolist(),
+                     {k: v[:, :1] if k == "pos3" else v[:1]
+                      for k, v in extra.items()})
+        del cache, extra
+    wall = time.perf_counter() - t_all
+    launches = dict(LAUNCHES)
+    steps = MODAL_BATCHES * MODAL_STEPS
+    want = expected_launches(per_prefill, per_step, MODAL_BATCHES, steps)
+    log(f"serve: {arch} {MODAL_BATCHES} prefills, {steps} decode steps, "
+        f"launches {launches} (expected {want})")
+    require(launches == want, f"launch counts {launches} != {want}")
+    tokens = MODAL_BATCHES * B * (MODAL_STEPS + 1)
+    metrics = {
+        "params_b": n_params / 1e9,
+        "params_gib": n_bytes / 2**30,
+        "prefill_ms_per_request": prefill_s / (MODAL_BATCHES * B) * 1e3,
+        "decode_ms_per_step": decode_s / steps * 1e3,
+        "tokens_per_s": tokens / wall,
+        "wall_s": wall,
+        "generated_tokens": tokens,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    log(f"serve metrics {arch}: " + json.dumps(metrics) + f" ({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0] - FP32_HEADROOM
+    require(fp32_bytes(params) <= free,
+            f"{arch}: its fp32 copy does not fit beside it")
+    prompt, forced, extra = first
+    check_teacher_forced(params, cfg, prompt, forced, per_prefill, per_step,
+                         extra)
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    log(f"serve: {arch} done in {metrics['phase_s']:.1f} s ({card})")
+    return launches, metrics
+
+
+def serve_modal_archs(card: str) -> dict:
+    """Phase 5g: qwen2-vl-7b and whisper-small at full width in bf16, one
+    model on the card at a time. Returns each path's launches under
+    ``"<arch> serve"``."""
+    t0 = time.perf_counter()
+    out = {}
+    for arch, prompt_range, max_seq in MODAL_SERVE:
+        out[f"{arch} serve"], _ = serve_modal(arch, prompt_range, max_seq,
+                                              card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 5g: {time.perf_counter() - t0:.1f} s ({card})")
     return out
 
 
@@ -1837,7 +2097,8 @@ def check_layers(params, cfg, prompt, norms_per_layer):
         f"{worst[2]:.4e}; final |h| {float(h.float().abs().max()):.4e}")
 
 
-def check_teacher_forced(params, cfg, prompt, forced, per_prefill, per_step):
+def check_teacher_forced(params, cfg, prompt, forced, per_prefill, per_step,
+                         extra=None):
     """The kernel path's logits against the same model through the plain
     versions on the card, in bf16 and in fp32, and both bf16 paths against
     the fp32 plain run.
@@ -1850,17 +2111,17 @@ def check_teacher_forced(params, cfg, prompt, forced, per_prefill, per_step):
     mask, norm or state moves the logits by far more than rounding does.
     """
     LAUNCHES.clear()
-    got = teacher_forced(params, cfg, prompt, forced)
+    got = teacher_forced(params, cfg, prompt, forced, extra)
     require(dict(LAUNCHES) == expected_launches(per_prefill, per_step, 1,
                                                 len(forced)),
             f"teacher-forced run launched {dict(LAUNCHES)}")
     mid = dict(LAUNCHES)
     params32 = tree_map(lambda t: t.float(), params)
     with plain_versions():
-        plain = teacher_forced(params, cfg, prompt, forced)
-        ref32 = teacher_forced(params32, cfg, prompt, forced)
+        plain = teacher_forced(params, cfg, prompt, forced, extra)
+        ref32 = teacher_forced(params32, cfg, prompt, forced, extra)
     require(dict(LAUNCHES) == mid, "the plain reference launched a kernel")
-    got32 = teacher_forced(params32, cfg, prompt, forced)
+    got32 = teacher_forced(params32, cfg, prompt, forced, extra)
     del params32
     require(got.shape == (len(forced) + 1, cfg.vocab_size))
     require(torch.isfinite(got).all() and torch.isfinite(got32).all())
@@ -2864,6 +3125,8 @@ def main():
     rms_bwd_bf16_rows, rms_bwd_bf16_step = check_rmsnorm_bwd_bf16(gen)
     ssd_rows = check_ssd(gen)
     slstm_rows = check_slstm(gen)
+    flash_5g_rows, rms_5g_rows = check_modal_kernels(
+        torch.Generator("cuda").manual_seed(31))
 
     qwen, _ = serve("qwen3-0.6b", QWEN_LAYERS,                # phase 5
                     {"flash_attention": QWEN_LAYERS, "rmsnorm": QWEN_NORMS},
@@ -2877,6 +3140,7 @@ def main():
                       "rmsnorm": ZAMBA_NORMS},
                      {"rmsnorm": ZAMBA_NORMS}, ssd="chunks")
     archs = serve_archs(card)                                # phase 5f
+    modal = serve_modal_archs(card)                          # phase 5g
     torch.cuda.empty_cache()
     train, train_metrics = train_full_width()                # phase 5b
     sweep, sweep_metrics = train_sweep()
@@ -2899,7 +3163,7 @@ def main():
     launch_layer(card)                                       # phase 5e
 
     serving = {"qwen3-0.6b serve": qwen, "xlstm-1.3b serve": xlstm,
-               "zamba2-2.7b serve": zamba, **archs}
+               "zamba2-2.7b serve": zamba, **archs, **modal}
     bf16_training = {"qwen3-0.6b Trainer (bf16, full width)": trainer}
     training = {"qwen3-0.6b train (fp32, full width)": train,
                 "sweep member (qwen3-0.6b reduced, fp32)": sweep,
@@ -2918,7 +3182,8 @@ def main():
         {"name": "flash_attention", "route": "cuda",
          "source": csrc + "flash_attention_sm90.cu", "replaces": flash_tpu,
          **launches("flash_attention", {**serving, **bf16_training}),
-         **flash_rows[REPORT_T]},
+         **flash_rows[REPORT_T],
+         "regimes": flash_5g_rows},
         {"name": "flash_attention_fp32", "route": "cuda",
          "source": csrc + "flash_attention.cu", "replaces": flash_tpu,
          **launches("flash_attention", training), **flash_fp32_row},
@@ -2932,7 +3197,8 @@ def main():
         {"name": "rmsnorm", "route": "cuda", "source": csrc + "rmsnorm.cu",
          "replaces": rms_tpu,
          **launches("rmsnorm", {**serving, **training, **bf16_training}),
-         **rms_rows[REPORT_RMS]},
+         **rms_rows[REPORT_RMS],
+         "regimes": rms_5g_rows},
         {"name": "rmsnorm_bwd", "route": "cuda",
          "source": csrc + "rmsnorm_bwd.cu", "replaces": rms_tpu,
          **launches("rmsnorm_bwd", training),

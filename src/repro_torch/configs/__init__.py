@@ -10,7 +10,8 @@ import importlib
 from .base import ArchConfig  # noqa: F401
 
 ARCH_IDS = ["qwen3_0_6b", "xlstm_1_3b", "zamba2_2_7b", "qwen3_14b",
-            "qwen2_1_5b", "moonshot_v1_16b_a3b", "mixtral_8x22b"]
+            "qwen2_1_5b", "moonshot_v1_16b_a3b", "mixtral_8x22b",
+            "qwen2_vl_7b", "whisper_small"]
 
 
 def get_config(name: str) -> ArchConfig:

@@ -1,7 +1,9 @@
 """Blocks of the port: init / forward / prefill / decode / cache-init
 (counterpart of ``repro/models/blocks.py``). Kinds: ATTN (attention +
-dense MLP, also zamba2's shared block), MOE (attention + MoE), MAMBA2,
-MLSTM and SLSTM.
+dense MLP, also zamba2's shared block and whisper's encoder blocks), MOE
+(attention + MoE), MAMBA2, MLSTM and SLSTM. An ATTN block made with
+``cross`` (whisper's decoder) adds a cross attention over the encoder's
+output between the self attention and the MLP: ``ln_x`` and ``xattn``.
 
 Forwards return (x, aux) like the JAX package, aux being the MoE balance
 loss (0 for the other kinds). Decode updates the cache in place. A
@@ -15,7 +17,9 @@ import torch.nn.functional as F
 
 from . import ssm as S
 from . import xlstm as X
-from .attention import attn_decode, attn_prefill, init_attn_params, init_kv_cache
+from .attention import (attn_decode, attn_decode_cross, attn_forward,
+                        attn_with_kv, cross_kv, init_attn_params,
+                        init_kv_cache)
 from .common import rms_norm, tree_map
 from .mlp import init_mlp_params, init_moe_params, mlp_forward, moe_forward
 
@@ -35,8 +39,10 @@ def _check_kind(kind: str):
         raise ValueError(f"unknown block kind {kind!r}")
 
 
-def init_block(kind: str, generator, cfg, dtype, device, lead=()):
-    """One block's params, or ``lead``-stacked params of several blocks."""
+def init_block(kind: str, generator, cfg, dtype, device, lead=(),
+               cross: bool = False):
+    """One block's params, or ``lead``-stacked params of several blocks;
+    ``cross`` adds the enc-dec decoder block's cross attention."""
     _check_kind(kind)
     ones = lambda: torch.ones(*lead, cfg.d_model, dtype=dtype, device=device)
     if kind in _INIT:
@@ -49,6 +55,10 @@ def init_block(kind: str, generator, cfg, dtype, device, lead=()):
         p["moe"] = init_moe_params(generator, cfg, dtype, device, lead)
     else:
         p["mlp"] = init_mlp_params(generator, cfg, dtype, device, lead)
+    if cross:
+        p["ln_x"] = ones()
+        p["xattn"] = init_attn_params(generator, cfg, dtype, device, lead,
+                                      cross=True)
     return p
 
 
@@ -59,21 +69,29 @@ def _ffn(p, cfg, hn, *, inference: bool):
     return mlp_forward(p["mlp"], cfg, hn), torch.zeros((), device=hn.device)
 
 
-def _attn_ffn(p, cfg, x, pos):
-    """ATTN / MOE over a whole sequence: (y, aux, (k, v))."""
-    a_out, kv = attn_prefill(p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps),
-                             pos=pos)
+def _attn_ffn(p, cfg, x, pos, pos3=None, enc_out=None, causal=True):
+    """ATTN / MOE over a whole sequence: (y, aux, (k, v)). The self
+    attention is causal but in an encoder; a decoder block with ``xattn``
+    then attends to all of ``enc_out`` (non-causal, no RoPE)."""
+    a_out, kv = attn_with_kv(p["attn"], cfg,
+                             rms_norm(x, p["ln1"], cfg.norm_eps), pos=pos,
+                             pos3=pos3, causal=causal)
     h = x + a_out
+    if "xattn" in p:
+        h = h + attn_forward(p["xattn"], cfg,
+                             rms_norm(h, p["ln_x"], cfg.norm_eps), pos=pos,
+                             causal=False, kv_x=enc_out, use_rope=False)
     y, aux = _ffn(p, cfg, rms_norm(h, p["ln2"], cfg.norm_eps), inference=False)
     return h + y, aux, kv
 
 
-def block_forward(kind: str, p, cfg, x, *, pos):
+def block_forward(kind: str, p, cfg, x, *, pos, pos3=None, enc_out=None,
+                  causal=True):
     _check_kind(kind)
     if kind in _FORWARD:
         y = _FORWARD[kind](p["mixer"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps))
         return x + y, torch.zeros((), device=x.device)
-    y, aux, _ = _attn_ffn(p, cfg, x, pos)
+    y, aux, _ = _attn_ffn(p, cfg, x, pos, pos3, enc_out, causal)
     return y, aux
 
 
@@ -123,30 +141,37 @@ def _rolling(t, W: int):
     return F.pad(t, (0, 0, 0, 0, 0, W - T))
 
 
-def block_prefill(kind: str, p, cfg, x, *, pos, cache_size: int = 0):
+def block_prefill(kind: str, p, cfg, x, *, pos, pos3=None, enc_out=None,
+                  cache_size: int = 0):
     """Returns (x, cache). For ATTN and MOE the (k, v) cache is zero-padded
     on the sequence axis up to ``cache_size`` slots, headroom for generated
     tokens, or with a sliding window is the rolling cache of ``cache_size``
-    slots; a recurrent kind's cache is its final state."""
+    slots; a decoder block with a cross attention also keeps its k, v over
+    ``enc_out`` (``xkv``); a recurrent kind's cache is its final state."""
     _check_kind(kind)
     if kind in _PREFILLS:
         y, cache = _PREFILLS[kind](p["mixer"], cfg,
                                    rms_norm(x, p["ln1"], cfg.norm_eps))
         return x + y, cache
-    y, _, (k, v) = _attn_ffn(p, cfg, x, pos)
+    y, _, (k, v) = _attn_ffn(p, cfg, x, pos, pos3, enc_out)
     if cfg.sliding_window and cache_size:
         k, v = _rolling(k, cache_size), _rolling(v, cache_size)
     elif cache_size > x.shape[1]:
         pad = cache_size - x.shape[1]
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
-    return y, {"kv": (k, v)}
+    cache = {"kv": (k, v)}
+    if "xattn" in p:
+        cache["xkv"] = cross_kv(p["xattn"], cfg, enc_out)
+    return y, cache
 
 
 def block_decode(kind: str, p, cfg, x, cache, *, cache_len,
                  rolling: bool = False):
     """One token; the cache is updated in place and returned. The MoE runs
-    drop-free here (``inference``), as JAX's ``block_decode``."""
+    drop-free here (``inference``), as JAX's ``block_decode``; a decoder
+    block's cross attention reads its ``xkv`` between the self attention
+    and ln2."""
     _check_kind(kind)
     if kind in _DECODE:
         y, new = _DECODE[kind](p["mixer"], cfg,
@@ -156,13 +181,22 @@ def block_decode(kind: str, p, cfg, x, cache, *, cache_len,
     a_out, kv = attn_decode(p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps),
                             cache["kv"], cache_len=cache_len, rolling=rolling)
     h = x + a_out
+    if "xattn" in p:
+        h = h + attn_decode_cross(p["xattn"], cfg,
+                                  rms_norm(h, p["ln_x"], cfg.norm_eps),
+                                  cache["xkv"])
     y, _ = _ffn(p, cfg, rms_norm(h, p["ln2"], cfg.norm_eps), inference=True)
     return h + y, {**cache, "kv": kv}
 
 
 def init_block_cache(kind: str, cfg, batch: int, cache_size: int, dtype,
-                     device, lead=()):
+                     device, lead=(), cross: bool = False, enc_len: int = 0):
+    """Zeros of a block's cache; ``cross`` adds ``xkv`` over ``enc_len``
+    encoder frames."""
     _check_kind(kind)
     if kind in _CACHE:
         return _CACHE[kind](cfg, batch, dtype, device, lead)
-    return {"kv": init_kv_cache(cfg, batch, cache_size, dtype, device, lead)}
+    c = {"kv": init_kv_cache(cfg, batch, cache_size, dtype, device, lead)}
+    if cross:
+        c["xkv"] = init_kv_cache(cfg, batch, enc_len, dtype, device, lead)
+    return c

@@ -1,5 +1,6 @@
 """Shared primitives of the port: dtypes, matmul, RMSNorm, per-head group
-norm, RoPE, activations and init helpers (counterpart of ``repro/models/common.py``).
+norm, RoPE, M-RoPE, sinusoidal positions, activations and init helpers
+(counterpart of ``repro/models/common.py``).
 
 Params are nested dicts of tensors, weights stored ``[d_in, d_out]`` and
 applied as ``x @ w``, as in the JAX package.
@@ -107,9 +108,17 @@ def group_norm_heads(x, gain, eps: float = 1e-6):
     return (h * gain.float()).to(x.dtype)
 
 
+def _gelu_tanh(x):
+    """``jax.nn.gelu``'s default, the tanh approximation (torch's default
+    is the erf form)."""
+    return F.gelu(x, approximate="tanh")
+
+
 def activation_fn(name: str):
     if name == "silu":
         return F.silu
+    if name == "gelu":
+        return _gelu_tanh
     raise NotImplementedError(f"activation {name!r} is not ported yet")
 
 
@@ -124,11 +133,52 @@ def rope_freqs(head_dim: int, theta: float, device=None):
 
 def apply_rope(x, pos, theta: float):
     """x: [B, T, H, hd]; pos: [B, T] integer positions -> rotated x."""
-    half = x.shape[-1] // 2
     freqs = rope_freqs(x.shape[-1], theta, x.device)          # [half]
-    angles = pos.to(F32)[..., None] * freqs                    # [B, T, half]
+    return _rotate(x, pos.to(F32)[..., None] * freqs)          # [B, T, half]
+
+
+def apply_mrope(x, pos3, theta: float, sections):
+    """Qwen2-VL M-RoPE. x: [B, T, H, hd]; pos3: [3, B, T] (t, h, w) ids.
+    The half-dim frequency bands are split into ``sections`` (t/h/w); each
+    band takes its angle from its own position axis."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"head_dim // 2 = {half}")
+    freqs = rope_freqs(x.shape[-1], theta, x.device)          # [half]
+    angles = pos3.to(F32)[..., None] * freqs                   # [3, B, T, half]
+    parts, start = [], 0
+    for axis, sec in enumerate(sections):
+        parts.append(angles[axis, :, :, start:start + sec])
+        start += sec
+    return _rotate(x, torch.cat(parts, dim=-1))                 # [B, T, half]
+
+
+def _rotate(x, angles):
+    """x rotated by ``angles`` [B, T, half] in fp32, back in x's dtype."""
+    half = x.shape[-1] // 2
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# sinusoidal absolute positions (whisper)
+# --------------------------------------------------------------------------
+def sinusoid_at(pos, d: int):
+    """Sinusoidal position rows at positions ``pos`` (a float tensor of any
+    shape) -> [..., d]: sines then cosines of ``pos * inv``, as
+    ``repro/models/model.py::_sinusoid_at``."""
+    half = d // 2
+    log_timescale = math.log(10000.0) / max(half - 1, 1)
+    inv = torch.exp(-log_timescale * torch.arange(half, dtype=F32,
+                                                  device=pos.device))
+    scaled = pos.to(F32)[..., None] * inv
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=-1)
+
+
+def sinusoidal_positions(n_pos: int, d: int, device=None):
+    """Whisper-style sinusoidal absolute embeddings [n_pos, d], fp32."""
+    return sinusoid_at(torch.arange(n_pos, dtype=F32, device=device), d)

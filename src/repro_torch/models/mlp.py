@@ -1,5 +1,6 @@
-"""Dense gated MLP (SwiGLU) and the sort-dispatch MoE: the counterpart of
-``repro/models/mlp.py``. The ungated form is not ported yet.
+"""Dense MLP (gated SwiGLU, or ungated: whisper's GELU) and the
+sort-dispatch MoE: the counterpart of ``repro/models/mlp.py``. The ungated
+MoE is not ported yet.
 
 The MoE is the JAX package's capacity-bucketed sort dispatch: each token's
 top-k experts are sorted by expert (a stable sort, so tokens keep their
@@ -25,18 +26,24 @@ from .common import F32, activation_fn, dense_init, matmul, normal_init
 
 
 def init_mlp_params(generator, cfg, dtype, device, lead=()):
-    if not cfg.gated_mlp:
-        raise NotImplementedError("the ungated MLP is not ported yet")
+    """``w_up``, ``w_down`` and, for a gated MLP, ``w_gate``."""
     d, f = cfg.d_model, cfg.d_ff
-    return {"w_up": dense_init(generator, d, f, dtype, device, lead=lead),
-            "w_down": dense_init(generator, f, d, dtype, device, lead=lead),
-            "w_gate": dense_init(generator, d, f, dtype, device, lead=lead)}
+    p = {"w_up": dense_init(generator, d, f, dtype, device, lead=lead),
+         "w_down": dense_init(generator, f, d, dtype, device, lead=lead)}
+    if cfg.gated_mlp:
+        p["w_gate"] = dense_init(generator, d, f, dtype, device, lead=lead)
+    return p
 
 
 def mlp_forward(p, cfg, x):
+    """Gated: ``act(x @ w_gate) * (x @ w_up)``; ungated: ``act(x @ w_up)``;
+    the activation in fp32, cast back to x's dtype; then ``@ w_down``."""
     act = activation_fn(cfg.activation)
     up = matmul(x, p["w_up"])
-    h = act(matmul(x, p["w_gate"]).float()).to(x.dtype) * up
+    if "w_gate" in p:
+        h = act(matmul(x, p["w_gate"]).float()).to(x.dtype) * up
+    else:
+        h = act(up.float()).to(x.dtype)
     return matmul(h, p["w_down"])
 
 

@@ -16,7 +16,10 @@ ignored; admission overwrites the whole slot. PyTorch runs eagerly, so there
 is no per-length compile cache to keep. ``stats`` adds the wall seconds
 spent in prefill and in decode (each ends when the chosen tokens reach the
 host, so the device work is inside them). Admission and decoding run under
-``torch.no_grad``, so params that require grad record no graph.
+``torch.no_grad``, so params that require grad record no graph. An arch
+whose prefill needs more than tokens (whisper's frames, qwen2-vl's M-RoPE
+ids) raises at construction: requests carry tokens only, and the JAX
+package's engine cannot serve these archs either.
 """
 from __future__ import annotations
 
@@ -54,6 +57,15 @@ def _insert_slot(cache, slot_cache, idx: int):
 class ServeEngine:
     def __init__(self, cfg, params, slots: int = 8, max_seq: int = 2048,
                  greedy: bool = True, seed: int = 0, device="cuda"):
+        needs = (["frames"] if cfg.enc_dec else []) + (
+            ["pos3"] if cfg.mrope_sections else [])
+        if needs:
+            raise NotImplementedError(
+                f"ServeEngine: {cfg.name}'s prefill needs {' and '.join(needs)}"
+                ", which requests do not carry; serve it through "
+                "repro_torch.models.prefill(..., "
+                + ", ".join(f"{n}=..." for n in needs)
+                + ") and decode_step")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServeEngine: device 'cuda' asked for but no "

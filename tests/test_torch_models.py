@@ -65,8 +65,8 @@ def _layer0(tree):
 
 def test_config_matches_jax_and_other_archs_raise():
     """Every ported arch's config, full and reduced, equals the JAX
-    package's field for field (by id and by dashed name); the archs still
-    missing raise."""
+    package's field for field (by id and by dashed name); the arch still
+    missing raises."""
     want = ArchConfig(**dataclasses.asdict(jax_get_config("qwen3_0_6b")))
     assert get_config("qwen3-0.6b") == want == get_config("qwen3_0_6b")
     for arch in ("qwen3_0_6b", "qwen3_14b", "qwen2_1_5b",
@@ -76,9 +76,25 @@ def test_config_matches_jax_and_other_archs_raise():
         assert get_config(jcfg.name) == get_config(arch)
         assert get_config(arch).reduced() == ArchConfig(
             **dataclasses.asdict(jcfg.reduced()))
-    for other in ("whisper_small", "qwen2_vl_7b", "nemotron_4_340b"):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        get_config("nemotron_4_340b")
+
+
+@pytest.mark.parametrize("arch,ported", [("qwen2_vl_7b", True),
+                                         ("whisper_small", True),
+                                         ("nemotron_4_340b", False)])
+def test_frontend_archs_registered(arch, ported):
+    """qwen2-vl-7b and whisper-small equal the JAX configs (by id and by
+    dashed name, ``reduced()`` too); nemotron-4-340b still raises."""
+    jcfg = jax_get_config(arch)
+    if not ported:
         with pytest.raises(NotImplementedError, match="not ported"):
-            get_config(other)
+            get_config(arch)
+        return
+    assert get_config(arch) == ArchConfig(**dataclasses.asdict(jcfg))
+    assert get_config(jcfg.name) == get_config(arch)
+    assert get_config(arch).reduced() == ArchConfig(
+        **dataclasses.asdict(jcfg.reduced()))
 
 
 @pytest.mark.parametrize("T,S,q_offset,window", [(9, 9, 0, 0), (5, 12, 7, 4)])
