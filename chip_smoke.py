@@ -10,8 +10,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    (one nvcc per source, all at once); log ptxas's registers, shared memory
    and spills, the tensor-core flash kernel's dynamic shared memory, and the
    fp32 flash forward and backward kernels' shared memory and blocks per
-   SM (the forwards at hd 32, 64, 80 and 128, the backward at 32, 64 and
-   128 in fp32 and in bf16; each must fit at least one block on an SM).
+   SM (the forwards at hd 32, 64, 80, 128 and 192, the backward at 32, 64
+   and 128 in fp32 and in bf16; each must fit at least one block on an
+   SM).
 3. The serve paths' bf16 GEMMs (prefill and decode rows) against the fp32
    product of the same operands rounded to bf16, with
    ``allow_bf16_reduced_precision_reduction`` at its default and False:
@@ -93,7 +94,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    and timed beside SDPA and the bound: non-causal B=4 T=S=1500 H=KV=12
    hd 64 (whisper's encoder) and causal B=1 T=S=1000 H=28 KV=4 hd 128
    (qwen2-vl's GQA group of 7); rmsnorm at 6000 x 768 (the encoder's
-   rows) and 1000 x 3584 in both dtypes, timed in bf16.
+   rows) and 1000 x 3584 in both dtypes, timed in bf16. Then phase 5h's
+   regimes on a generator of their own: flash at hd 192 with nemotron's
+   GQA 96:8, causal, in both dtypes at B=1 T=S=1000, T=S=137 and a
+   decode-shaped row (T=1 against S=1100 at q_offset 1099), each held
+   against the plain version and in bf16 per row; T=S=1000 timed in bf16
+   beside SDPA and in fp32 (the CUDA-core kernel, which phase 5h's fp32
+   reference runs) beside SDPA in fp32; the backward at hd 192 must raise
+   NotImplementedError on the card; rmsnorm at 1000 x 18432 in both
+   dtypes (the streamed path), timed in bf16.
 5. Serve: ``ServeEngine`` at full width, bf16 weights drawn from a seeded
    generator, 4 slots, 8 requests (prompt lengths from ``default_rng(0)`` in
    [100, 1500], 32 new tokens each), for three models in turn:
@@ -140,7 +149,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    fp32 copy fits, logged), which gives the bf16 noise floor; the
    full-depth model's kernel path must then be within twice that floor of
    its plain path in bf16. The plain attention runs 2048 query rows a call
-   so a 5000-token prompt's fp32 scores fit beside the model.
+   so a 5000-token prompt's fp32 scores fit beside the model. For an MoE
+   model the layer check also logs, per layer, the (token, k) router
+   choices in which the kernel block and the plain block differ on the
+   same input, each with its top-k margin beside the router's bf16
+   rounding at its token (a tie when within twice that).
 5g. Serve the frontend archs at full width in bf16 through the model's
    own entry points, ``prefill`` with the modality inputs and then
    ``decode_step`` (``ServeEngine`` refuses both: its requests carry
@@ -164,6 +177,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    tokens/s and peak memory beside the card line, and the teacher-forced
    check of each model whole (its fp32 copy fits), with the first
    request's frames or patches and M-RoPE ids.
+5h. Serve nemotron-4-340b at full width in bf16 (d 18432, GQA 96:8, hd
+   192, the ungated squared-ReLU MLP of 73728, an untied vocabulary of
+   256000) cut to 4 of its 96 layers, the phase's one reduction (23.2 B
+   params, 43.3 GiB; all 96 layers take 341 B), as phase 5f serves: 4
+   flash and 9 rmsnorm launches per prefill, 9 rmsnorm per decode step,
+   exactly; one traced window. Its logits cannot be held on a fp32 copy,
+   not even a 1-layer cut's (the two fp32 tables alone take 35.2 GiB), so
+   ``check_streamed`` keeps the weights in bf16 and upcasts only what a
+   step reads: the prompt's and the forced tokens' embedding rows run as
+   one causal sequence, each layer's fp32 copy in turn (12.9 GiB), the
+   head one vocabulary chunk at a time; the kernel path's and the plain
+   path's bf16 logits (prefill and 8 decode steps) are held to that fp32
+   reference by the teacher-forced rule, the same layers through the
+   fp32 kernels within the floor of it; the GiB free logged at each step;
+   then every layer on the kernel path's input.
 5b. Train: the sweep's member step (``repro_torch.launch.sweep``:
    ``forward_loss`` -> autograd through the kernels' Functions ->
    ``adamw_update``), TF32 off, params in fp32:
@@ -244,8 +272,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      src/repro_torch/analysis/baseline.txt``, in a subprocess under a
      timeout: exit 0.
 6. Print the kernels' JSON line (flash and rmsnorm with every serving
-   path's launches, phase 5f's four and 5g's two under ``"<arch>
-   serve"``, and under ``"regimes"`` the rows timed for phase 5g; the fp32
+   path's launches, phase 5f's four, 5g's two and 5h's one under ``"<arch>
+   serve"``, and under ``"regimes"`` the rows timed for phases 5g and 5h;
+   the fp32 forward with its hd 192 row under ``"regimes"``; the fp32
    forward and both backward kernels with their training and sweep
    launches beside the serving kernels, the bf16 backward kernels with the trainer's launches; ssd_scan
    as two rows, the ordered walk with xlstm's launches and the
@@ -289,8 +318,8 @@ from repro_torch.kernels import (LAUNCHES, build, flash_attention,  # noqa: E402
                                  slstm_scan, slstm_scan_ref, ssd_scan,
                                  ssd_scan_ref)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    _forward as flash_forward, bwd_occupancy, fwd_occupancy, sm90_smem_bytes,
-    visible)
+    _FWD_HEAD_DIMS, _forward as flash_forward, bwd_occupancy, fwd_occupancy,
+    sm90_smem_bytes, visible)
 from repro_torch.kernels.rmsnorm import (  # noqa: E402
     bwd_layout as rmsnorm_bwd_layout, plan as rmsnorm_plan)
 from repro_torch.kernels.slstm_scan import (slstm_max_clusters,  # noqa: E402
@@ -308,7 +337,9 @@ from repro_torch.models.model import (embed_tokens, forward_hidden,  # noqa: E40
 from repro_torch.launch.sweep import (build_member_step,  # noqa: E402
                                       loss_and_grads, member_config,
                                       run_sweep, to_batch)
-from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
+from repro_torch.models import blocks as model_blocks  # noqa: E402
+from repro_torch.models.common import (matmul, rms_norm,  # noqa: E402
+                                       tree_leaves, tree_map)
 from repro_torch.optim import adamw_init, adamw_update  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.taskarray import RetryPolicy, TaskGraph  # noqa: E402
@@ -536,6 +567,11 @@ MODAL_FLASH = (   # phase 5g's timed regimes (bf16): B, T, S, H, KV, hd, causal
     (4, ENC_LEN, ENC_LEN, 12, 12, 64, False),   # whisper's encoder
     (1, 1000, 1000, 28, 4, 128, True))          # qwen2-vl: GQA group 7
 MODAL_RMS = ((4 * ENC_LEN, 768), (1000, 3584))  # whisper's encoder rows, qwen2-vl
+NEMO_FLASH = (   # phase 5h's regimes (hd 192, GQA 96:8, causal): B, T, S, q_offset
+    (1, 1000, 1000, 0),          # a prefill (timed in bf16 and fp32)
+    (1, 137, 137, 0),            # a ragged T
+    (1, 1, 1100, 1099))          # decode-shaped: one row against S at q_offset
+NEMO_RMS = (1000, 18432)                     # nemotron's d_model, one prefill
 REPORT_T = 1000                              # the JSON line's flash shape
 REPORT_RMS = "rows=16000 d=128 bfloat16"     # q_norm rows at T=1000
 
@@ -612,21 +648,25 @@ def row_rel_err(got, want) -> float:
 
 
 def check_flash_rows(q, k, v, got, name, window: int = 0,
-                     causal: bool = True):
+                     causal: bool = True, q_offset: int = 0):
     """At a prefill shape, where outputs are ~0.05 and 2e-2 absolute would
     pass a kernel that dropped a KV tile: the bf16 kernel's error per row
     against the plain version in fp32 (same bf16 inputs), relative to the
     row's RMS, within twice the plain version's own bf16 rounding of the
     same rows. A plain run without the first 64 keys of the last rows (with
-    a window: the oldest 64 keys of every full window; non-causal: the
-    first 64 keys of every row) must fail the same limit, or the check
-    could not see a missing tile."""
+    a window: the oldest 64 keys of every full window; non-causal, or
+    causal at a q_offset: the first 64 keys of every row) must fail the
+    same limit, or the check could not see a missing tile."""
     T = q.shape[1]
     qf, kf, vf = q.float(), k.float(), v.float()
-    want = plain_attention(qf, kf, vf, causal=causal, window=window)
+    want = plain_attention(qf, kf, vf, causal=causal, window=window,
+                           q_offset=q_offset)
     limit = 2 * row_rel_err(want.to(torch.bfloat16), want)
     err = row_rel_err(got, want)
-    if causal:
+    if causal and q_offset:
+        short = plain_attention(qf, kf[:, 64:], vf[:, 64:],
+                                q_offset=q_offset - 64)
+    elif causal:
         short = plain_attention(qf, kf, vf, window=(window or T) - 64)
     else:
         short = plain_attention(qf, kf[:, 64:], vf[:, 64:], causal=False)
@@ -793,6 +833,48 @@ def check_modal_kernels(gen):
             if dtype == torch.bfloat16:
                 rms_rows.append(time_rmsnorm(name, x, g, err))
     return flash_rows, rms_rows
+
+
+def check_nemotron_kernels(gen):
+    """Phase 5h's regimes, on a generator of their own: flash at hd 192
+    with nemotron's GQA 96:8, causal, at ``NEMO_FLASH`` (a prefill, a
+    ragged T and a decode-shaped row against S at a q_offset) in both
+    dtypes, each held against the plain version and in bf16 per row; the
+    prefill timed in bf16 (the tensor-core kernel, beside SDPA) and in
+    fp32 (the CUDA-core kernel, which the streamed fp32 check of phase 5h
+    runs); the backward at hd 192 must raise NotImplementedError on the
+    card; rmsnorm at ``NEMO_RMS`` in both dtypes, timed in bf16. Returns
+    the timed bf16 flash, fp32 flash and rmsnorm rows."""
+    H, KV, hd = 96, 8, 192
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, T, S, off in NEMO_FLASH:
+            q, k, v, got, err, name = hold_flash(gen, B, T, S, H, KV, hd,
+                                                 dtype, True, 0, off)
+            if dtype == torch.bfloat16:
+                check_flash_rows(q, k, v, got, name, q_offset=off)
+            if T == S == REPORT_T:
+                rows[dtype] = (time_flash(q, k, v, err)
+                               if dtype == torch.bfloat16
+                               else time_flash_fwd(q, k, v, err))
+    o = torch.zeros_like(q)
+    lse = torch.zeros(B, H, T, dtype=torch.float32, device="cuda")
+    try:
+        flash_attention_bwd(q, k, v, o, lse, o)
+        raised = False
+    except NotImplementedError as e:
+        raised = True
+        log(f"flash_attention_bwd at hd {hd}: raises ({e})")
+    require(raised, "the flash backward at hd 192 did not raise")
+    n, d = NEMO_RMS
+    for dtype in (torch.float32, torch.bfloat16):
+        x = randn(gen, n, d, dtype=dtype)
+        g = (1 + 0.1 * randn(gen, d, dtype=torch.float32)).to(dtype)
+        name = f"rows={n} d={d} {str(dtype)[6:]}"
+        err = hold_rmsnorm(name, x, g)
+        if dtype == torch.bfloat16:
+            rms_row = time_rmsnorm(name, x, g, err)
+    return rows[torch.bfloat16], rows[torch.float32], rms_row
 
 
 # --------------------------------------------------------------------------
@@ -1698,7 +1780,8 @@ def serve(arch: str, n_layers: int, per_prefill: dict, per_step: dict,
     ``per_step`` x decode steps exactly, and that the traced ssd_scan
     kernels are those of the path ``ssd``. Then the teacher-forced logits
     check, on the model itself or, where its fp32 copy does not fit beside
-    it, on a depth cut (``check_serving_logits``)."""
+    it, on a depth cut or a streamed fp32 reference
+    (``check_serving_logits``)."""
     cfg = cfg or get_config(arch)
     require(cfg.n_layers == n_layers and cfg.param_dtype == "bfloat16")
     gc.collect()
@@ -1962,6 +2045,38 @@ def serve_modal_archs(card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 5h: nemotron-4-340b at full width, 4 of its 96 layers
+# --------------------------------------------------------------------------
+# arch, layers served, rmsnorm launches a layer (ln1, ln2), prompt lengths
+# [lo, hi), max_seq
+NEMOTRON_SERVE = ("nemotron-4-340b", 4, 2, (100, 1501), 2048)
+
+
+def serve_nemotron(card: str):
+    """Phase 5h: nemotron-4-340b at full width in bf16 (d 18432, GQA 96:8,
+    hd 192, squared-ReLU MLP of 73728, untied vocabulary of 256000) cut to
+    4 of its 96 layers, the phase's one reduction (one layer holds 3.45 B
+    params, the two tables 9.44 B: all 96 layers take 341 B), served as
+    phase 5f serves (8 requests, 4 slots, 32 greedy tokens, one traced
+    window), its logits held by ``check_streamed``. Returns the path's
+    launches under ``"<arch> serve"`` and its metrics."""
+    t0 = time.perf_counter()
+    arch, layers, norms, prompt_range, max_seq = NEMOTRON_SERVE
+    cfg = get_config(arch)
+    log(f"serve: {arch} depth cut to {layers} of {cfg.n_layers} layers at "
+        f"full width (the phase's one reduction)")
+    cfg = dataclasses.replace(cfg, n_layers=layers, block_pattern=())
+    per_prefill, per_step = arch_launches(layers, norms)
+    launches, metrics = serve(arch, layers, per_prefill, per_step, cfg=cfg,
+                              prompt_range=prompt_range, max_seq=max_seq,
+                              norms_per_layer=norms, card=card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 5h: {time.perf_counter() - t0:.1f} s ({card})")
+    return {f"{arch} serve": launches}, metrics
+
+
 def expected_launches(per_prefill, per_step, prefills, steps):
     want = Counter({k: v * prefills for k, v in per_prefill.items()})
     want.update({k: v * steps for k, v in per_step.items()})
@@ -1996,7 +2111,9 @@ def arch_launches(L: int, norms_per_layer: int):
 def check_serving_logits(params, cfg, prompt, forced, per_prefill, per_step,
                          norms_per_layer=None):
     """``check_teacher_forced`` on the model where its fp32 copy fits
-    beside it (with ``FP32_HEADROOM`` to spare). Otherwise:
+    beside it (with ``FP32_HEADROOM`` to spare); ``check_streamed`` where
+    not even a 1-layer cut's does (nemotron's two fp32 tables alone take
+    35.2 GiB). Otherwise:
     - on a depth cut, the first k layers (the largest k whose fp32 copy
       fits, logged), which measures the bf16 noise floor and holds the
       kernel path to it in both dtypes, prefill and decode;
@@ -2018,7 +2135,14 @@ def check_serving_logits(params, cfg, prompt, forced, per_prefill, per_step,
     per_layer = fp32_bytes(stage) // cfg.n_layers
     rest = fp32_bytes({k: v for k, v in params.items() if k != "stages"})
     k = int(min(cfg.n_layers - 1, (free - rest) // per_layer))
-    require(k >= 1, f"{cfg.name}: not one layer's fp32 copy fits")
+    if k < 1:
+        log(f"teacher-forced: not even a 1-layer cut of {cfg.name} fits in "
+            f"fp32 ({(rest + per_layer) / 2**30:.1f} GiB beside "
+            f"{free / 2**30:.1f} GiB free after {FP32_HEADROOM / 2**30:.0f} "
+            f"GiB headroom): the fp32 reference is streamed")
+        check_streamed(params, cfg, prompt, forced, per_prefill, per_step,
+                       norms_per_layer)
+        return
     log(f"teacher-forced: {cfg.name}'s fp32 copy "
         f"({fp32_bytes(params) / 2**30:.1f} GiB) does not fit beside it "
         f"({free / 2**30:.1f} GiB free after {FP32_HEADROOM / 2**30:.0f} GiB "
@@ -2058,21 +2182,31 @@ def check_layers(params, cfg, prompt, norms_per_layer):
     block through the plain versions and of the same block in fp32, the
     floor being the plain block's distance from the fp32 one (that layer's
     weights and input in fp32, one layer's copy at a time). Each layer
-    launches one flash and ``norms_per_layer`` rmsnorm."""
+    launches one flash and ``norms_per_layer`` rmsnorm. For an MoE model,
+    the three blocks' router inputs are kept and the routing compared
+    (``router_flips``), logged per layer."""
     kind, stage = cfg.block_pattern[0], params["stages"][0]
     toks = torch.as_tensor(prompt[None], device="cuda")
     pos = torch.arange(toks.shape[1], device="cuda")[None]
     ratios, worst = [], (0.0, 0.0, 0.0, -1)
+    routing = []
     LAUNCHES.clear()
     with torch.no_grad():
         h = embed_tokens(params, cfg, toks)
         for i in range(cfg.n_layers):
             lp = tree_map(lambda t: t[i], stage)
-            got, _ = block_forward(kind, lp, cfg, h, pos=pos)
-            with plain_versions():
-                plain, _ = block_forward(kind, lp, cfg, h, pos=pos)
-                ref, _ = block_forward(kind, tree_map(lambda t: t.float(), lp),
-                                       cfg, h.float(), pos=pos)
+            inputs = []
+            with router_inputs(inputs):
+                got, _ = block_forward(kind, lp, cfg, h, pos=pos)
+                with plain_versions():
+                    plain, _ = block_forward(kind, lp, cfg, h, pos=pos)
+                    ref, _ = block_forward(kind, tree_map(lambda t: t.float(),
+                                                          lp),
+                                           cfg, h.float(), pos=pos)
+            if inputs:
+                routing.append(router_flips(lp["moe"]["router"], cfg,
+                                            *inputs))
+            del inputs
             require(torch.isfinite(got).all(), f"layer {i}: non-finite")
             diff = float((got.float() - plain.float()).abs().max())
             to32 = float((got.float() - ref).abs().max())
@@ -2095,6 +2229,84 @@ def check_layers(params, cfg, prompt, norms_per_layer):
         f"by layer {[round(r, 3) for r in ratios]}; worst layer {worst[3]}: "
         f"{worst[0]:.4e} from plain, {worst[1]:.4e} from fp32, floor "
         f"{worst[2]:.4e}; final |h| {float(h.float().abs().max()):.4e}")
+    if routing:
+        log_routing(routing, cfg, toks.shape[1])
+
+
+@contextlib.contextmanager
+def router_inputs(store: list):
+    """Keep each MoE block's router input (``moe_forward``'s x) in
+    ``store`` while the blocks run."""
+    saved = model_blocks.moe_forward
+
+    def recording(p, cfg, x, inference=False):
+        store.append(x)
+        return saved(p, cfg, x, inference=inference)
+
+    model_blocks.moe_forward = recording
+    try:
+        yield
+    finally:
+        model_blocks.moe_forward = saved
+
+
+def router_flips(router, cfg, x_kernel, x_plain, x32):
+    """The (token, k) router choices in which the kernel block and the
+    plain block differ on the same layer input (their router inputs
+    ``x_kernel`` and ``x_plain``, bf16; ``x32`` the fp32 block's), taken
+    as ``moe_forward`` takes them: fp32 logits of x and the router in x's
+    dtype, top-k of their softmax. For each token whose choices differ:
+    the plain router's margin between them (the smallest plain logit of an
+    expert only the plain block chose minus the largest of one only the
+    kernel block chose; a swap needs that gap crossed) and the router's
+    bf16 rounding at that token, max |plain logits - fp32 block's logits|
+    over the experts. Returns (choices that differ, choices in all,
+    margins, roundings)."""
+    def logits(x):
+        xf = x.reshape(-1, x.shape[-1])
+        return matmul(xf, router.to(xf.dtype), out_dtype=torch.float32)
+
+    lk, lp, l32 = logits(x_kernel), logits(x_plain), logits(x32)
+    E = lp.shape[-1]
+
+    def chosen(lg):
+        top = torch.softmax(lg, dim=-1).topk(cfg.top_k, dim=-1).indices
+        return torch.zeros(lg.shape[0], E, dtype=torch.bool,
+                           device=lg.device).scatter_(1, top, True)
+
+    ck, cp = chosen(lk), chosen(lp)
+    only_k, only_p = ck & ~cp, cp & ~ck
+    rows = only_k.any(dim=-1)
+    margin = (torch.where(only_p, lp, math.inf).amin(dim=-1)
+              - torch.where(only_k, lp, -math.inf).amax(dim=-1))[rows]
+    rounding = (lp - l32).abs().amax(dim=-1)[rows]
+    return (int(only_k.sum()), int(ck.sum()), margin.tolist(),
+            rounding.tolist())
+
+
+def log_routing(routing, cfg, T: int):
+    """Per layer, the router choices in which the kernel and plain blocks
+    differ, and whether each is a tie: its margin within twice the
+    router's bf16 rounding at its token (the layer check's rule)."""
+    per_layer, wide = [], []
+    for i, (n, total, margins, roundings) in enumerate(routing):
+        per_layer.append(n)
+        for m, r in zip(margins, roundings):
+            if m > 2 * r:
+                wide.append(f"layer {i}: margin {m:.4e}, rounding {r:.4e}")
+    pairs = [(m, r) for _, _, ms, rs in routing for m, r in zip(ms, rs)]
+    worst = max((m / max(r, 1e-30) for m, r in pairs), default=0.0)
+    log(f"router choices, full depth ({cfg.n_layers} layers, top {cfg.top_k} "
+        f"of {cfg.n_experts}, {T} tokens = {routing[0][1]} choices a "
+        f"layer): kernel block vs plain block differ in {sum(per_layer)} "
+        f"choices, by layer {per_layer}; {len(pairs)} tokens with a "
+        f"differing choice, largest margin / bf16 rounding {worst:.3f}; "
+        + (f"{len(wide)} NOT ties (margin > 2x rounding): {wide}" if wide
+           else "every one a tie (margin <= 2x the router's bf16 rounding)"))
+    if pairs:
+        log("  (margin, rounding) by token: " + ", ".join(
+            f"({m:.3e}, {r:.3e})" for m, r in pairs[:64])
+            + (" ..." if len(pairs) > 64 else ""))
 
 
 def check_teacher_forced(params, cfg, prompt, forced, per_prefill, per_step,
@@ -2123,7 +2335,16 @@ def check_teacher_forced(params, cfg, prompt, forced, per_prefill, per_step,
     require(dict(LAUNCHES) == mid, "the plain reference launched a kernel")
     got32 = teacher_forced(params32, cfg, prompt, forced, extra)
     del params32
-    require(got.shape == (len(forced) + 1, cfg.vocab_size))
+    return hold_logits(got, plain, ref32, got32, cfg, prompt, forced)
+
+
+def hold_logits(got, plain, ref32, got32, cfg, prompt, forced) -> float:
+    """The teacher-forced logits [n+1, V] of the kernel path (``got``) and
+    the plain path (``plain``) in bf16, and of both paths on fp32 weights
+    (``got32``, ``ref32``: plain versions), held as
+    ``check_teacher_forced`` says; returns the bf16 noise floor."""
+    shape = (len(forced) + 1, cfg.vocab_size)
+    require(all(t.shape == shape for t in (got, plain, ref32, got32)))
     require(torch.isfinite(got).all() and torch.isfinite(got32).all())
     diff = float((got - plain).abs().max())
     scale = float(plain.abs().max())
@@ -2147,6 +2368,96 @@ def check_teacher_forced(params, cfg, prompt, forced, per_prefill, per_step,
     require(to32 <= 2 * floor, "kernel path further from fp32 than plain")
     require(diff32 <= floor, "fp32 kernel path disagrees with fp32 plain")
     return floor
+
+
+VOCAB_CHUNK = 16384     # head rows upcast at a time: 1.1 GiB in fp32 at d 18432
+
+
+def gib_free(device) -> str:
+    if device.type != "cuda":
+        return "host memory"
+    return f"{torch.cuda.mem_get_info(device)[0] / 2**30:.1f} GiB free"
+
+
+def streamed_logits(params, cfg, prompt, forced, vocab_chunk=VOCAB_CHUNK):
+    """fp32 teacher-forced logits [n+1, V] of a one-stage model whose fp32
+    copy does not fit beside it, with its weights kept in bf16 and only
+    what a step reads upcast (bf16 -> fp32 is exact): the embedding rows of
+    the prompt and the forced tokens, run as one causal sequence (row P-1+i
+    is what prefill, then decode step i, predicts), each layer's fp32 copy
+    in turn, then the final norm and the head one ``vocab_chunk`` rows at a
+    time, rounded to bf16 as ``lm_logits`` rounds them. The layers run
+    twice on each copy, through the plain versions and through the kernels
+    (on the card: the fp32 flash forward and rmsnorm). Logs the memory
+    free at each step. Returns (plain, kernel)."""
+    require(len(params["stages"]) == 1 and not cfg.shared_attn_every
+            and not cfg.enc_dec, f"{cfg.name}: not a one-stage model")
+    dev = params["embed"].device
+    seq = np.concatenate([prompt, np.asarray(forced, dtype=prompt.dtype)])
+    seq = torch.as_tensor(seq[None], device=dev)
+    pos = torch.arange(seq.shape[1], device=dev)[None]
+    kind, stage = cfg.block_pattern[0], params["stages"][0]
+    steps = []
+    with torch.no_grad():
+        h = embed_tokens(params, cfg, seq).float()
+        hs = {"plain": h, "kernel": h}
+        for i in range(cfg.n_layers):
+            lp = tree_map(lambda t: t[i].float(), stage)
+            steps.append(f"layer {i} in fp32: {gib_free(dev)}")
+            with plain_versions():
+                hs["plain"], _ = block_forward(kind, lp, cfg, hs["plain"],
+                                               pos=pos)
+            hs["kernel"], _ = block_forward(kind, lp, cfg, hs["kernel"],
+                                            pos=pos)
+            del lp
+        head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+        gain = params["final_norm"].float()
+        out = {}
+        for name, h in hs.items():
+            norm_ctx = (plain_versions() if name == "plain"
+                        else contextlib.nullcontext())
+            with norm_ctx:
+                hn = rms_norm(h[0, len(prompt) - 1:], gain, cfg.norm_eps)
+            logits = torch.empty(hn.shape[0], cfg.vocab_size, device=dev)
+            for c in range(0, cfg.vocab_size, vocab_chunk):
+                w = head[c:c + vocab_chunk].float()
+                logits[:, c:c + vocab_chunk] = (hn @ w.T).to(
+                    torch.bfloat16).float()
+                del w
+            out[name] = logits
+            steps.append(f"{name} head in fp32 chunks of {vocab_chunk}: "
+                         f"{gib_free(dev)}")
+    log(f"streamed fp32 reference of {cfg.name} ({cfg.n_layers} layers, "
+        f"{seq.shape[1]} positions): " + "; ".join(steps))
+    return out["plain"], out["kernel"]
+
+
+def check_streamed(params, cfg, prompt, forced, per_prefill, per_step,
+                   norms_per_layer):
+    """The teacher-forced check of a model that holds no fp32 copy, not
+    even a 1-layer cut's (its tables alone do not fit): the kernel path's
+    and the plain path's bf16 logits (prefill and one decode step per
+    forced token) against ``streamed_logits``' fp32 reference, held by
+    ``check_teacher_forced``'s rule (``hold_logits``; its fp32 kernel path
+    is the streamed run through the kernels, which must launch one flash
+    and ``norms_per_layer`` rmsnorm a layer and the final norm); then every
+    layer on the kernel path's own input (``check_layers``)."""
+    dev = params["embed"].device
+    LAUNCHES.clear()
+    got = teacher_forced(params, cfg, prompt, forced)
+    require(dict(LAUNCHES) == expected_launches(per_prefill, per_step, 1,
+                                                len(forced)),
+            f"teacher-forced run launched {dict(LAUNCHES)}")
+    with plain_versions():
+        plain = teacher_forced(params, cfg, prompt, forced)
+    log(f"teacher-forced bf16 runs of {cfg.name} done: {gib_free(dev)}")
+    LAUNCHES.clear()
+    ref32, got32 = streamed_logits(params, cfg, prompt, forced)
+    want = arch_launches(cfg.n_layers, norms_per_layer)[0]
+    require(dict(LAUNCHES) == want,
+            f"streamed fp32 run launched {dict(LAUNCHES)}, not {want}")
+    hold_logits(got, plain, ref32, got32, cfg, prompt, forced)
+    check_layers(params, cfg, prompt, norms_per_layer)
 
 
 def log_flips(got, plain, ref32, flipped):
@@ -3090,15 +3401,15 @@ def main():
         if any(w in line for w in ("registers", "spill", "Compiling", "smem")):
             log(f"  {line.strip()}")
     log("flash_fwd_sm90_kernel dynamic shared memory per block: " + ", ".join(
-        f"hd={hd} {sm90_smem_bytes(hd)} bytes" for hd in (32, 64, 80, 128)))
-    for hd in (32, 64, 80, 128):
+        f"hd={hd} {sm90_smem_bytes(hd)} bytes" for hd in _FWD_HEAD_DIMS))
+    for hd in _FWD_HEAD_DIMS:
         fwd_occ = fwd_occupancy(hd)
         log(f"flash_attention_fwd hd={hd}: {fwd_occ['smem_bytes']} bytes of "
             f"shared memory, {fwd_occ['blocks_per_sm']} block(s) of 16 warps "
             f"per SM")
         require(fwd_occ["blocks_per_sm"] >= 1,
                 f"the fp32 flash forward does not fit an SM at hd={hd}")
-        if hd == 80:                         # the backward takes 32, 64, 128
+        if hd in (80, 192):                  # the backward takes 32, 64, 128
             continue
         for dtype, warps in ((torch.float32, (16, 16)),
                              (torch.bfloat16, (8, 4))):
@@ -3127,6 +3438,8 @@ def main():
     slstm_rows = check_slstm(gen)
     flash_5g_rows, rms_5g_rows = check_modal_kernels(
         torch.Generator("cuda").manual_seed(31))
+    flash_5h_row, flash_fp32_5h_row, rms_5h_row = check_nemotron_kernels(
+        torch.Generator("cuda").manual_seed(32))
 
     qwen, _ = serve("qwen3-0.6b", QWEN_LAYERS,                # phase 5
                     {"flash_attention": QWEN_LAYERS, "rmsnorm": QWEN_NORMS},
@@ -3141,6 +3454,7 @@ def main():
                      {"rmsnorm": ZAMBA_NORMS}, ssd="chunks")
     archs = serve_archs(card)                                # phase 5f
     modal = serve_modal_archs(card)                          # phase 5g
+    nemotron, _ = serve_nemotron(card)                       # phase 5h
     torch.cuda.empty_cache()
     train, train_metrics = train_full_width()                # phase 5b
     sweep, sweep_metrics = train_sweep()
@@ -3163,7 +3477,7 @@ def main():
     launch_layer(card)                                       # phase 5e
 
     serving = {"qwen3-0.6b serve": qwen, "xlstm-1.3b serve": xlstm,
-               "zamba2-2.7b serve": zamba, **archs, **modal}
+               "zamba2-2.7b serve": zamba, **archs, **modal, **nemotron}
     bf16_training = {"qwen3-0.6b Trainer (bf16, full width)": trainer}
     training = {"qwen3-0.6b train (fp32, full width)": train,
                 "sweep member (qwen3-0.6b reduced, fp32)": sweep,
@@ -3183,10 +3497,11 @@ def main():
          "source": csrc + "flash_attention_sm90.cu", "replaces": flash_tpu,
          **launches("flash_attention", {**serving, **bf16_training}),
          **flash_rows[REPORT_T],
-         "regimes": flash_5g_rows},
+         "regimes": flash_5g_rows + [flash_5h_row]},
         {"name": "flash_attention_fp32", "route": "cuda",
          "source": csrc + "flash_attention.cu", "replaces": flash_tpu,
-         **launches("flash_attention", training), **flash_fp32_row},
+         **launches("flash_attention", training), **flash_fp32_row,
+         "regimes": [flash_fp32_5h_row]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": csrc + "flash_attention_bwd.cu", "replaces": flash_tpu,
          **launches("flash_attention_bwd", training), **flash_bwd_row},
@@ -3198,7 +3513,7 @@ def main():
          "replaces": rms_tpu,
          **launches("rmsnorm", {**serving, **training, **bf16_training}),
          **rms_rows[REPORT_RMS],
-         "regimes": rms_5g_rows},
+         "regimes": rms_5g_rows + [rms_5h_row]},
         {"name": "rmsnorm_bwd", "route": "cuda",
          "source": csrc + "rmsnorm_bwd.cu", "replaces": rms_tpu,
          **launches("rmsnorm_bwd", training),

@@ -59,6 +59,16 @@
 //   d only, P V over all 128 (the pad columns of o are never stored). The
 //   global strides stay H*80 and KV*80; the shared memory and the one block
 //   per SM are hd 128's.
+// - hd 192 (nemotron-4-340b): double-buffered k and v tiles would take
+//   ~293 KB of shared memory (q 48 KB, four k/v tiles of 49 KB, the partial
+//   S 32 KB, P^T 16 KB) against a block's 227 KB. So at hd 192 k and v are
+//   single-buffered, 194.5 KB in all, and reloaded as soon as their last
+//   reader is done: the next k tile after phase A (it flies under B and
+//   C), the next v tile after phase C (it flies under the next A and B);
+//   cp.async groups are waited for one at a time, and a fourth barrier per
+//   key tile guards v. Phase C runs hd 64's warp map over three 64-column
+//   groups of o (FwdLayout::G): each thread holds 2 rows x 12 columns, 24
+//   floats, and each P^T value it reads serves 12 products.
 
 #include "flash_tiles.cuh"
 
@@ -68,10 +78,12 @@ constexpr float NEG_INF = -1e30f;        // as the TPU kernel's NEG_INF
 
 template <int HD>
 struct FwdLayout {                       // shared memory, in floats
+    static constexpr int NBUF = LW<HD> > 128 ? 1 : 2;         // k and v buffers each
+    static constexpr int G = LW<HD> > 128 ? 3 : 1;            // column groups of o
     static constexpr int qtile = BQ * LW<HD>, ktile = BK * KS<HD>;
     static constexpr int q = 0;
-    static constexpr int k = qtile, v = k + 2 * ktile;        // 2 buffers each
-    static constexpr int s = v + 2 * ktile;                   // the halves' partial S
+    static constexpr int k = qtile, v = k + NBUF * ktile;
+    static constexpr int s = v + NBUF * ktile;                // the halves' partial S
     static constexpr int pt = s + 2 * BQ * BK;                // P^T
     static constexpr int stats = pt + BQ * BK;                // alpha[64], l[64]
     static constexpr size_t bytes = (stats + 2 * BQ) * sizeof(float);
@@ -97,13 +109,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  int H, int KV, Mask mask, float scale) {
     using L = FwdLayout<HD>;
     constexpr int W = LW<HD>;            // floats of a tile row
-    constexpr int M = W / 32;            // query rows per thread in the P V product
+    constexpr int G = L::G, MW = W / G;  // P V: G groups of MW columns of o
+    constexpr int M = MW / 32;           // query rows per thread in the P V product
     extern __shared__ __align__(16) float smem[];
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int role = warp >> 3, rw = warp & 7;  // role r sums S over its half of d
     const int ty = (rw >> 1) * 4 + (lane >> 3), tx = (rw & 1) * 8 + (lane & 7);
     const int si = warp * 4 + (lane >> 3), sj = lane & 7;  // phase B: row si, keys sj + 8c
-    const int ti = (warp / (W / 32)) * 4 + (lane >> 3), td = (warp % (W / 32)) * 8 + (lane & 7);
+    const int ti = (warp / (MW / 32)) * 4 + (lane >> 3), td = (warp % (MW / 32)) * 8 + (lane & 7);
     const int T_len = mask.T_len, S_len = mask.S_len;
     const int nqt = (T_len + BQ - 1) / BQ, q0 = (nqt - 1 - blockIdx.y) * BQ;
     const int rows = min(BQ, T_len - q0), nk = (S_len + BK - 1) / BK;
@@ -114,22 +127,25 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         return (static_cast<long long>(bx / H) * T_len + q0) * q_stride + (bx % H) * HD;
     };
 
-    auto load_keys = [&](int kt, int buf) {
+    // key tile kt of k (tile = L::k) or v (L::v) into buffer buf
+    auto load_keys = [&](int tile, const float* src, int kt, int buf) {
         const int bx = block_x(), k0 = kt * BK;
         const long long kv_off = (static_cast<long long>(bx / H) * S_len + k0) * kv_stride +
                                  (bx % H) / (H / KV) * HD;
-        load_tile<HD, true>(smem + L::k + buf * L::ktile, k + kv_off, kv_stride, min(BK, S_len - k0));
-        load_tile<HD, true>(smem + L::v + buf * L::ktile, v + kv_off, kv_stride, min(BK, S_len - k0));
+        load_tile<HD, true>(smem + tile + buf * L::ktile, src + kv_off, kv_stride,
+                            min(BK, S_len - k0));
     };
 
     zero_pad<HD, false>(smem + L::q);
-    for (int b = 0; b < 2; ++b) {
+    for (int b = 0; b < L::NBUF; ++b) {
         zero_pad<HD, true>(smem + L::k + b * L::ktile);
         zero_pad<HD, true>(smem + L::v + b * L::ktile);
     }
     load_tile<HD, false>(smem + L::q, q + q_off(), q_stride, rows);
     int kt = next_key_tile(0, nk, mask, q0);
-    if (kt < nk) load_keys(kt, 0);
+    if (kt < nk) load_keys(L::k, k, kt, 0);
+    if constexpr (L::NBUF == 1) cp_async_commit();           // q and k, then v apart
+    if (kt < nk) load_keys(L::v, v, kt, 0);
     cp_async_commit();
 
     const float* part = smem + L::s;     // role r's partial at part + r * BQ * BK
@@ -137,13 +153,21 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* alpha_s = smem + L::stats;
     float* l_s = alpha_s + BQ;
     float m_row = NEG_INF, l_row = 0.f;  // row si's running max and sum
-    float acc[M][4] = {};
-    for (int buf = 0; kt < nk; buf ^= 1) {
-        cp_async_wait_all();
-        __syncthreads();                 // key tile kt landed; the last tile's readers are done
+    float acc[M][4 * G] = {};
+    for (int buf = 0; kt < nk; buf = (buf + 1) % L::NBUF) {
         const int ktn = next_key_tile(kt + 1, nk, mask, q0);
-        if (ktn < nk) load_keys(ktn, buf ^ 1);
-        cp_async_commit();
+        if constexpr (L::NBUF == 2) {
+            cp_async_wait_all();
+            __syncthreads();             // key tile kt landed; the last tile's readers are done
+            if (ktn < nk) {
+                load_keys(L::k, k, ktn, buf ^ 1);
+                load_keys(L::v, v, ktn, buf ^ 1);
+            }
+            cp_async_commit();
+        } else {
+            cp_async_wait<1>();          // k of tile kt landed (its v may be in flight)
+            __syncthreads();
+        }
 
         const int k0 = kt * BK;
 
@@ -159,6 +183,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 for (int c = 0; c < 4; ++c) mine[p_at(ty + 16 * r, tx + 16 * c)] = s[r][c];
         }
         __syncthreads();
+        if constexpr (L::NBUF == 1) {    // every reader of k is done: load the next
+            if (ktn < nk) load_keys(L::k, k, ktn, 0);
+            cp_async_commit();
+        }
 
         // B: online softmax of row si over keys sj + 8c; P^T and alpha out.
         {
@@ -184,6 +212,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
             l_row = alpha * l_row + sum8(psum);
             if (sj == 0) alpha_s[si] = alpha;
         }
+        if constexpr (L::NBUF == 1) cp_async_wait<1>();   // v of tile kt landed
         __syncthreads();
 
         // C: acc = alpha acc + P V, all 16 warps, at rows ti * M + m and
@@ -194,8 +223,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
             for (int m = 0; m < M; ++m)
 #pragma unroll
-                for (int n = 0; n < 4; ++n) acc[m][n] *= al[m];
-            cols_by_rows<HD, M, true, true>(acc, pt, smem + L::v + buf * L::ktile, ti * M, td);
+                for (int n = 0; n < 4 * G; ++n) acc[m][n] *= al[m];
+            cols_by_rows<HD, M, true, true, G>(acc, pt, smem + L::v + buf * L::ktile, ti * M,
+                                               td);
+        }
+        if constexpr (L::NBUF == 1) {    // every reader of v is done: load the next
+            __syncthreads();
+            if (ktn < nk) load_keys(L::v, v, ktn, 0);
+            cp_async_commit();
         }
         kt = ktn;
     }
@@ -211,11 +246,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int m = 0; m < M; ++m) {
         const int i = ti * M + m;
-        if (i < rows && 4 * td < HD) {
-            const float safe = l_s[i] == 0.f ? 1.f : l_s[i];
-            *reinterpret_cast<float4*>(o + q_off() + i * q_stride + 4 * td) =
-                make_float4(acc[m][0] / safe, acc[m][1] / safe, acc[m][2] / safe,
-                            acc[m][3] / safe);
+        const float safe = i < rows && l_s[i] != 0.f ? l_s[i] : 1.f;
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+            const int col = 4 * td + MW * g;
+            if (i < rows && col < HD)
+                *reinterpret_cast<float4*>(o + q_off() + i * q_stride + col) =
+                    make_float4(acc[m][4 * g] / safe, acc[m][4 * g + 1] / safe,
+                                acc[m][4 * g + 2] / safe, acc[m][4 * g + 3] / safe);
         }
     }
 }
@@ -267,6 +305,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
         case 64: return launch<64>(f(q), f(k), f(v), w(o), w(lse), B, H, KV, mask, scale, s);
         case 80: return launch<80>(f(q), f(k), f(v), w(o), w(lse), B, H, KV, mask, scale, s);
         case 128: return launch<128>(f(q), f(k), f(v), w(o), w(lse), B, H, KV, mask, scale, s);
+        case 192: return launch<192>(f(q), f(k), f(v), w(o), w(lse), B, H, KV, mask, scale, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -279,6 +318,7 @@ extern "C" int flash_attention_fwd_occupancy(int hd, int* out) {
         case 64: return occupancy<64>(out);
         case 80: return occupancy<80>(out);
         case 128: return occupancy<128>(out);
+        case 192: return occupancy<192>(out);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

@@ -5,7 +5,7 @@
 // (wrapper `flash_attention`, pallas_call at flash_attention.py:121) for bf16
 // tensors; fp32 tensors keep the CUDA-core kernel of flash_attention.cu, since
 // TF32 would not hold fp32's tolerance. Same contract: q [B,T,H,hd], k/v
-// [B,S,KV,hd], hd in {32, 64, 80, 128}, query row t at absolute position
+// [B,S,KV,hd], hd in {32, 64, 80, 128, 192}, query row t at absolute position
 // t + q_offset, KV head = h / (H/KV), scale 1/sqrt(hd), online softmax with an
 // fp32 (acc, m, l) state, KV tiles fully masked for the block are skipped (the
 // TPU kernel's `live`), a row whose l stays 0 gives 0. Any T and S: query rows
@@ -18,17 +18,17 @@
 //
 // Design: a block owns 64 query rows of one (batch, head), the M of one
 // consumer warpgroup's wgmma, and two blocks share an SM (82 KB of shared
-// memory each at hd = 128). Against 128-row blocks of two warpgroups this
-// halves the longest block's work under causal and lets the block
-// scheduler pair a long query tile with a short one on each SM (the A/B on
-// the H100 is in PERF.md section 6).
+// memory each at hd = 128; at hd 192 one, see below). Against 128-row
+// blocks of two warpgroups this halves the longest block's work under
+// causal and lets the block scheduler pair a long query tile with a short
+// one on each SM (the A/B on the H100 is in PERF.md section 6).
 // - Q is loaded once by TMA; K and V tiles of 64 keys go through a two-stage
 //   ring in shared memory, so the copy of tile j+1 runs under the math of
 //   tile j. Each TMA box is one swizzle atom wide (hd*2 bytes up to 128), and
 //   the wgmma descriptors read it with the same swizzle: 128B for hd >= 64
-//   (hd = 128 is two atoms side by side), 64B for hd = 32. The tensor maps
-//   are 4-d (hd, heads, positions, batch), so the per-head strides H*hd and
-//   KV*hd and the ragged ends are the TMA unit's business.
+//   (hd = 128 is two atoms side by side, hd = 192 three), 64B for hd = 32.
+//   The tensor maps are 4-d (hd, heads, positions, batch), so the per-head
+//   strides H*hd and KV*hd and the ragged ends are the TMA unit's business.
 // - S = Q K^T is m64n64k16 with both operands in shared memory (K [keys, hd]
 //   is already K-major). O += P V is m64n{hd}k16 with P in registers,
 //   converted to bf16 from the S accumulator fragment, and V read as stored
@@ -49,6 +49,13 @@
 //   barrier, as rows past T do. Q K^T runs 5 k16 slices (the zeros past
 //   column 80 would add nothing), P V is m64n128k16 and only 80 columns of o
 //   are stored: 1.6x the tensor-core work of P V that hd 80 needs.
+// - hd 192 (nemotron-4-340b, GQA 96:8) is three 64-column atoms: Q K^T runs
+//   12 k16 slices, P V is one m64n192k16 (96 accumulator registers a
+//   thread). Q takes 24 KB and the two-stage K/V ring 96 KB, 121 KB in all:
+//   one block fits an SM where hd 128 fits two, so an SM runs one warpgroup
+//   and no other block's wgmma runs under its softmax (PERF.md section 6
+//   has its time beside SDPA's); a second consumer warpgroup or FA3's
+//   intra-warpgroup overlap is the later fix.
 // Rounding P to bf16 before P V is the one departure from the TPU kernel,
 // which keeps P in fp32: about one bf16 ulp of the output.
 // - For training, the kernel also writes each row's log-sum-exp (lse, fp32
@@ -87,10 +94,11 @@ struct Cfg {
     static constexpr int v = k + STAGES * KV_BYTES;
     static constexpr int bar = v + STAGES * KV_BYTES;       // q barrier, then one per stage
     static constexpr int bytes = bar + 8 * (1 + STAGES) + 1024;  // + alignment slack
+    static constexpr int BLOCKS = HD <= 128 ? 2 : 1;        // per SM (launch bounds)
 };
 
 template <int HD>
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__(NT, Cfg<HD>::BLOCKS)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
@@ -313,6 +321,7 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
         case 64: return launch<64>(q, k, v, o, l, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
         case 80: return launch<80>(q, k, v, o, l, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
         case 128: return launch<128>(q, k, v, o, l, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
+        case 192: return launch<192>(q, k, v, o, l, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -324,6 +333,7 @@ extern "C" int flash_attention_sm90_smem_bytes(int hd) {
         case 64: return Cfg<64>::bytes;
         case 80: return Cfg<80>::bytes;
         case 128: return Cfg<128>::bytes;
+        case 192: return Cfg<192>::bytes;
         default: return -1;
     }
 }

@@ -16,13 +16,14 @@ constexpr int BK = 64;                   // keys per tile
 constexpr int NT = 512;                  // threads per block: 16 warps
 constexpr int WARPS = NT / 32;
 
-// Floats a tile row holds at head dim HD: HD itself where it is 32, 64 or
-// 128 (the warp maps split a row into 32-float groups that divide 16 warps),
-// else the next of those widths: hd 80 runs in hd 128's tiles. Only HD
-// columns are copied in; the forward zeroes the rest once (zero_pad), so they
-// add nothing to q . k, and never stores them.
+// Floats a tile row holds at head dim HD: HD itself where it is 32, 64, 128
+// or 192 (the warp maps split a row into 32-float groups that divide 16
+// warps; the forward runs hd 192 as three groups of 64 columns), else the
+// next of those widths: hd 80 runs in hd 128's tiles. Only HD columns are
+// copied in; the forward zeroes the rest once (zero_pad), so they add
+// nothing to q . k, and never stores them.
 template <int HD>
-constexpr int LW = HD <= 32 ? 32 : HD <= 64 ? 64 : 128;
+constexpr int LW = HD <= 32 ? 32 : HD <= 64 ? 64 : HD <= 128 ? 128 : 192;
 
 // 64 x LW tiles of q and do: row r's 16-byte chunk c sits at chunk c ^ (r & 7).
 // Returns the float offset of column col (a multiple of 4).
@@ -105,13 +106,19 @@ __device__ __forceinline__ void cp_async_wait_all() {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // 64 rows x HD floats from global (row stride `stride`) into a q/do tile
 // (swizzled) or a k/v tile (PADDED), by cp.async; rows past `valid` are
 // zero-filled (nothing is read). Columns HD..LW-1 are not written.
 template <int HD, bool PADDED>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, long long stride,
                                           int valid) {
-    static_assert(HD % 4 == 0 && HD <= 128, "rows are copied in 16-byte chunks");
+    static_assert(HD % 4 == 0 && HD <= LW<HD>, "rows are copied in 16-byte chunks");
     constexpr int CH = HD / 4;
 #pragma unroll
     for (int id = threadIdx.x; id < 64 * CH; id += NT) {
@@ -198,14 +205,18 @@ __device__ __forceinline__ void load_vec(float (&out)[N], const float* src) {
     }
 }
 
-// acc[m][n] += sum_k A[k][a0 + m] * B[k][4 td + n], k = 0..63: A a score
-// tile (P, dS: [i][j] with j at j ^ 8 (i & 3); TRANSPOSED, dS^T or P^T:
-// [j][i] with i at i ^ 4 (j & 7)), B a q/do tile or (PADDED) a k/v tile.
-// All lanes read row k together, so every load is of one row.
-template <int HD, int M, bool TRANSPOSED, bool PADDED>
-__device__ __forceinline__ void cols_by_rows(float (&acc)[M][4], const float* A, const float* Bm,
-                                             int a0, int td) {
+// acc[m][4 g + n] += sum_k A[k][a0 + m] * B[k][4 td + GS g + n], k = 0..63,
+// g < G column groups GS = LW / G floats apart (G > 1 only for a k/v tile:
+// the forward's hd 192 as three groups of 64): A a score tile (P, dS: [i][j]
+// with j at j ^ 8 (i & 3); TRANSPOSED, dS^T or P^T: [j][i] with i at
+// i ^ 4 (j & 7)), B a q/do tile or (PADDED) a k/v tile. All lanes read row
+// k together, so every load is of one row; A's M values serve all G groups.
+template <int HD, int M, bool TRANSPOSED, bool PADDED, int G = 1>
+__device__ __forceinline__ void cols_by_rows(float (&acc)[M][4 * G], const float* A,
+                                             const float* Bm, int a0, int td) {
+    static_assert(G == 1 || PADDED, "column groups only in a k/v tile");
     constexpr int BS = PADDED ? KS<HD> : LW<HD>;
+    constexpr int GS = LW<HD> / G;
     int oa[8], ob[8];
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
@@ -218,13 +229,17 @@ __device__ __forceinline__ void cols_by_rows(float (&acc)[M][4], const float* A,
         for (int u = 0; u < 8; ++u) {
             float a[M];
             load_vec<M>(a, A + oa[u] + k8 * 64);
-            const float4 b = *reinterpret_cast<const float4*>(Bm + ob[u] + k8 * BS);
 #pragma unroll
-            for (int m = 0; m < M; ++m) {
-                acc[m][0] = fmaf(a[m], b.x, acc[m][0]);
-                acc[m][1] = fmaf(a[m], b.y, acc[m][1]);
-                acc[m][2] = fmaf(a[m], b.z, acc[m][2]);
-                acc[m][3] = fmaf(a[m], b.w, acc[m][3]);
+            for (int g = 0; g < G; ++g) {
+                const float4 b =
+                    *reinterpret_cast<const float4*>(Bm + ob[u] + k8 * BS + g * GS);
+#pragma unroll
+                for (int m = 0; m < M; ++m) {
+                    acc[m][4 * g] = fmaf(a[m], b.x, acc[m][4 * g]);
+                    acc[m][4 * g + 1] = fmaf(a[m], b.y, acc[m][4 * g + 1]);
+                    acc[m][4 * g + 2] = fmaf(a[m], b.z, acc[m][4 * g + 2]);
+                    acc[m][4 * g + 3] = fmaf(a[m], b.w, acc[m][4 * g + 3]);
+                }
             }
         }
     }

@@ -19,8 +19,8 @@ kernels of ``csrc/flash_attention_bwd_sm90.cu`` (bf16). On CPU tensors the
 same Function runs the plain forward and the plain backward
 ``flash_attention_bwd_ref``, explicit formulas rather than autograd of the
 plain forward. A backward at head_dim
-80 on the card is not written yet and raises: both forwards take hd 32, 64,
-80 and 128, the backward 32, 64 and 128.
+80 or 192 on the card is not written yet and raises: both forwards take hd
+32, 64, 80, 128 and 192 (nemotron-4-340b), the backward 32, 64 and 128.
 """
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ import torch
 from . import build
 
 NEG_INF = -1e30
-_FWD_HEAD_DIMS = (32, 64, 80, 128)
+_FWD_HEAD_DIMS = (32, 64, 80, 128, 192)
 _BWD_HEAD_DIMS = (32, 64, 128)
 _SCALARS = (ctypes.c_int,) * 9 + (ctypes.c_float, ctypes.c_void_p)
 _ENTRY = {torch.float32: "flash_attention_fwd",          # CUDA cores
@@ -199,7 +199,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     those of ``csrc/flash_attention_bwd_sm90.cu`` (wgmma on tiles placed by
     TMA, P and dS rounded to bf16 as ``flash_attention_bwd_ref(...,
     bf16_operands=True)`` rounds them). ``LAUNCHES["flash_attention_bwd"]``
-    counts the call once, whichever dtype; one at head_dim 80 raises
+    counts the call once, whichever dtype; one at head_dim 80 or 192 raises
     ``NotImplementedError`` before any launch. q, k, v, o and do share one
     dtype, fp32 or bf16, and lse is fp32. q, k, v and do must be 16-byte
     aligned (the kernels load them in 16-byte pieces or by TMA).

@@ -119,6 +119,8 @@ def activation_fn(name: str):
         return F.silu
     if name == "gelu":
         return _gelu_tanh
+    if name == "squared_relu":            # nemotron's ungated MLP
+        return lambda x: torch.square(F.relu(x))
     raise NotImplementedError(f"activation {name!r} is not ported yet")
 
 

@@ -953,24 +953,28 @@ def test_flash_bwd_kernels_copy_tiles_asynchronously():
 
 def test_flash_fwd_kernel_copies_tiles_asynchronously():
     """The fp32 forward's tiles come in by 16-byte cp.async, k and v
-    double-buffered; one block of 16 warps per SM; the products stay on the
+    double-buffered (single-buffered at hd 192, each cp.async group waited
+    for in turn); one block of 16 warps per SM; the products stay on the
     CUDA cores, with no atomics; the two halves each sum S over chunks
-    4r..4r+3 of every 32 floats of d, as the emulation above does; both
-    flash sources build on the shared header; the kernel keeps the name
-    that chip_smoke.py finds in its traces."""
+    4r..4r+3 of every 32 floats of d, as the emulation above does; P V
+    over G column groups (three at hd 192); both flash sources build on
+    the shared header; the kernel keeps the name that chip_smoke.py finds
+    in its traces."""
     code = _code("flash_attention.cu")
     for used in ("cp_async_commit()", "cp_async_wait_all()",
+                 "cp_async_wait<1>()", "L::NBUF == 1",
                  "load_tile<HD, true>", "load_tile<HD, false>",
                  "__launch_bounds__(NT, 1)", "buf ^ 1",
                  "rows_dot_rows<HD, 4>(", "4 * role)",
-                 "cols_by_rows<HD, M, true, true>", "expf(sv[c] - m_new)",
+                 "cols_by_rows<HD, M, true, true, G>", "expf(sv[c] - m_new)",
                  "flash_fwd_kernel<HD><<<"):
         assert used in code, used
     for gone in ("mma", "wgmma", "tf32", "atomic", "exp2"):
         assert gone not in code.lower()
     tiles = _code("flash_tiles.cuh")
     for used in ("cp.async.cg.shared.global", "cp.async.commit_group",
-                 "cp.async.wait_group 0", "constexpr int NT = 512;"):
+                 "cp.async.wait_group 0", "cp.async.wait_group %0",
+                 "constexpr int NT = 512;"):
         assert used in tiles
     for name in ("flash_attention.cu", "flash_attention_bwd.cu"):
         assert '#include "flash_tiles.cuh"' in _code(name)

@@ -65,32 +65,31 @@ def _layer0(tree):
 
 def test_config_matches_jax_and_other_archs_raise():
     """Every ported arch's config, full and reduced, equals the JAX
-    package's field for field (by id and by dashed name); the arch still
-    missing raises."""
+    package's field for field (by id and by dashed name), nemotron-4-340b
+    (the last of the ten) too; a name outside the registry raises."""
     want = ArchConfig(**dataclasses.asdict(jax_get_config("qwen3_0_6b")))
     assert get_config("qwen3-0.6b") == want == get_config("qwen3_0_6b")
     for arch in ("qwen3_0_6b", "qwen3_14b", "qwen2_1_5b",
-                 "moonshot_v1_16b_a3b", "mixtral_8x22b"):
+                 "moonshot_v1_16b_a3b", "mixtral_8x22b", "nemotron_4_340b"):
         jcfg = jax_get_config(arch)
         assert get_config(arch) == ArchConfig(**dataclasses.asdict(jcfg))
         assert get_config(jcfg.name) == get_config(arch)
         assert get_config(arch).reduced() == ArchConfig(
             **dataclasses.asdict(jcfg.reduced()))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("nemotron_4_340b")
+    with pytest.raises(NotImplementedError, match="not in the registry"):
+        get_config("nemotron_4_341b")
 
 
-@pytest.mark.parametrize("arch,ported", [("qwen2_vl_7b", True),
-                                         ("whisper_small", True),
-                                         ("nemotron_4_340b", False)])
-def test_frontend_archs_registered(arch, ported):
-    """qwen2-vl-7b and whisper-small equal the JAX configs (by id and by
-    dashed name, ``reduced()`` too); nemotron-4-340b still raises."""
+@pytest.mark.parametrize("arch,frontend", [("qwen2_vl_7b", True),
+                                           ("whisper_small", True),
+                                           ("nemotron_4_340b", False)])
+def test_frontend_archs_registered(arch, frontend):
+    """The last three archs ported, qwen2-vl-7b, whisper-small and
+    nemotron-4-340b, equal the JAX configs (by id and by dashed name,
+    ``reduced()`` too); the two frontend archs carry M-RoPE sections or an
+    encoder, nemotron neither."""
     jcfg = jax_get_config(arch)
-    if not ported:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_config(arch)
-        return
+    assert bool(jcfg.mrope_sections or jcfg.enc_dec) == frontend
     assert get_config(arch) == ArchConfig(**dataclasses.asdict(jcfg))
     assert get_config(jcfg.name) == get_config(arch)
     assert get_config(arch).reduced() == ArchConfig(

@@ -171,3 +171,31 @@ def test_init_moe_params_shapes_and_dtypes():
     assert all(p[k].dtype == torch.bfloat16 for k in ("w_up", "w_gate",
                                                        "w_down"))
     assert abs(float(p["w_up"].float().std()) * d ** 0.5 - 1) < 0.05
+
+
+# --------------------------------------------------------------------------
+# chip_smoke.py's router comparison (the layer check of an MoE model)
+# --------------------------------------------------------------------------
+def test_chip_smoke_router_flips_counts_choices_and_margins():
+    """``router_flips`` on a router whose logits are its input (identity,
+    4 experts, top 2): token 0's second and third experts trade places
+    between the kernel and the plain input, token 1 routes alike; one
+    (token, k) choice differs, its plain margin is the gap it crossed
+    (1.0) and the rounding is the plain logits' distance from the fp32
+    ones (0.25)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg = jax_get_config("moonshot_v1_16b_a3b").reduced()
+    assert (cfg.n_experts, cfg.top_k) == (4, 2)
+    plain = torch.tensor([[[3.0, 2.0, 1.0, 0.0], [0.0, 1.0, 2.0, 3.0]]])
+    kernel = torch.tensor([[[3.0, 1.0, 2.0, 0.0], [0.0, 1.0, 2.0, 3.0]]])
+    x32 = plain + 0.25
+    n, total, margins, roundings = smoke.router_flips(
+        torch.eye(4), cfg, kernel.to(torch.bfloat16),
+        plain.to(torch.bfloat16), x32)
+    assert (n, total) == (1, 4)
+    assert margins == [1.0] and roundings == [0.25]

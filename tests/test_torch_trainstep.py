@@ -336,7 +336,10 @@ def test_fp32_train_step_vs_composed_jax(k, remat, compress):
                    for side, g in (("port", gp), ("jax", gj))}
             for i, key in enumerate("pmv"):
                 moved = np.abs(ref["port"][0][i] - ref["jax"][0][i])
-                tol = 1e-6 * ref["jax"][1][i] + moved
+                # rounding is relative to the larger side's terms: where
+                # both gradients are tiny (~1e-9), v's terms differ 25x
+                tol = 1e-6 * np.maximum(ref["port"][1][i],
+                                        ref["jax"][1][i]) + moved
                 err = np.abs(got[key][path] - want[key][path])
                 assert (err <= tol).all(), (s, path, key)
         # the chained run: losses of independent steps within 1e-5
