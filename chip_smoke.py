@@ -11,8 +11,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    and spills, the tensor-core flash kernel's dynamic shared memory, and the
    fp32 flash forward and backward kernels' shared memory and blocks per
    SM (the forwards at hd 32, 64, 80, 128 and 192, the backward at 32, 64
-   and 128 in fp32 and in bf16; each must fit at least one block on an
-   SM).
+   and 128 in fp32 and in bf16 and at 80 in bf16; each must fit at least
+   one block on an SM).
 3. The serve paths' bf16 GEMMs (prefill and decode rows) against the fp32
    product of the same operands rounded to bf16, with
    ``allow_bf16_reduced_precision_reduction`` at its default and False:
@@ -145,8 +145,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      wraps in prefill and in decode.
    The teacher-forced check runs whole where the model's fp32 copy fits
    beside it (qwen2-1.5b). Otherwise on a depth cut, the first k layers
-   (views of the same weights, same embed and head; the largest k whose
-   fp32 copy fits, logged), which gives the bf16 noise floor; the
+   (views of the same weights, same embed and head; k fixed per model in
+   ``FP32_DEPTH_CUT``: qwen3-14b 24, moonshot 5, mixtral 2; the check
+   raises where it does not fit), which gives the bf16 noise floor; the
    full-depth model's kernel path must then be within twice that floor of
    its plain path in bf16. The plain attention runs 2048 query rows a call
    so a 5000-token prompt's fp32 scores fit beside the model. For an MoE
@@ -247,6 +248,41 @@ Phases, in order; any failure raises and the script exits non-zero:
    Then ``python -m repro_torch.launch.train --arch qwen3-0.6b --steps
    20`` in a subprocess (the reduced config, hd 32): exit 0 and ``done at
    step 20``.
+5i. The Trainer on the recurrent archs at full width in bf16, one model on
+   the card at a time, as configured (2 microbatches, remat full; xlstm
+   bf16 moments, zamba2 fp32), on ``SyntheticLM`` 8 x 512, peak lr 1e-3:
+   - step 0's loss and gradients on a depth cut (xlstm 8 layers: 7 mLSTM
+     + 1 sLSTM; zamba2 12 layers: two shared applications; the fp32 copy
+     and three gradient trees of ``check_trainer_step0`` do not fit beside
+     the full model's state), held as phase 5d holds qwen3's (zamba2's
+     also to the plain path with the flash backward's rounding by
+     design, within the same 2x), with the cut's exact launch counts; the same step twice from one state on the
+     cut: the same bits;
+   - 8 steps at full depth (xlstm 42 mLSTM + 6 sLSTM, 3.0 B params;
+     zamba2 54 Mamba-2 layers + the shared block 9 times, 2.4 B), exactly
+     ``recurrent_launches`` a step: per microbatch every scan and stage
+     norm forward twice (remat), each backward once (ssd_scan_bwd,
+     slstm_scan_bwd; zamba2's flash_attention_bwd at hd 80), a falling
+     loss; one traced step (busy share, device ms by group, "scan fwd" and
+     "scan bwd" among them);
+   - ``python -m repro_torch.launch.train --arch <arch> --steps 10`` and
+     ``python -m repro_torch.launch.sweep --arch <arch> --members 4
+     --steps 2`` in subprocesses for both: ``done at step 10``, ``launched
+     4/4 members``.
+   Before it, phase 4's checks of these paths' new kernels run (after the
+   serving phases, so their streams' cuBLAS workspaces do not take from
+   the memory beside the fp32 depth cuts), at the Trainer's microbatch (B.T = 4 x 512): ``ssd_scan_bwd`` (csrc/ssd_scan_bwd.cu) at
+   zamba2's b=4 H=80 G=1 N=P=64 and xlstm's H=4 N=512 P=1024 with the
+   normalizer (drawn like the models) and on a grid (groups, ragged T,
+   decays of e^-8 a step and near 1), ``slstm_scan_bwd``
+   (csrc/slstm_scan_bwd.cu) at B=4 T=512 nh=4 dh=512 with r in bf16 and
+   fp32, each against its plain backward (``ssd_scan_bwd_ref``,
+   ``slstm_scan_bwd_ref``) within GRAD_TOL of every gradient's largest
+   magnitude (dr from bf16 r within a bf16 rounding), two calls the same
+   bits, timed beside the plain version and the bound; the bf16 flash
+   backward at hd 80 (zamba2's H=KV=32, and a GQA case) per row as the
+   other bf16 backward cases, timed beside SDPA's; the bf16 rmsnorm
+   backward at 2048 rows of d = 2048, 2560 and 5120, timed.
 5e. The paper's launch layer on the card's host, with no JAX (no kernel
    runs here: the counts, set to 0 just before, must still be 0 after):
    - the discrete-event reproduction of TX-Green through the port's
@@ -276,9 +312,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    serve"``, and under ``"regimes"`` the rows timed for phases 5g and 5h;
    the fp32 forward with its hd 192 row under ``"regimes"``; the fp32
    forward and both backward kernels with their training and sweep
-   launches beside the serving kernels, the bf16 backward kernels with the trainer's launches; ssd_scan
+   launches beside the serving kernels, the bf16 backward kernels with the
+   trainers' launches, hd 80's as a row of its own with zamba2's; ssd_scan
    as two rows, the ordered walk with xlstm's launches and the
-   chunk-parallel path with zamba2's), the card line, and as the last line
+   chunk-parallel path with zamba2's, serving and phase 5i's; ssd_scan_bwd
+   as two rows, xlstm's shape and zamba2's; slstm_scan_bwd with its fp32-r
+   row under ``"regimes"``), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and cuDNN, so fp32 comparisons are full fp32.
@@ -315,15 +354,17 @@ from repro_torch.kernels import (LAUNCHES, build, flash_attention,  # noqa: E402
                                  flash_attention_bwd, flash_attention_bwd_ref,
                                  flash_attention_ref, ops, rmsnorm,
                                  rmsnorm_bwd, rmsnorm_bwd_ref, rmsnorm_ref,
-                                 slstm_scan, slstm_scan_ref, ssd_scan,
-                                 ssd_scan_ref)
+                                 slstm_scan, slstm_scan_bwd,
+                                 slstm_scan_bwd_ref, slstm_scan_ref, ssd_scan,
+                                 ssd_scan_bwd, ssd_scan_bwd_ref, ssd_scan_ref)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    _FWD_HEAD_DIMS, _forward as flash_forward, bwd_occupancy, fwd_occupancy,
+    _BWD_HEAD_DIMS, _FWD_HEAD_DIMS, _forward as flash_forward, bwd_occupancy,
+    fwd_occupancy,
     sm90_smem_bytes, visible)
 from repro_torch.kernels.rmsnorm import (  # noqa: E402
     bwd_layout as rmsnorm_bwd_layout, plan as rmsnorm_plan)
-from repro_torch.kernels.slstm_scan import (slstm_max_clusters,  # noqa: E402
-                                            slstm_plan)
+from repro_torch.kernels.slstm_scan import (  # noqa: E402
+    _forward as slstm_forward, slstm_max_clusters, slstm_plan)
 from repro_torch.kernels.ssd_scan import _launch as ssd_launch  # noqa: E402
 from repro_torch.kernels.ssd_scan import path as ssd_path  # noqa: E402
 from repro_torch.ckpt import latest_step  # noqa: E402
@@ -333,7 +374,7 @@ from repro_torch.exec import (FAULT, KILL_LAUNCHER, LOST,  # noqa: E402
 from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
 from repro_torch.models.blocks import block_forward  # noqa: E402
 from repro_torch.models.model import (embed_tokens, forward_hidden,  # noqa: E402
-                                      lm_logits)
+                                      lm_logits, n_shared_applications)
 from repro_torch.launch.sweep import (build_member_step,  # noqa: E402
                                       loss_and_grads, member_config,
                                       run_sweep, to_batch)
@@ -344,7 +385,8 @@ from repro_torch.optim import adamw_init, adamw_update  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.taskarray import RetryPolicy, TaskGraph  # noqa: E402
 from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
-from repro_torch.train.step import microbatch_grads  # noqa: E402
+from repro_torch.train.step import (make_train_step,  # noqa: E402
+                                    microbatch_grads)
 
 # Published dense peaks of one H100 SXM at its 700 W limit.
 PEAK_BF16 = 989e12          # tensor cores, bf16 FLOP/s
@@ -1040,8 +1082,7 @@ def device_ms_by_kernel(fn, iters: int) -> dict:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -1717,6 +1758,236 @@ def time_slstm(wx, r, b, err):
 
 
 # --------------------------------------------------------------------------
+# phase 4, backward of the recurrent archs: the scans and zamba2's hd 80
+# --------------------------------------------------------------------------
+SSD_BWD_GRID = [   # b, T, H, G, N, P, normalizer, log decays
+    (1, 70, 4, 2, 16, 8, True, "mild"),       # groups, T % 64, normalizer
+    (1, 137, 4, 2, 16, 8, False, "strong"),   # e^-8 a step
+    (2, 130, 3, 3, 8, 5, True, "near0"),      # decays ~1: state kept whole
+]
+SSD_BWD_TRAIN = {   # the Trainer's microbatch (B.T = 4 x 512)
+    "mamba2": (4, 512, 80, 1, 64, 64),        # zamba2: b, T, H, G, N, P
+    "mlstm": (4, 512, 4, 4, 512, 1024),       # xlstm: + the normalizer
+}
+SLSTM_BWD_TRAIN = (4, 512, 4, 512)            # xlstm: B, T, nh, dh
+SLSTM_BWD_GRID = [(2, 9, 2, 32, torch.float32), (3, 70, 1, 64, torch.bfloat16)]
+FLASH_BWD_ZAMBA = (4, 512, 32, 32, 80)        # B, T=S, H, KV, hd: zamba2's
+RMS_BWD_RECURRENT = [(2048, 2048), (2048, 2560), (2048, 5120)]  # rows, d:
+#   xlstm's d_model, zamba2's d_model, zamba2's mixer norm (2 x d_model)
+
+
+def ssd_bwd_inputs(gen, b, T, H, G, N, P, norm, draw):
+    """x, a, B, C, norm weights (or None) and the gradients dy, dn of y and
+    n: grid draws, or the model's (``mamba2_like_ssd``,
+    ``model_like_ssd``) at the training shapes."""
+    if draw == "mamba2":
+        x, a, B, C = mamba2_like_ssd(gen, b, T, H, N, P)
+        w = None
+    elif draw == "mlstm":
+        x, a, B, C, w = model_like_ssd(gen, b, T, H, N, P)
+    else:
+        x = randn(gen, b, T, H, P)
+        scale = {"mild": 0.3, "strong": 8.0, "near0": 1e-3}[draw]
+        a = -torch.rand(b, T, H, generator=gen, device="cuda") * scale
+        B, C = (randn(gen, b, T, G, N, scale=N ** -0.5) for _ in range(2))
+        w = torch.rand(b, T, H, generator=gen, device="cuda") if norm else None
+    dy = randn(gen, b, T, H, P)
+    dn = randn(gen, b, T, H) if w is not None else None
+    return x, a, B, C, w, dy, dn
+
+
+def check_ssd_bwd(gen):
+    """``ssd_scan_bwd`` (csrc/ssd_scan_bwd.cu) against ``ssd_scan_bwd_ref``
+    on the same inputs, every gradient within GRAD_TOL of its largest
+    magnitude; two calls the same bits; timed at the training shapes.
+    Returns the timed rows by draw."""
+    rows = {}
+    cases = SSD_BWD_GRID + [(*shape, draw == "mlstm", draw)
+                            for draw, shape in SSD_BWD_TRAIN.items()]
+    for b, T, H, G, N, P, norm, draw in cases:
+        x, a, B, C, w, dy, dn = ssd_bwd_inputs(gen, b, T, H, G, N, P, norm,
+                                               draw)
+        kw = dict(norm_weights=w, dn=dn)
+        got = ssd_scan_bwd(x, a, B, C, dy, **kw)
+        again = ssd_scan_bwd(x, a, B, C, dy, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, h) for g, h in zip(got, again)
+                   if g is not None)
+        want = ssd_scan_bwd_ref(x, a, B, C, dy, **kw)
+        name = (f"b={b} T={T} H={H} G={G} N={N} P={P} fp32"
+                f"{' + normalizer' if norm else ''}, decays {draw}")
+        err = check_grads("ssd_scan_bwd", name,
+                          [g for g in got if g is not None],
+                          [v for v in want if v is not None])
+        log(f"  two calls: {'the same bits' if same else 'DIFFERENT bits'}")
+        require(same, f"ssd_scan_bwd: two calls differ: {name}")
+        if draw in SSD_BWD_TRAIN:
+            rows[draw] = time_ssd_bwd(x, a, B, C, w, dy, dn, err)
+    return rows
+
+
+def time_ssd_bwd(x, a, B, C, w, dy, dn, err):
+    """The bound: 12 N Pe flops a step and head (the state and its
+    gradient, 2 each; dx, dB, dC and da, 2 each; Pe = P + 1 with the
+    normalizer), or the inputs (x, a, B, C, dy, w, dn) read once and the
+    gradients written once, in fp32."""
+    b, T, H, P = x.shape
+    G, N = B.shape[2:]
+    cols = P + (w is not None)
+    flops = 12 * b * T * H * N * cols
+    ins = (x, a, B, C, dy, w, dn)
+    nbytes = 4 * 2 * sum(t.numel() for t in ins if t is not None)
+    bound = {"operations": flops / PEAK_F32 * 1e3,
+             "bytes": nbytes / HBM * 1e3}
+    kw = dict(norm_weights=w, dn=dn)
+    kernel = lambda: ssd_scan_bwd(x, a, B, C, dy, **kw)
+    row = {
+        "max_abs_err": err,
+        "ms": device_ms(kernel, 3),
+        "plain_ms": device_ms(lambda: ssd_scan_bwd_ref(x, a, B, C, dy, **kw),
+                              1),
+        "library_ms": None,
+        "bound_by": max(bound, key=bound.get),
+        "bound_ms": max(bound.values()),
+        "shape": f"b={b} T={T} H={H} G={G} N={N} P={P} fp32"
+                 + ("" if w is None else " + normalizer"),
+    }
+    parts = []
+    for k, v in device_ms_by_kernel(kernel, 5).items():
+        name = re.search(r"ssd_bwd_\w*kernel", k)
+        parts.append(f"{name.group(0) if name else k[:40]} {v:.4f}")
+    log("  device ms by kernel: " + ", ".join(parts))
+    log(f"  device time {row['shape']} backward: kernels {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.4f} ms, no one-call PyTorch equivalent, "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; operations "
+        f"{bound['operations']:.4f}, bytes {bound['bytes']:.4f}); "
+        f"{flops / row['ms'] / 1e9:.1f} TFLOP/s, "
+        f"{row['bound_ms'] / row['ms']:.1%} of the bound; one call from "
+        f"Python {host_ms(kernel, 3):.4f} ms")
+    return row
+
+
+def check_slstm_bwd(gen):
+    """``slstm_scan_bwd`` (csrc/slstm_scan_bwd.cu, the forward's trace)
+    against ``slstm_scan_bwd_ref``, dwx, dr and db within GRAD_TOL of their
+    largest magnitudes (dr with bf16 r: within a bf16 rounding, both round
+    their fp32 sums once); r in both dtypes at the Trainer's microbatch;
+    two calls the same bits. Returns the timed rows by r dtype."""
+    rows = {}
+    B, T, nh, dh = SLSTM_BWD_TRAIN
+    cases = SLSTM_BWD_GRID + [(B, T, nh, dh, r_dtype)
+                              for r_dtype in (torch.bfloat16, torch.float32)]
+    for B, T, nh, dh, r_dtype in cases:
+        wx, r, b = slstm_inputs(gen, B, T, nh, dh, torch.float32, True,
+                                r_dtype)
+        dhs = randn(gen, B, T, nh, dh)
+        (hs, _), trace = slstm_forward(wx, r, b, trace=True)
+        want_hs, _ = slstm_scan_ref(wx, r, b)
+        compare("slstm_scan", f"B={B} T={T} nh={nh} dh={dh} with the "
+                "backward's trace", hs, want_hs)
+        require(bool((trace[1][3] == hs.float()).all()),
+                "slstm_scan: the trace's h is not hs")
+        got = slstm_scan_bwd(wx, r, b, dhs, trace=trace)
+        again = slstm_scan_bwd(wx, r, b, dhs, trace=trace)
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, h) for g, h in zip(got, again))
+        want = slstm_scan_bwd_ref(wx, r, b, dhs)
+        name = f"B={B} T={T} nh={nh} dh={dh} r {str(r_dtype)[6:]}"
+        tol = GRAD_TOL if r_dtype == torch.float32 else 2 ** -7
+        err = max(check_grads("slstm_scan_bwd", name, got[::2], want[::2]),
+                  check_grads("slstm_scan_bwd", name + ", dr", got[1:2],
+                              want[1:2], tol))
+        log(f"  two calls: {'the same bits' if same else 'DIFFERENT bits'}")
+        require(same, f"slstm_scan_bwd: two calls differ: {name}")
+        if (B, T, nh, dh) == SLSTM_BWD_TRAIN:
+            rows[str(r_dtype)[6:]] = time_slstm_bwd(wx, r, b, dhs, trace, err)
+    return rows
+
+
+def time_slstm_bwd(wx, r, b, dhs, trace, err):
+    """The bound: the recurrent product R dpre and dR = sum h^T dpre, 2 B T
+    nh dh 4dh flops each, ~40 gate operations a unit and step; or pre,
+    the per-step states, dhs and r read once and dwx, dr, db written once."""
+    B, T, nh, gd = wx.shape
+    dh = gd // 4
+    flops = 4 * B * T * nh * dh * gd + 40 * B * T * nh * dh
+    nbytes = (4 * (trace[0].numel() + trace[1].numel()) + 4 * dhs.numel()
+              + 2 * r.numel() * r.element_size() + 4 * wx.numel()
+              + 8 * b.numel())
+    bound = {"operations": flops / PEAK_F32 * 1e3,
+             "bytes": nbytes / HBM * 1e3}
+    kernel = lambda: slstm_scan_bwd(wx, r, b, dhs, trace=trace)
+    eager = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    kernel()
+    eager[0].record()
+    for _ in range(3):
+        kernel()
+    eager[1].record()
+    torch.cuda.synchronize()
+    row = {
+        "max_abs_err": err,
+        "ms": device_ms(kernel, 2),
+        "plain_ms": device_ms(lambda: slstm_scan_bwd_ref(wx, r, b, dhs), 1),
+        "library_ms": None,
+        "bound_by": max(bound, key=bound.get),
+        "bound_ms": max(bound.values()),
+        "shape": f"B={B} T={T} nh={nh} dh={dh} wx fp32 r {str(r.dtype)[6:]}",
+        "eager_ms": eager[0].elapsed_time(eager[1]) / 3,
+    }
+    log(f"  device time {row['shape']} backward: {row['ms']:.4f} ms replayed "
+        f"in a CUDA graph ({row['ms'] / T * 1e3:.3f} us per step), "
+        f"{row['eager_ms']:.4f} ms launched eagerly as the path does "
+        f"({T} step launches from the host), plain {row['plain_ms']:.4f} ms, "
+        f"no one-call PyTorch equivalent, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})")
+    return row
+
+
+def check_recurrent_bwd_kernels(gen):
+    """Phase 4's rows for phase 5i's paths: the two scan backwards, the
+    bf16 flash backward at hd 80 (zamba2's shared block) and the bf16
+    rmsnorm backward at the recurrent archs' widths."""
+    ssd_rows = check_ssd_bwd(gen)
+    slstm_rows = check_slstm_bwd(gen)
+    B, T, H, KV, hd = FLASH_BWD_ZAMBA
+    kw = dict(causal=True, window=0, q_offset=0)
+    for shape in ((2, 137, 137, 8, 4, hd), (B, T, T, H, KV, hd)):
+        q, k, v, do, o, lse = flash_bwd_bf16_inputs(gen, *shape, kw)
+        name = (f"B={shape[0]} T=S={shape[1]} H={shape[3]} KV={shape[4]} "
+                f"hd={hd} bf16 causal")
+        got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        want = flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                       o.float(), lse, do.float(), **kw)
+        worst, err = bf16_rows_ok("flash_attention_bwd_bf16", name, got, want)
+        require(worst <= 1.0, f"flash_attention_bwd bf16 off its plain "
+                f"version: {name}")
+        log_rounded_rows(got, flash_attention_bwd_ref(
+            q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+            bf16_operands=True, **kw), name)
+        check_flash_bwd_repeats(q, k, v, do, name)
+    flash_row = time_flash_bwd_bf16(q, k, v, do, o, lse, err)
+    rms_rows = {}
+    for rows, d in RMS_BWD_RECURRENT:
+        x = randn(gen, rows, d, dtype=torch.bfloat16)
+        g = (1 + 0.1 * randn(gen, d)).to(torch.bfloat16)
+        dy = randn(gen, rows, d, dtype=torch.bfloat16)
+        name = f"rows={rows} d={d} bfloat16"
+        got, again = rmsnorm_bwd(x, g, dy), rmsnorm_bwd(x, g, dy)
+        torch.cuda.synchronize()
+        worst, err = bf16_rows_ok("rmsnorm_bwd_bf16", name, got,
+                                  rmsnorm_bwd_ref(x.float(), g.float(),
+                                                  dy.float()))
+        require(worst <= 1.0 and all(torch.equal(a, c) for a, c in
+                                     zip(got, again)),
+                f"rmsnorm_bwd bf16 off its plain version or not the same "
+                f"bits twice: {name}")
+        rms_rows[d] = time_rmsnorm_bwd(name, x, g, dy, err)
+    return ssd_rows, slstm_rows, flash_row, rms_rows
+
+
+# --------------------------------------------------------------------------
 # phase 5: serve
 # --------------------------------------------------------------------------
 PLAIN_ROWS = 2048       # query rows per call of the plain attention
@@ -1730,6 +2001,35 @@ def plain_attention(q, k, v, *, causal=True, window=0, q_offset=0):
         q[:, i:i + PLAIN_ROWS], k, v, causal=causal, window=window,
         q_offset=q_offset + i) for i in range(0, q.shape[1], PLAIN_ROWS)],
         dim=1)
+
+
+class DesignAttention(torch.autograd.Function):
+    """Plain attention with the flash backward's rounding by design:
+    ``flash_attention_ref`` forward, and ``flash_attention_bwd_ref`` with D
+    = rowsum(do * o) from the forward's output in its dtype and, in bf16, P
+    and dS rounded to bf16 where the kernels hand them to the tensor cores
+    (``bf16_operands``), where autograd of the plain forward sums P * dP in
+    fp32. A reference run on the card; the port never calls it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        out, lse = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset, with_lse=True)
+        ctx.mask = dict(causal=causal, window=window, q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_attention_bwd_ref(
+            q, k, v, out, lse, do.contiguous(),
+            bf16_operands=q.dtype == torch.bfloat16, **ctx.mask),
+            None, None, None)
+
+
+def design_attention(q, k, v, *, causal=True, window=0, q_offset=0):
+    return DesignAttention.apply(q, k, v, causal, window, q_offset)
 
 
 @contextlib.contextmanager
@@ -2085,6 +2385,11 @@ def expected_launches(per_prefill, per_step, prefills, steps):
 
 FP32_HEADROOM = 10 * 2**30   # bytes kept free beside an fp32 copy: the
                              # activations of a 5000-token plain fp32 run
+HEADROOM_TOKENS = 5000
+# the depth cut of each served model whose fp32 copy does not fit beside it,
+# fixed so that every run checks the same layers (nemotron-4-340b streams)
+FP32_DEPTH_CUT = {"qwen3-14b": 24, "moonshot-v1-16b-a3b": 5,
+                  "mixtral-8x22b": 2}
 
 
 def fp32_bytes(tree) -> int:
@@ -2114,9 +2419,11 @@ def check_serving_logits(params, cfg, prompt, forced, per_prefill, per_step,
     beside it (with ``FP32_HEADROOM`` to spare); ``check_streamed`` where
     not even a 1-layer cut's does (nemotron's two fp32 tables alone take
     35.2 GiB). Otherwise:
-    - on a depth cut, the first k layers (the largest k whose fp32 copy
-      fits, logged), which measures the bf16 noise floor and holds the
-      kernel path to it in both dtypes, prefill and decode;
+    - on a depth cut, the first ``FP32_DEPTH_CUT`` layers (fixed per
+      model; it must fit beside the model with the activations of a plain
+      fp32 run of this prompt to spare, ``FP32_HEADROOM`` scaled to its
+      length, or the check raises), which measures the bf16 noise floor
+      and holds the kernel path to it in both dtypes, prefill and decode;
     - at full depth, every layer on the kernel path's own input
       (``check_layers``);
     - at full depth end to end, the kernel path's logits against its plain
@@ -2134,8 +2441,9 @@ def check_serving_logits(params, cfg, prompt, forced, per_prefill, per_step,
     stage = params["stages"][0]
     per_layer = fp32_bytes(stage) // cfg.n_layers
     rest = fp32_bytes({k: v for k, v in params.items() if k != "stages"})
-    k = int(min(cfg.n_layers - 1, (free - rest) // per_layer))
-    if k < 1:
+    if cfg.name not in FP32_DEPTH_CUT:
+        require(rest + per_layer > free, f"{cfg.name}: no fixed depth cut "
+                f"in FP32_DEPTH_CUT")
         log(f"teacher-forced: not even a 1-layer cut of {cfg.name} fits in "
             f"fp32 ({(rest + per_layer) / 2**30:.1f} GiB beside "
             f"{free / 2**30:.1f} GiB free after {FP32_HEADROOM / 2**30:.0f} "
@@ -2143,11 +2451,18 @@ def check_serving_logits(params, cfg, prompt, forced, per_prefill, per_step,
         check_streamed(params, cfg, prompt, forced, per_prefill, per_step,
                        norms_per_layer)
         return
+    k = FP32_DEPTH_CUT[cfg.name]
+    raw = torch.cuda.mem_get_info()[0]
+    headroom = FP32_HEADROOM * len(prompt) // HEADROOM_TOKENS
+    need = rest + k * per_layer
     log(f"teacher-forced: {cfg.name}'s fp32 copy "
         f"({fp32_bytes(params) / 2**30:.1f} GiB) does not fit beside it "
         f"({free / 2**30:.1f} GiB free after {FP32_HEADROOM / 2**30:.0f} GiB "
         f"headroom); depth cut: the first {k} of {cfg.n_layers} layers "
-        f"({(rest + k * per_layer) / 2**30:.1f} GiB in fp32)")
+        f"({need / 2**30:.1f} GiB in fp32, {raw / 2**30:.1f} GiB free, "
+        f"{headroom / 2**30:.1f} GiB kept for a {len(prompt)}-token run)")
+    require(k < cfg.n_layers and need + headroom <= raw,
+            f"{cfg.name}: the {k}-layer fp32 cut does not fit")
 
     LAUNCHES.clear()
     got = teacher_forced(params, cfg, prompt, forced)
@@ -2491,14 +2806,15 @@ MOE_KERNELS = ("topk", "sort", "radix", "histogram", "scan", "indexselect",
 
 def profile_serving(eng, prompts):
     """Trace the engine serving a few more requests: device busy share of
-    the window and device time by kernel (the tracer's own host cost makes
-    the idle share an upper bound). Returns the traced kernels' names."""
+    the window and device time by kernel. The tracer records the card's
+    activity only (no host ops), so its own host cost is small; it still
+    makes the idle share an upper bound. Returns the traced kernels'
+    names."""
     from torch.profiler import ProfilerActivity, profile
     for p in prompts:
         eng.submit(p, max_new=8)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.run()
         torch.cuda.synchronize()
@@ -2652,14 +2968,15 @@ def check_train_step_vs_plain(label, cfg, base, batch):
 
 def profile_train_step(step_once, expect):
     """Trace one training step (``step_once()`` runs one and returns its
-    loss): device busy share and device ms by group. The tracer runs through
+    loss): device busy share and device ms by group, the card's activity
+    only, as ``profile_serving`` traces it. The tracer runs through
     a warm-up step first and records only the second step, so no kernel
     launched while it starts is missed; the log says whether the recorded
     step holds the kernel launches ``expect`` counts ({name prefix: count},
     a flash forward and the backward's dq kernel)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
         for _ in range(2):
@@ -2677,10 +2994,13 @@ def profile_train_step(step_once, expect):
                 traced[name] += e.count
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     groups = dict.fromkeys(("flash fwd", "flash bwd", "rmsnorm fwd",
-                            "rmsnorm bwd", "matmul", "other"), 0.0)
+                            "rmsnorm bwd", "scan fwd", "scan bwd", "matmul",
+                            "other"), 0.0)
     for e in kernels:
         name = e.key.lower()
-        group = ("flash fwd" if "flash_fwd" in name else
+        group = ("scan bwd" if "ssd_bwd" in name or "slstm_bwd" in name else
+                 "scan fwd" if "ssd_scan" in name or "slstm_scan" in name else
+                 "flash fwd" if "flash_fwd" in name else
                  "flash bwd" if "flash_bwd" in name else
                  "rmsnorm bwd" if "rmsnorm_bwd" in name else
                  "rmsnorm fwd" if "rmsnorm_kernel" in name else
@@ -2691,7 +3011,7 @@ def profile_train_step(step_once, expect):
         groups[group] += e.self_device_time_total / 1e3
     require(kernels, "the traced step shows no device time")
     complete = dict(traced) == expect
-    log(f"train profile: traced flash kernels {dict(traced)} of {expect} "
+    log(f"train profile: traced kernels {dict(traced)} of {expect} "
         f"per step: {'complete' if complete else 'INCOMPLETE'} trace")
     log(f"train profile: one traced step, wall {wall_ms:.1f} ms, device busy "
         f"{busy:.1f} ms ({busy / wall_ms:.1%}), {len(kernels)} kernel names; "
@@ -3041,14 +3361,20 @@ def token_nll(params, cfg, tokens):
         return torch.logsumexp(logits, dim=-1) - tgt
 
 
-def check_trainer_step0(cfg, params, batch):
+def check_trainer_step0(cfg, params, batch, against_design=False):
     """Step 0's loss and gradients through the kernels against the same
     through the plain versions on the card, in bf16, held to the bf16 noise
     floor of the plain bf16 path against the plain fp32 one (fp32 params):
     the loss within twice the mean over tokens of the plain path's per-token
     loss deviation, the grad norm within twice the norm of its gradient
     error, every gradient leaf within twice its largest element error (as
-    the CPU tests hold the port to JAX). Returns the step's launches."""
+    the CPU tests hold the port to JAX). With ``against_design`` (zamba2)
+    every leaf is also held, against the same floor, to the plain bf16
+    path with the flash backward's rounding by design
+    (``DesignAttention``): a leaf fed by many heads' dq, dk and dv, such
+    as A_log, is moved by D from the bf16 output as well as by the plain
+    path's own bf16 rounding, and the path that rounds as the kernels do
+    should be the nearer one. Returns the step's launches."""
     k = cfg.microbatches
     LAUNCHES.clear()
     loss_k, grads_k = microbatch_grads(params, cfg, batch, k)
@@ -3063,6 +3389,10 @@ def check_trainer_step0(cfg, params, batch):
         loss_32, grads_32 = microbatch_grads(params32, cfg, batch, k)
         nll_p = token_nll(params, cfg, tokens)
         nll_32 = token_nll(params32, cfg, tokens)
+        grads_d = grads_32
+        if against_design:
+            ops.attention = design_attention
+            _, grads_d = microbatch_grads(params, cfg, batch, k)
     require(dict(LAUNCHES) == mid, "the plain step launched a kernel")
     del params32
     loss_floor = float((nll_p - nll_32).abs().mean())
@@ -3074,14 +3404,17 @@ def check_trainer_step0(cfg, params, batch):
     gn_floor = float(torch.sqrt(sum(torch.sum((a.double() - b.double()) ** 2)
                                     for a, b in zip(tree_leaves(grads_p),
                                                     tree_leaves(grads_32)))))
-    ratios = {}
-    for (path, gk), (_, gp), (_, g32) in zip(named_leaves(grads_k),
-                                             named_leaves(grads_p),
-                                             named_leaves(grads_32)):
+    ratios, to_design, design_from_fp32 = {}, {}, {}
+    for (path, gk), (_, gp), (_, g32), (_, gd) in zip(
+            named_leaves(grads_k), named_leaves(grads_p),
+            named_leaves(grads_32), named_leaves(grads_d)):
         require(bool(torch.isfinite(gk).all()), f"gradient {path} not finite")
-        floor = float((gp - g32).abs().max())
-        ratios[path] = float((gk - g32).abs().max()) / max(floor, 1e-30)
-    worst = sorted(ratios.items(), key=lambda kv: -kv[1])[:4]
+        floor = max(float((gp - g32).abs().max()), 1e-30)
+        ratios[path] = float((gk - g32).abs().max()) / floor
+        to_design[path] = float((gk - gd).abs().max()) / floor
+        design_from_fp32[path] = float((gd - g32).abs().max()) / floor
+    top = lambda r: sorted(r.items(), key=lambda kv: -kv[1])[:4]
+    worst = top(ratios)
     loss_err = abs(float(loss_k) - float(loss_32))
     gn_err = abs(gn["kernel"] - gn["fp32"])
     log(f"trainer step 0, kernels vs plain versions (bf16) vs plain fp32: "
@@ -3093,14 +3426,20 @@ def check_trainer_step0(cfg, params, batch):
         f"{float((nll_k - nll_p).abs().mean()):.3e}; grad norm "
         f"{gn['kernel']:.6f} / {gn['plain']:.6f} / {gn['fp32']:.6f}, "
         f"distance {gn_err:.3e} (tol 2x the norm of the plain path's "
-        f"gradient error {gn_floor:.3e}); gradient leaves' max error from "
-        f"fp32 over the plain path's, worst {worst} (tol 2)")
+        f"gradient error {gn_floor:.3e}); gradient leaves' max distance "
+        f"from fp32 over the plain path's, worst {worst} (tol 2)"
+        + (f"; from the plain path with the flash backward rounding by "
+           f"design, worst {top(to_design)} (tol 2; that path's own from "
+           f"fp32 {top(design_from_fp32)})" if against_design else ""))
     require(loss_err <= 2 * loss_floor, "trainer step-0 loss off the plain "
             "path's bf16 noise floor")
     require(gn_err <= 2 * gn_floor, "trainer step-0 grad norm off the plain "
             "path's bf16 noise floor")
     require(max(ratios.values()) <= 2, f"trainer step-0 gradient {worst[0]} "
             "off the plain path's bf16 noise floor")
+    require(not against_design or max(to_design.values()) <= 2,
+            f"trainer step-0 gradient {top(to_design)[0]} off the path with "
+            "the flash backward's rounding by design")
     return grad_launches
 
 
@@ -3233,20 +3572,212 @@ def trainer_full_width():
     return dict(launches), metrics
 
 
-def trainer_cli():
-    """``python -m repro_torch.launch.train --arch qwen3-0.6b --steps 20``
-    as a user runs it (the reduced config in bf16, hd 32, one device), in a
-    fresh process that finds phase 2's library."""
+def trainer_cli(arch: str = "qwen3-0.6b", steps: int = TRAINER_CLI_STEPS):
+    """``python -m repro_torch.launch.train --arch <arch> --steps <steps>``
+    as a user runs it (the reduced config in bf16, one device), in a fresh
+    process that finds phase 2's library."""
     with tempfile.TemporaryDirectory(prefix="train_cli_") as ckpt:
         proc, wall = run_module(
-            ["repro_torch.launch.train", "--arch", "qwen3-0.6b", "--steps",
-             str(TRAINER_CLI_STEPS), "--ckpt-dir", ckpt], "train cli",
+            ["repro_torch.launch.train", "--arch", arch, "--steps",
+             str(steps), "--ckpt-dir", ckpt], f"train cli {arch}",
             TRAINER_CLI_TIMEOUT)
-    require(proc.returncode == 0, f"the train CLI exited {proc.returncode}")
-    want = f"done at step {TRAINER_CLI_STEPS}"
-    require(want in proc.stdout, f"the train CLI did not print {want!r}")
-    log(f"train cli: process wall {wall:.2f} s")
+    require(proc.returncode == 0, f"the train CLI --arch {arch} exited "
+            f"{proc.returncode}")
+    want = f"done at step {steps}"
+    require(want in proc.stdout, f"the train CLI --arch {arch} did not print "
+            f"{want!r}")
+    log(f"train cli {arch}: process wall {wall:.2f} s")
     return {"process_wall_s": wall}
+
+
+# --------------------------------------------------------------------------
+# phase 5i: the Trainer on the recurrent archs at full width, in bf16
+# --------------------------------------------------------------------------
+RECURRENT_CUT = {"xlstm-1.3b": 8, "zamba2-2.7b": 12}   # the step-0 check's
+#   depth cut: xlstm 7 mLSTM + 1 sLSTM, zamba2 two shared applications
+RECURRENT_STEPS, RECURRENT_CLI_STEPS = 8, 10
+RECURRENT_SWEEP = (4, 2)                    # the sweep CLI: members, steps
+LAYER_NORMS = {"mlstm": 1, "slstm": 2, "mamba2": 2}    # ln1 (+ ff_ln / the
+#   Mamba-2 mixer's norm); each shared ATTN application ln1 and ln2
+
+
+def recurrent_launches(cfg) -> dict:
+    """One Trainer step's launches on a recurrent arch: per microbatch each
+    stage layer's scan and norm forwards twice under remat full (the
+    forward and the backward's recompute), the shared ATTN block (outside
+    the remat wrapper, as ``forward_hidden`` applies it) and final_norm
+    once, and each backward once."""
+    k, fwd = cfg.microbatches, (2 if cfg.remat == "full" else 1)
+    kinds = Counter(cfg.block_pattern)
+    scans = {"ssd_scan": kinds["mlstm"] + kinds["mamba2"],
+             "slstm_scan": kinds["slstm"]}
+    apps = n_shared_applications(cfg)
+    norms = sum(LAYER_NORMS[kind] * n for kind, n in kinds.items())
+    want = {"rmsnorm": k * (fwd * norms + 2 * apps + 1),
+            "rmsnorm_bwd": k * (norms + 2 * apps + 1)}
+    for name, n in scans.items():
+        if n:
+            want[name], want[name + "_bwd"] = k * fwd * n, k * n
+    if apps:
+        want["flash_attention"] = want["flash_attention_bwd"] = k * apps
+    return want
+
+
+def check_step_repeats(cfg, params, batch):
+    """The same Trainer step (``make_train_step``, moments as configured)
+    twice from clones of one state: params, moments and metrics must be
+    the same bits (every sum of the path's kernels and of autograd runs in
+    a fixed order, zamba2's shared block's nine gradients too)."""
+    step = make_train_step(cfg, peak_lr=TRAINER_LR, warmup=TRAINER_WARMUP,
+                           total_steps=100, device="cuda")
+    opt = adamw_init(params, cfg.opt_state_dtype)
+    runs = []
+    for _ in range(2):
+        p, o, m = step(clone_tree(params), clone_tree(opt), batch, 1)
+        runs.append((tree_leaves(p) + tree_leaves(o),
+                     [m["loss"], m["grad_norm"]]))
+    same = all(torch.equal(a, b) for a, b in zip(*(r[0] + r[1] for r in runs)))
+    log(f"trainer {cfg.name} at {cfg.n_layers} layers: one step twice from "
+        f"the same state: {'the same bits' if same else 'DIFFERENT bits'} "
+        f"(loss {float(runs[0][1][0]):.6f}, grad norm "
+        f"{float(runs[0][1][1]):.6f})")
+    require(same, f"{cfg.name}: a repeated step changed bits")
+
+
+def train_recurrent(arch: str):
+    """``Trainer`` on a recurrent arch as configured (bf16 params, 2
+    microbatches, remat full; xlstm bf16 moments, zamba2 fp32) on
+    ``SyntheticLM`` 8 x 512: step 0's loss and gradients on the depth cut
+    against the plain versions (``check_trainer_step0``), one step twice
+    from the same state on the cut, then 8 steps at full depth with exact
+    launch counts and a falling loss (no checkpoint: the phase tests the
+    step) and one traced step. Returns (launches of the 8 steps,
+    metrics)."""
+    cfg = get_config(arch)
+    require(cfg.param_dtype == "bfloat16" and cfg.microbatches == 2
+            and cfg.remat == "full", f"{arch} is not configured as assumed")
+    src = SyntheticLM(cfg.vocab_size, TRAINER_BATCH[1], TRAINER_BATCH[0],
+                      seed=0)
+    batch = to_batch(src.batch(0), "cuda")
+    t_phase = time.perf_counter()
+    k = RECURRENT_CUT[arch]
+    cut = dataclasses.replace(cfg, n_layers=k, block_pattern=())
+    log(f"trainer: {arch} in bf16 ({cfg.n_layers} layers, microbatches "
+        f"{cfg.microbatches}, remat {cfg.remat}, moments "
+        f"{cfg.opt_state_dtype}); SyntheticLM {TRAINER_BATCH[0]}x"
+        f"{TRAINER_BATCH[1]}; step 0 checked on a depth cut of {k} layers "
+        f"{dict(Counter(cut.block_pattern))} (its fp32 copy and three "
+        f"gradient trees beside the full model's state would not fit)")
+    params = init_params(cut, torch.Generator("cuda").manual_seed(0),
+                         device="cuda")
+    got = check_trainer_step0(cut, params, batch,
+                              against_design=bool(cut.shared_attn_every))
+    want_cut = recurrent_launches(cut)
+    require(got == want_cut, f"{arch} step 0 at {k} layers launched {got}, "
+            f"not {want_cut}")
+    check_step_repeats(cut, params, batch)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    workdir = tempfile.mkdtemp(prefix="trainer_recurrent_")
+    tc = TrainerConfig(ckpt_dir=workdir, ckpt_every=10**9,
+                       peak_lr=TRAINER_LR, warmup=TRAINER_WARMUP,
+                       total_steps=100, log_every=1)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(cfg, src.batch, tc, device="cuda", log=log)
+        n_params = sum(t.numel() for t in tree_leaves(tr.params))
+        state_gib = sum(t.numel() * t.element_size() for t in
+                        tree_leaves(tr.params) + tree_leaves(tr.opt_state)
+                        if torch.is_tensor(t)) / 2**30
+        log(f"trainer {arch}: {n_params / 1e9:.3f} B params, params and "
+            f"moments {state_gib:.2f} GiB")
+        want = recurrent_launches(cfg)
+        calls, step_ms = [], []
+        step_fn = tr.step_fn
+
+        def counted(*a):
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            out = step_fn(*a)
+            float(out[2]["loss"])
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            calls.append(dict(LAUNCHES))
+            return out
+
+        tr.step_fn = counted
+        out = tr.run(RECURRENT_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = out["losses"]
+        require(out["step"] == RECURRENT_STEPS and len(calls) ==
+                RECURRENT_STEPS, f"{arch}: {len(calls)} step calls for "
+                f"{RECURRENT_STEPS} steps")
+        launches = Counter()
+        for i, got in enumerate(calls):
+            require(got == want, f"{arch} trainer step {i} launched {got}, "
+                    f"not {want}")
+            launches.update(got)
+        require(all(math.isfinite(x) for x in losses), "non-finite loss")
+        require(losses[-1] < losses[0], f"{arch} trainer loss did not fall: "
+                f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+        tr.step_fn = step_fn
+
+        def step_once():
+            tr.params, tr.opt_state, m = tr.step_fn(
+                tr.params, tr.opt_state, batch, RECURRENT_STEPS)
+            return m["loss"]
+        expect = {"ssd_bwd_da_kernel": want["ssd_scan_bwd"]}
+        if "slstm_scan_bwd" in want:
+            expect["slstm_bwd_bias_kernel"] = want["slstm_scan_bwd"]
+        if "flash_attention_bwd" in want:
+            expect["flash_bwd_dq_sm90_kernel<"] = want["flash_attention_bwd"]
+        profile = profile_train_step(step_once, expect)
+        del tr
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    metrics = {"params_b": n_params / 1e9, "state_gib": state_gib,
+               "loss_first": losses[0], "loss_last": losses[-1],
+               "losses": losses, "step0_ms": step_ms[0],
+               "step_ms_median": float(np.median(step_ms[1:])),
+               "step_ms": step_ms, "peak_mem_gib": peak,
+               "launches_per_step": want,
+               "phase_s": time.perf_counter() - t_phase, **profile}
+    log(f"trainer metrics {arch} bf16 full width: " + json.dumps(metrics))
+    return dict(launches), metrics
+
+
+def sweep_cli_arch(arch: str):
+    """``python -m repro_torch.launch.sweep --arch <arch>`` (the member:
+    the reduced config's layers in fp32, remat none) in a fresh process:
+    exit 0 and every member launched."""
+    members, steps = RECURRENT_SWEEP
+    proc, wall = run_module(["repro_torch.launch.sweep", "--arch", arch,
+                             "--members", str(members), "--steps",
+                             str(steps)], f"sweep {arch}", SWEEP_CLI_TIMEOUT)
+    require(proc.returncode == 0, f"the sweep CLI --arch {arch} exited "
+            f"{proc.returncode}")
+    want = f"launched {members}/{members} members"
+    require(want in proc.stdout, f"the sweep CLI --arch {arch} did not print "
+            f"{want!r}")
+    log(f"sweep cli --arch {arch}: process wall {wall:.2f} s")
+
+
+def train_recurrent_archs(card: str) -> dict:
+    """Phase 5i: both recurrent archs in turn, one on the card at a time,
+    then the training CLIs with ``--arch``. Returns each Trainer's
+    launches under ``"<arch> Trainer (bf16, full width)"``."""
+    t0 = time.perf_counter()
+    out = {}
+    for arch in RECURRENT_CUT:
+        out[f"{arch} Trainer (bf16, full width)"], _ = train_recurrent(arch)
+    for arch in RECURRENT_CUT:
+        trainer_cli(arch, RECURRENT_CLI_STEPS)
+        sweep_cli_arch(arch)
+    log(f"phase 5i: {time.perf_counter() - t0:.1f} s ({card})")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -3409,10 +3940,10 @@ def main():
             f"per SM")
         require(fwd_occ["blocks_per_sm"] >= 1,
                 f"the fp32 flash forward does not fit an SM at hd={hd}")
-        if hd in (80, 192):                  # the backward takes 32, 64, 128
-            continue
         for dtype, warps in ((torch.float32, (16, 16)),
                              (torch.bfloat16, (8, 4))):
+            if hd not in _BWD_HEAD_DIMS[dtype]:  # fp32 80, both 192
+                continue
             occ = bwd_occupancy(hd, dtype)
             log(f"flash_attention_bwd hd={hd} {str(dtype)[6:]}: dk/dv kernel "
                 f"{occ['dkdv_smem_bytes']} bytes of shared memory, "
@@ -3473,12 +4004,23 @@ def main():
         f"{rms_bwd_bf16_step['library_ms']:.3f}, bound "
         f"{rms_bwd_bf16_step['bound_ms']:.3f})")
     trainer_cli()
+    torch.cuda.empty_cache()
+    # phase 4's rows of phase 5i's kernels, run after the serving phases:
+    # the cuBLAS workspaces of these checks' streams stay, and would take
+    # from the memory beside the serving phases' fp32 depth cuts
+    ssd_bwd_rows, slstm_bwd_rows, flash_80_row, rms_5i_rows = \
+        check_recurrent_bwd_kernels(torch.Generator("cuda").manual_seed(33))
+    torch.cuda.empty_cache()
+    recurrent = train_recurrent_archs(card)                  # phase 5i
 
     launch_layer(card)                                       # phase 5e
 
     serving = {"qwen3-0.6b serve": qwen, "xlstm-1.3b serve": xlstm,
                "zamba2-2.7b serve": zamba, **archs, **modal, **nemotron}
-    bf16_training = {"qwen3-0.6b Trainer (bf16, full width)": trainer}
+    bf16_training = {"qwen3-0.6b Trainer (bf16, full width)": trainer,
+                     **recurrent}
+    xlstm_train = {k: v for k, v in recurrent.items() if "xlstm" in k}
+    zamba_train = {k: v for k, v in recurrent.items() if "zamba2" in k}
     training = {"qwen3-0.6b train (fp32, full width)": train,
                 "sweep member (qwen3-0.6b reduced, fp32)": sweep,
                 "sweep CLI run_sweep (qwen3-0.6b reduced, fp32)": cli,
@@ -3507,8 +4049,12 @@ def main():
          **launches("flash_attention_bwd", training), **flash_bwd_row},
         {"name": "flash_attention_bwd_bf16", "route": "cuda",
          "source": csrc + "flash_attention_bwd_sm90.cu", "replaces": flash_tpu,
-         **launches("flash_attention_bwd", bf16_training),
+         **launches("flash_attention_bwd", {
+             k: v for k, v in bf16_training.items() if k not in zamba_train}),
          **flash_bwd_bf16_row},
+        {"name": "flash_attention_bwd_bf16_hd80", "route": "cuda",
+         "source": csrc + "flash_attention_bwd_sm90.cu", "replaces": flash_tpu,
+         **launches("flash_attention_bwd", zamba_train), **flash_80_row},
         {"name": "rmsnorm", "route": "cuda", "source": csrc + "rmsnorm.cu",
          "replaces": rms_tpu,
          **launches("rmsnorm", {**serving, **training, **bf16_training}),
@@ -3521,21 +4067,36 @@ def main():
         {"name": "rmsnorm_bwd_bf16", "route": "cuda",
          "source": csrc + "rmsnorm_bwd_sm90.cu", "replaces": rms_tpu,
          **launches("rmsnorm_bwd", bf16_training),
-         **rms_bwd_bf16_rows[RMS_BWD_BF16_REPORT]},
+         **rms_bwd_bf16_rows[RMS_BWD_BF16_REPORT],
+         "regimes": list(rms_5i_rows.values())},
         {"name": "ssd_scan", "route": "cuda", "source": csrc + "ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:82",
-         **launches("ssd_scan", {"xlstm-1.3b serve": xlstm}),
+         **launches("ssd_scan", {"xlstm-1.3b serve": xlstm, **xlstm_train}),
          **ssd_rows[REPORT_T]},
         {"name": "ssd_scan_chunks", "route": "cuda",
          "source": csrc + "ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:82",
-         **launches("ssd_scan", {"zamba2-2.7b serve": zamba}),
+         **launches("ssd_scan", {"zamba2-2.7b serve": zamba, **zamba_train}),
          **ssd_rows["mamba2", REPORT_T]},
+        {"name": "ssd_scan_bwd", "route": "cuda",
+         "source": csrc + "ssd_scan_bwd.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:82",
+         **launches("ssd_scan_bwd", xlstm_train), **ssd_bwd_rows["mlstm"]},
+        {"name": "ssd_scan_bwd_mamba2", "route": "cuda",
+         "source": csrc + "ssd_scan_bwd.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:82",
+         **launches("ssd_scan_bwd", zamba_train), **ssd_bwd_rows["mamba2"]},
         {"name": "slstm_scan", "route": "cuda",
          "source": csrc + "slstm_scan.cu",
          "replaces": "src/repro/kernels/slstm_scan.py:94",
-         **launches("slstm_scan", serving),
+         **launches("slstm_scan", {**serving, **xlstm_train}),
          **slstm_rows[1, REPORT_T, "bfloat16"]},
+        {"name": "slstm_scan_bwd", "route": "cuda",
+         "source": csrc + "slstm_scan_bwd.cu",
+         "replaces": "src/repro/kernels/slstm_scan.py:94",
+         **launches("slstm_scan_bwd", xlstm_train),
+         **slstm_bwd_rows["bfloat16"],
+         "regimes": [slstm_bwd_rows["float32"]]},
     ]
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']} never ran on its paths")

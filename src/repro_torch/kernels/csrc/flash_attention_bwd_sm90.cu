@@ -10,7 +10,7 @@
 // fp32 backward's contract (flash_attention_bwd.cu): q [B,T,H,hd], k/v
 // [B,S,KV,hd], query row t at absolute position t + q_offset, KV head =
 // q head / (H/KV), scale 1/sqrt(hd), causal and window masks, any T and S,
-// hd 32, 64 or 128, lse = +inf for a row with no visible key (its P, and
+// hd 32, 64, 80 or 128, lse = +inf for a row with no visible key (its P, and
 // its share of every gradient, is then 0). With s = scale * q.k and
 // P = exp(s - lse):
 //   D  = rowsum(do * o)                 (flash_bwd_delta_kernel, fp32)
@@ -70,6 +70,14 @@
 //   (168 registers), 67,608 and 2 at hd 64, 43,032 and 2 at hd 32; dq
 //   99,352 bytes, 2 blocks of 4 warps at hd 128 (195 registers), 50,200
 //   and 3 at hd 64, 25,624 and 3 at hd 32. No spills.
+// - hd 80 (zamba2's shared block) runs hd 128's tiles, as the forward does:
+//   the tensor maps keep the true extent (80 columns, rows H*80*2 and
+//   KV*80*2 bytes apart), so the second 64-column atom's box reads 16 real
+//   columns and TMA fills the other 48 with zeros at every load. S^T, dP^T,
+//   S and dP sum over the 80 columns (5 k16 steps); dV, dK and dQ are
+//   m64n128k16 over the zero-padded tiles and only 80 columns are stored;
+//   delta reads 80. Registers, shared memory and blocks per SM are hd
+//   128's.
 // Left for later: a producer warp with setmaxnreg, the next pass's S^T
 // issued under this pass's exponentials, a persistent grid, dq summed in
 // the dk/dv kernel (5 products instead of 7).
@@ -90,11 +98,13 @@ constexpr float LOG2E = 1.4426950408889634f;
 // SW-byte rows side by side along hd, swizzled by SW.
 template <int HD>
 struct Tile {
-    static_assert(HD == 32 || HD == 64 || HD == 128, "the backward takes hd 32, 64 or 128");
-    static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;   // swizzle = atom row bytes
+    static_assert(HD == 32 || HD == 64 || HD == 80 || HD == 128,
+                  "the backward takes hd 32, 64, 80 or 128");
+    static constexpr int W = HD == 80 ? 128 : HD;            // columns of a tile in shared memory
+    static constexpr int SW = W * 2 < 128 ? W * 2 : 128;     // swizzle = atom row bytes
     static constexpr int ATOM = SW / 2;                      // columns per atom
-    static constexpr int NATOM = HD / ATOM;
-    static constexpr int BYTES = 64 * HD * 2;
+    static constexpr int NATOM = W / ATOM;
+    static constexpr int BYTES = 64 * W * 2;
 };
 
 template <int HD>
@@ -153,7 +163,7 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, 
 }
 
 // acc = A B^T over hd for two 64-row tiles, both K-major: m64n64k16 per 16
-// columns of hd.
+// columns of hd (at hd 80 the pad columns are left out).
 template <int HD>
 __device__ __forceinline__ void rows_by_rows(float (&acc)[32], uint32_t a, uint32_t b) {
     using T = Tile<HD>;
@@ -166,9 +176,9 @@ __device__ __forceinline__ void rows_by_rows(float (&acc)[32], uint32_t a, uint3
 }
 
 // acc += A X: A a 64 x 64 bf16 fragment in registers (four k16 slices), X a
-// 64 x hd tile read MN-major.
+// 64 x W tile read MN-major.
 template <int HD>
-__device__ __forceinline__ void frag_by_tile(float (&acc)[HD / 2], const uint32_t (&a)[4][4],
+__device__ __forceinline__ void frag_by_tile(float (&acc)[Tile<HD>::W / 2], const uint32_t (&a)[4][4],
                                              uint32_t x) {
     using T = Tile<HD>;
 #pragma unroll
@@ -299,9 +309,9 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     // columns ic + 8n and ic + 8n + 1 (n = 0..7) of the pass's tile.
     const int jr = 16 * warp + (lane >> 2), ic = 2 * (lane & 3);
     const float scale_log2 = scale * LOG2E;
-    float acc[HD / 2];                                      // wg 0: dv; wg 1: dk / scale
+    float acc[T::W / 2];                                    // wg 0: dv; wg 1: dk / scale
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < T::W / 2; ++i) acc[i] = 0.f;
 
     if (n_pass > 0) mbar_wait(kvbar, 0);
     for (int p = 0; p < n_pass; ++p) {
@@ -439,9 +449,9 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     const float d0 = v0 ? delta[srow] : 0.f, d1 = v1 ? delta[srow + 8] : 0.f;
     const float scale_log2 = scale * LOG2E;
 
-    float acc[HD / 2];
+    float acc[T::W / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < T::W / 2; ++i) acc[i] = 0.f;
 
     mbar_wait(qbar, 0);
     for (int kt = kt_begin, it = 0; kt < kt_end; ++kt, ++it) {
@@ -576,6 +586,8 @@ extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void
                                    causal, window, q_offset, scale, s);
         case 64: return launch<64>(q, k, v, o, l, dout, dq, dk, dv, d, B, T_len, S_len, H, KV,
                                    causal, window, q_offset, scale, s);
+        case 80: return launch<80>(q, k, v, o, l, dout, dq, dk, dv, d, B, T_len, S_len, H, KV,
+                                   causal, window, q_offset, scale, s);
         case 128: return launch<128>(q, k, v, o, l, dout, dq, dk, dv, d, B, T_len, S_len, H,
                                      KV, causal, window, q_offset, scale, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
@@ -588,6 +600,7 @@ extern "C" int flash_attention_bwd_bf16_occupancy(int hd, int* out) {
     switch (hd) {
         case 32: return occupancy<32>(out);
         case 64: return occupancy<64>(out);
+        case 80: return occupancy<80>(out);
         case 128: return occupancy<128>(out);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }

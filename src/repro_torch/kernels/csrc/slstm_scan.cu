@@ -297,8 +297,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 slstm_scan_kernel(const TW* __restrict__ wx, const TR* __restrict__ r,
                   const float* __restrict__ bias, TW* __restrict__ hs,
                   float* __restrict__ c_out, float* __restrict__ n_out,
-                  float* __restrict__ m_out, float* __restrict__ h_out, const Layout L, int B,
-                  int T_len, int nh, int dh) {
+                  float* __restrict__ m_out, float* __restrict__ h_out,
+                  float* __restrict__ pre_out, float* __restrict__ steps_out, const Layout L,
+                  int B, int T_len, int nh, int dh) {
     constexpr int kIters = (NB * 128 + kThreads - 1) / kThreads;  // gate entries per thread
     extern __shared__ __align__(16) unsigned char smem_raw[];
     TR* r_s = reinterpret_cast<TR*>(smem_raw);                         // [resident][cols]
@@ -444,6 +445,8 @@ slstm_scan_kernel(const TW* __restrict__ wx, const TR* __restrict__ r,
                     for (int w = 0; w < L.warps; ++w) rec += pc[w * NB * cols];
                 }
                 const float pre = wq[i] + rec + bq[i];
+                const long long bt = static_cast<long long>(b) * T_len + t;
+                if (pre_out != nullptr) pre_out[(bt * nh + head) * gd + q * dh + u0 + j] = pre;
                 const int g0 = lane & ~3;
                 const float p_i = __shfl_sync(0xffffffffu, pre, g0);
                 const float p_f = __shfl_sync(0xffffffffu, pre, g0 + 1);
@@ -464,8 +467,15 @@ slstm_scan_kernel(const TW* __restrict__ wx, const TR* __restrict__ r,
                     sc[0] = c_new;
                     sc[B * U] = n_new;
                     sc[2 * B * U] = m_new;
-                    hs[((static_cast<long long>(b) * T_len + t) * nh + head) * dh + u0 + j] =
-                        from_float<TW>(h);
+                    hs[(bt * nh + head) * dh + u0 + j] = from_float<TW>(h);
+                    if (steps_out != nullptr) {  // (c, n, m, h) after step t, for the backward
+                        const long long o = (bt * nh + head) * dh + u0 + j,
+                                        plane = static_cast<long long>(B) * T_len * nh * dh;
+                        steps_out[o] = c_new;
+                        steps_out[plane + o] = n_new;
+                        steps_out[2 * plane + o] = m_new;
+                        steps_out[3 * plane + o] = h;
+                    }
                     if (t + 1 == T_len) {
                         const long long o = (static_cast<long long>(b) * nh + head) * dh + u0 + j;
                         c_out[o] = c_new;
@@ -543,12 +553,15 @@ int r_size(int r_dtype) { return r_dtype == REPRO_BF16 ? 2 : 4; }
 }  // namespace
 
 // wx: [B,T,nh,4dh] and hs: [B,T,nh,dh] of one dtype (wx_dtype); r: [nh,dh,4dh]
-// (r_dtype); bias: [nh,4dh] fp32; c/n/m/h_out: [B,nh,dh] fp32. All
+// (r_dtype); bias: [nh,4dh] fp32; c/n/m/h_out: [B,nh,dh] fp32; pre_out (each
+// step's pre-activations, [B,T,nh,4dh]) and steps_out ((c, n, m, h) after
+// each step, [4,B,T,nh,dh]): fp32 or null, written for the backward. All
 // contiguous. G blocks per head, `segments` row segments of the dot and
 // `resident` rows of R in shared memory as slstm_plan chooses them.
 extern "C" int slstm_scan_fwd(const void* wx, const void* r, const float* bias, void* hs,
                               float* c_out, float* n_out, float* m_out, float* h_out,
-                              int wx_dtype, int r_dtype, int B, int T_len, int nh, int dh, int G,
+                              float* pre_out, float* steps_out, int wx_dtype, int r_dtype,
+                              int B, int T_len, int nh, int dh, int G,
                               int segments, int resident, void* stream) {
     Layout L;
     if (T_len <= 0 || nh <= 0 ||
@@ -565,7 +578,8 @@ extern "C" int slstm_scan_fwd(const void* wx, const void* r, const float* bias, 
         // refuses a cluster shape the card cannot schedule; nothing falls back
         err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const TW*>(wx),
                                  static_cast<const TR*>(r), bias, static_cast<TW*>(hs), c_out,
-                                 n_out, m_out, h_out, L, B, T_len, nh, dh);
+                                 n_out, m_out, h_out, pre_out, steps_out, L, B, T_len, nh,
+                                 dh);
         if (err != cudaSuccess) return static_cast<int>(err);
         return static_cast<int>(cudaGetLastError());
     });

@@ -18,9 +18,10 @@ kernels of ``csrc/flash_attention_bwd.cu`` (fp32) or the tensor-core
 kernels of ``csrc/flash_attention_bwd_sm90.cu`` (bf16). On CPU tensors the
 same Function runs the plain forward and the plain backward
 ``flash_attention_bwd_ref``, explicit formulas rather than autograd of the
-plain forward. A backward at head_dim
-80 or 192 on the card is not written yet and raises: both forwards take hd
-32, 64, 80, 128 and 192 (nemotron-4-340b), the backward 32, 64 and 128.
+plain forward. Both forwards take hd 32, 64, 80, 128 and 192
+(nemotron-4-340b); the bf16 backward 32, 64, 80 (zamba2's shared block, on
+hd 128's tiles) and 128, the fp32 backward 32, 64 and 128. A backward at
+another head_dim on the card is not written yet and raises.
 """
 from __future__ import annotations
 
@@ -33,7 +34,8 @@ from . import build
 
 NEG_INF = -1e30
 _FWD_HEAD_DIMS = (32, 64, 80, 128, 192)
-_BWD_HEAD_DIMS = (32, 64, 128)
+_BWD_HEAD_DIMS = {torch.float32: (32, 64, 128),
+                  torch.bfloat16: (32, 64, 80, 128)}
 _SCALARS = (ctypes.c_int,) * 9 + (ctypes.c_float, ctypes.c_void_p)
 _ENTRY = {torch.float32: "flash_attention_fwd",          # CUDA cores
           torch.bfloat16: "flash_attention_sm90_fwd"}    # tensor cores
@@ -43,8 +45,8 @@ _BWD_ENTRY = {torch.float32: "flash_attention_bwd",
               torch.bfloat16: "flash_attention_bwd_bf16"}
 _BWD_ARGTYPES = (ctypes.c_void_p,) * 10 + _SCALARS
 _OCC_ARGTYPES = (ctypes.c_int, ctypes.c_void_p)
-BWD_HEAD_DIM = ("the flash_attention backward at head_dim {} is not written "
-                "yet (ROADMAP.md queue 2 item 1); it takes {}")
+BWD_HEAD_DIM = ("the flash_attention backward at head_dim {} in {} is not "
+                "written yet (ROADMAP.md queue 2 item 1); it takes {}")
 
 
 def visible(T: int, S: int, q_offset: int, causal: bool, window: int, device):
@@ -151,8 +153,9 @@ def _check(q, k, v, backward: bool = False):
     if hd not in _FWD_HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {hd} not in "
                          f"{_FWD_HEAD_DIMS}")
-    if backward and hd not in _BWD_HEAD_DIMS:
-        raise NotImplementedError(BWD_HEAD_DIM.format(hd, _BWD_HEAD_DIMS))
+    if backward and hd not in _BWD_HEAD_DIMS[q.dtype]:
+        raise NotImplementedError(BWD_HEAD_DIM.format(
+            hd, str(q.dtype)[6:], _BWD_HEAD_DIMS[q.dtype]))
     if T == 0 or S == 0 or KV == 0 or H % KV or B * H > 65535:
         raise ValueError(f"flash_attention: cannot take T={T} S={S} H={H} "
                          f"KV={KV} B={B}")
@@ -199,8 +202,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     those of ``csrc/flash_attention_bwd_sm90.cu`` (wgmma on tiles placed by
     TMA, P and dS rounded to bf16 as ``flash_attention_bwd_ref(...,
     bf16_operands=True)`` rounds them). ``LAUNCHES["flash_attention_bwd"]``
-    counts the call once, whichever dtype; one at head_dim 80 or 192 raises
-    ``NotImplementedError`` before any launch. q, k, v, o and do share one
+    counts the call once, whichever dtype; one at a head_dim its dtype's
+    kernels do not take (``_BWD_HEAD_DIMS``: 80 in fp32, 192 in both)
+    raises ``NotImplementedError`` before any launch. q, k, v, o and do share one
     dtype, fp32 or bf16, and lse is fp32. q, k, v and do must be 16-byte
     aligned (the kernels load them in 16-byte pieces or by TMA).
     """

@@ -8,6 +8,14 @@ Pallas TPU kernel ``repro/kernels/slstm_scan.py`` and also returns the final
 per head, h exchanged through distributed shared memory (see the note at
 the top of the CUDA source for what bounds it and how). ``slstm_plan``
 chooses the cluster shape and the shared-memory layout.
+
+Where grad is enabled and wx, r or b requires it, the call goes through an
+``autograd.Function``: the forward then also writes each step's gate
+pre-activations and (c, n, m, h), and the backward (``slstm_scan_bwd``)
+walks time in reverse, on the card through ``csrc/slstm_scan_bwd.cu``, on
+CPU tensors through the explicit formulas of ``slstm_scan_bwd_ref``. Both
+follow JAX's derivative, ties included: ``jnp.maximum`` / ``jnp.minimum``
+give each side half the gradient at a tie (``scalar_max``, ``scalar_min``).
 """
 from __future__ import annotations
 
@@ -29,7 +37,9 @@ MAX_CLUSTER = 16                # kMaxCluster: blocks per cluster (non-portable)
 SMEM_MAX = 232_448              # kMaxSmem: shared memory a block may use
 BARRIER_BYTES = 16              # kBarrierBytes: its static part, two mbarriers
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}      # ReproDtype in common.cuh
-_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 9 + (ctypes.c_void_p,)
+_ARGTYPES = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 9 + (ctypes.c_void_p,)
+_BWD_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+BWD_UNITS = 16                  # kUnits in csrc/slstm_scan_bwd.cu: units per block
 _OCC_ARGTYPES = (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
 
 
@@ -95,6 +105,32 @@ def slstm_plan(B: int, nh: int, dh: int, r_dtype) -> SlstmPlan:
     return SlstmPlan(blocks, units, segments, tile, resident, smem)
 
 
+def scalar_max(x, v: float):
+    """``jnp.maximum(x, v)``: at a tie each side takes half the gradient
+    (``torch.clamp`` would give the input all of it)."""
+    return torch.maximum(x, torch.full((), v, dtype=x.dtype, device=x.device))
+
+
+def scalar_min(x, v: float):
+    """``jnp.minimum(x, v)``, with the same tie rule as ``scalar_max``."""
+    return torch.minimum(x, torch.full((), v, dtype=x.dtype, device=x.device))
+
+
+def _cell(pre, c, n, m):
+    """One step of the sLSTM cell from pre-activations [..., 4dh]:
+    (c, n, m, h) after it."""
+    i_r, f_r, z_r, o_r = pre.chunk(4, dim=-1)
+    i_log = scalar_min(i_r, I_CLAMP)
+    f_log = F.logsigmoid(f_r)
+    m_new = torch.maximum(f_log + m, i_log)
+    ig = torch.exp(i_log - m_new)
+    fg = torch.exp(f_log + m - m_new)
+    c = fg * c + ig * torch.tanh(z_r)
+    n = fg * n + ig
+    h = torch.sigmoid(o_r) * c / scalar_max(n, 1.0)
+    return c, n, m_new, h
+
+
 def slstm_scan_ref(wx, r, b):
     """Plain PyTorch version: the sequential scan of ``repro/kernels/ref.py:30``
     (``slstm_ref``), also returning the final state.
@@ -112,19 +148,85 @@ def slstm_scan_ref(wx, r, b):
     hs = []
     for t in range(T):
         rec = torch.einsum("bhd,hde->bhe", h, rf)
-        pre = wx[:, t].float() + rec + bf[None]
-        i_r, f_r, z_r, o_r = pre.split(dh, dim=-1)
-        i_log = torch.clamp(i_r, max=I_CLAMP)
-        f_log = F.logsigmoid(f_r)
-        m_new = torch.maximum(f_log + m, i_log)
-        ig = torch.exp(i_log - m_new)
-        fg = torch.exp(f_log + m - m_new)
-        c = fg * c + ig * torch.tanh(z_r)
-        n = fg * n + ig
-        m = m_new
-        h = torch.sigmoid(o_r) * c / torch.clamp(n, min=1.0)
+        c, n, m, h = _cell(wx[:, t].float() + rec + bf[None], c, n, m)
         hs.append(h)
     return torch.stack(hs, dim=1).to(wx.dtype), (c, n, m, h)
+
+
+def _tie(x, y):
+    """JAX's share of the gradient of max(x, y) that goes to x: 1 where x
+    is the larger, 1/2 at a tie, else 0 (min(x, y): pass -x, -y)."""
+    return (x > y).float() + 0.5 * (x == y).float()
+
+
+def cell_bwd(pre, c, n, m, dh, dc_new, dn_new, dm_new):
+    """The cell's local backward in fp32, as ``csrc/slstm_scan_bwd.cu``
+    computes it: from the step's pre-activations [..., 4dh] and the state
+    (c, n, m) before it, and the gradients of h and of the state after it,
+    returns (dpre [..., 4dh], dc, dn, dm) of the state before it. The
+    maximum that gives m_t, ``minimum(i, I_CLAMP)`` and ``maximum(n_t, 1)``
+    split a tie's gradient in halves, as JAX's do."""
+    i_r, f_r, z_r, o_r = pre.chunk(4, dim=-1)
+    i_log = torch.minimum(i_r, torch.full_like(i_r, I_CLAMP))
+    f_log = F.logsigmoid(f_r)
+    a = f_log + m
+    m_new = torch.maximum(a, i_log)
+    ig = torch.exp(i_log - m_new)
+    fg = torch.exp(a - m_new)
+    z = torch.tanh(z_r)
+    o = torch.sigmoid(o_r)
+    c_new = fg * c + ig * z
+    n_new = fg * n + ig
+    nn = torch.maximum(n_new, torch.ones_like(n_new))
+    do = dh * c_new / nn
+    dc_t = dc_new + dh * o / nn
+    dn_t = dn_new - dh * o * c_new / (nn * nn) * _tie(n_new, 1.0)
+    dfg = dc_t * c + dn_t * n
+    dig = dc_t * z + dn_t
+    t_ig, t_fg = dig * ig, dfg * fg
+    dm_t = dm_new - t_ig - t_fg
+    share = _tie(a, i_log)
+    da = t_fg + dm_t * share
+    di = (t_ig + dm_t * (1.0 - share)) * _tie(-i_r, -I_CLAMP)
+    dpre = torch.cat([di, da * torch.sigmoid(-f_r), dc_t * ig * (1.0 - z * z),
+                      do * o * (1.0 - o)], dim=-1)
+    return dpre, dc_t * fg, dn_t * fg, da
+
+
+def slstm_scan_bwd_ref(wx, r, b, dhs, d_state=None):
+    """Plain backward in fp32, the explicit formulas that
+    ``csrc/slstm_scan_bwd.cu`` computes: the scan is run again to keep each
+    step's pre-activations and state, then time is walked in reverse, with
+    dh_t = dhs_t + R dpre_{t+1} and ``cell_bwd`` giving dpre_t and the
+    state's gradients; dwx = dpre, db = sum of dpre over batch and time,
+    dr = sum over steps of h_{t-1}^T dpre_t. ``d_state`` is the final (c,
+    n, m, h)'s gradients (None, or None entries: zeros). Returns (dwx, dr,
+    db) in wx's, r's and b's dtypes."""
+    B, T, nh, gd = wx.shape
+    dh = gd // 4
+    rf, bf = r.float(), b.float()
+    zeros = torch.zeros(B, nh, dh, dtype=F32, device=wx.device)
+    states = [(zeros, zeros, torch.full_like(zeros, M_INIT), zeros)]
+    pres = []
+    for t in range(T):
+        h = states[-1][3]
+        pres.append(wx[:, t].float() + torch.einsum("bhd,hde->bhe", h, rf)
+                    + bf[None])
+        states.append(_cell(pres[-1], *states[-1][:3]))
+    d_state = d_state or (None,) * 4
+    dc, dn, dm, dh_final = (zeros if g is None else g.float() for g in d_state)
+    dh_rec = dh_final
+    dwx = torch.empty(B, T, nh, gd, dtype=F32, device=wx.device)
+    dr = torch.zeros(nh, dh, gd, dtype=F32, device=wx.device)
+    for t in reversed(range(T)):
+        c, n, m, h_prev = states[t]
+        dpre, dc, dn, dm = cell_bwd(pres[t], c, n, m,
+                                    dhs[:, t].float() + dh_rec, dc, dn, dm)
+        dwx[:, t] = dpre
+        dr += torch.einsum("bhd,bhe->hde", h_prev, dpre)
+        dh_rec = torch.einsum("bhe,hde->bhd", dpre, rf)
+    db = dwx.sum(dim=(0, 1))
+    return dwx.to(wx.dtype), dr.to(r.dtype), db.to(b.dtype)
 
 
 def _check(wx, r, b):
@@ -144,30 +246,135 @@ def _check(wx, r, b):
     return slstm_plan(B, nh, dh, r.dtype)
 
 
-def slstm_scan(wx, r, b):
-    """Arguments and results as ``slstm_scan_ref``; any T. On a CUDA tensor
-    one launch of nh clusters of ``slstm_plan(...).blocks`` blocks; a
-    cluster shape the card refuses raises."""
+def _forward(wx, r, b, trace: bool = False):
+    """(hs, (c, n, m, h)) on wx's device; with ``trace`` on a CUDA tensor
+    also each step's pre-activations [B,T,nh,4dh] and (c, n, m, h) after
+    it [4,B,T,nh,dh], fp32, for the backward (else None)."""
     if wx.device.type == "cpu":
-        return slstm_scan_ref(wx, r, b)
-    if wx.device.type != "cuda":
-        raise ValueError(f"slstm_scan: no kernel for device {wx.device}")
+        return slstm_scan_ref(wx, r, b), None
     plan = _check(wx, r, b)
     B, T, nh, gd = wx.shape
     dh = gd // 4
     hs = torch.empty(B, T, nh, dh, dtype=wx.dtype, device=wx.device)
     state = torch.empty(4, B, nh, dh, dtype=F32, device=wx.device)
     c, n, m, h = state.unbind(0)
+    pre = steps = None
+    if trace:
+        pre = torch.empty(B, T, nh, gd, dtype=F32, device=wx.device)
+        steps = torch.empty(4, B, T, nh, dh, dtype=F32, device=wx.device)
     fn = build.function("slstm_scan_fwd", _ARGTYPES)
     with torch.cuda.device(wx.device):
         stream = torch.cuda.current_stream(wx.device).cuda_stream
         code = fn(wx.data_ptr(), r.data_ptr(), b.data_ptr(), hs.data_ptr(),
                   c.data_ptr(), n.data_ptr(), m.data_ptr(), h.data_ptr(),
+                  None if pre is None else pre.data_ptr(),
+                  None if steps is None else steps.data_ptr(),
                   _DTYPES[wx.dtype], _DTYPES[r.dtype], B, T, nh, dh,
                   plan.blocks, plan.segments, plan.resident_rows, stream)
     build.check(code, "slstm_scan")
     build.LAUNCHES["slstm_scan"] += 1
-    return hs, (c, n, m, h)
+    return (hs, (c, n, m, h)), (None if pre is None else (pre, steps))
+
+
+def slstm_scan(wx, r, b):
+    """Arguments and results as ``slstm_scan_ref``; any T. On a CUDA tensor
+    one launch of nh clusters of ``slstm_plan(...).blocks`` blocks; a
+    cluster shape the card refuses raises. Differentiable in wx, r and b
+    (``SlstmScan``)."""
+    if wx.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"slstm_scan: no kernel for device {wx.device}")
+    if torch.is_grad_enabled() and (wx.requires_grad or r.requires_grad
+                                    or b.requires_grad):
+        hs, c, n, m, h = SlstmScan.apply(wx, r, b)
+        return hs, (c, n, m, h)
+    return _forward(wx, r, b)[0]
+
+
+class SlstmScan(torch.autograd.Function):
+    """The forward (with its trace on the card) and ``slstm_scan_bwd``. A
+    result the caller does not use comes back as a gradient of None, taken
+    as zeros."""
+
+    @staticmethod
+    def forward(ctx, wx, r, b):
+        ctx.set_materialize_grads(False)
+        (hs, state), trace = _forward(wx, r, b, trace=True)
+        ctx.save_for_backward(wx, r, b, *(trace or ()))
+        return (hs, *state)
+
+    @staticmethod
+    def backward(ctx, dhs, *d_state):
+        wx, r, b, *trace = ctx.saved_tensors
+        if dhs is None:
+            dhs = torch.zeros(*wx.shape[:3], wx.shape[3] // 4, dtype=wx.dtype,
+                              device=wx.device)
+        return slstm_scan_bwd(wx, r, b, dhs.contiguous(), d_state,
+                              trace=tuple(trace) or None)
+
+
+def slstm_scan_bwd(wx, r, b, dhs, d_state=None, trace=None):
+    """(dwx, dr, db) of ``slstm_scan`` at (wx, r, b), given the gradient of
+    hs and of the final (c, n, m, h) (None entries: zeros), as
+    ``slstm_scan_bwd_ref``.
+
+    A CPU tensor takes ``slstm_scan_bwd_ref``. A CUDA tensor needs the
+    forward's ``trace`` (pre-activations and per-step states); one launch of
+    ``csrc/slstm_scan_bwd.cu``'s step kernel per time step, in reverse,
+    then one of its bias-sum kernel, counted once in
+    ``LAUNCHES["slstm_scan_bwd"]``; dr, which the TPU kernel's body has no
+    counterpart of, is one fp32 product over the stacked steps
+    (sum_t h_{t-1}^T dpre_t, TF32 off)."""
+    if wx.device.type == "cpu":
+        return slstm_scan_bwd_ref(wx, r, b, dhs, d_state)
+    if wx.device.type != "cuda":
+        raise ValueError(f"slstm_scan_bwd: no kernel for device {wx.device}")
+    _check(wx, r, b)
+    B, T, nh, gd = wx.shape
+    dh = gd // 4
+    if trace is None:
+        raise ValueError("slstm_scan_bwd: a CUDA call needs the forward's "
+                         "trace (SlstmScan saves it)")
+    pre, steps = trace
+    if dh % BWD_UNITS:
+        raise ValueError(f"slstm_scan_bwd: dh={dh} is not a multiple of "
+                         f"{BWD_UNITS} units per block")
+    for name, t, shape, dtype in (
+            ("dhs", dhs, (B, T, nh, dh), wx.dtype),
+            ("pre", pre, (B, T, nh, gd), F32),
+            ("steps", steps, (4, B, T, nh, dh), F32)):
+        if (t.device != wx.device or t.dtype != dtype
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"slstm_scan_bwd: {name} is {tuple(t.shape)} "
+                             f"{t.dtype}; takes a contiguous {shape} {dtype} "
+                             f"on {wx.device}")
+    d_state = d_state or (None,) * 4
+    carry = torch.zeros(3, B, nh, dh, dtype=F32, device=wx.device)
+    for i, g in enumerate(d_state[:3]):      # dc, dn, dm of the final state
+        if g is not None:
+            carry[i].copy_(g)
+    if d_state[3] is not None:               # h_T is hs[:, -1]
+        dhs = dhs.clone()
+        dhs[:, -1] += d_state[3].to(dhs.dtype)
+    dpre = torch.empty(B, T, nh, gd, dtype=F32, device=wx.device)
+    db = torch.empty(nh, gd, dtype=F32, device=wx.device)
+    fn = build.function("slstm_scan_bwd", _BWD_ARGTYPES)
+    with torch.cuda.device(wx.device):
+        stream = torch.cuda.current_stream(wx.device).cuda_stream
+        code = fn(r.data_ptr(), pre.data_ptr(), steps.data_ptr(),
+                  dhs.data_ptr(), carry.data_ptr(),
+                  dpre.data_ptr(), db.data_ptr(), _DTYPES[wx.dtype],
+                  _DTYPES[r.dtype], B, T, nh, dh, stream)
+    build.check(code, "slstm_scan_bwd")
+    build.LAUNCHES["slstm_scan_bwd"] += 1
+    h_prev = torch.cat([torch.zeros_like(steps[3, :, :1]), steps[3, :, :-1]],
+                       dim=1)                # h_{t-1} [B,T,nh,dh]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False   # whatever the caller set
+    try:
+        dr = torch.einsum("btnd,btne->nde", h_prev, dpre)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return dpre.to(wx.dtype), dr.to(r.dtype), db.to(b.dtype)
 
 
 def slstm_max_clusters(B: int, nh: int, dh: int, wx_dtype, r_dtype) -> int:

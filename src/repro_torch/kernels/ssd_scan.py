@@ -13,6 +13,13 @@ ordered pass over the chunk states, the outputs in parallel) for states of
 at most 64 x 64 without the normalizer (Mamba-2), else the ordered walk
 (two kernels: the chunks' masked decay matrices, then the scan). See the
 note at the top of the CUDA source for what bounds each and how.
+
+Where grad is enabled and x, a, B, C or ``norm_weights`` requires it, the
+call goes through an ``autograd.Function`` whose backward is
+``ssd_scan_bwd``: on the card the kernels of ``csrc/ssd_scan_bwd.cu`` (fp32
+only, as both call sites pass), on CPU tensors the explicit formulas of
+``ssd_scan_bwd_ref``. ``initial_state`` and ``initial_norm_state`` are
+constants to it: one that requires grad raises.
 """
 from __future__ import annotations
 
@@ -30,6 +37,8 @@ SMALL_STATE = 64                                     # kSmallState: N, P at most
 _ARGTYPES = (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
 _CHUNKS_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 7
                     + (ctypes.c_void_p,))
+_BWD_ARGTYPES = (ctypes.c_void_p,) * 14 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+_BWD_WS_ARGTYPES = (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 
 
 def ssd_scan_ref(x, a, B, C, *, initial_state=None, norm_weights=None,
@@ -112,22 +121,233 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _forward(x, a, B, C, **kw):
+    """The forward on its device: ``ssd_scan_ref`` on a CPU tensor, the
+    kernels ``path`` picks on a CUDA tensor (counted once)."""
+    if x.device.type == "cpu":
+        return ssd_scan_ref(x, a, B, C, **kw)
+    _check(x, a, B, C, **kw)
+    out = _launch(path(B.shape[-1], x.shape[-1], kw["norm_weights"] is not None),
+                  x, a, B, C, **kw)
+    build.LAUNCHES["ssd_scan"] += 1
+    return out
+
+
 def ssd_scan(x, a, B, C, *, initial_state=None, norm_weights=None,
              initial_norm_state=None):
     """Arguments and results as ``ssd_scan_ref``; any T. On a CUDA tensor
     one call computes y, the final state and, with ``norm_weights``, the
-    normalizer chain, on the kernels ``path`` picks."""
+    normalizer chain, on the kernels ``path`` picks. Differentiable in x,
+    a, B, C and ``norm_weights`` (``SsdScan``)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ssd_scan: no kernel for device {x.device}")
     kw = dict(initial_state=initial_state, norm_weights=norm_weights,
               initial_norm_state=initial_norm_state)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, a, B, C, norm_weights)):
+        for name in ("initial_state", "initial_norm_state"):
+            if kw[name] is not None and kw[name].requires_grad:
+                raise ValueError(f"ssd_scan: {name} requires grad; no path "
+                                 "differentiates it and the backward does "
+                                 "not")
+        return SsdScan.apply(x, a, B, C, initial_state, norm_weights,
+                             initial_norm_state)
+    return _forward(x, a, B, C, **kw)
+
+
+class SsdScan(torch.autograd.Function):
+    """The forward (``_forward``) and ``ssd_scan_bwd``. A result the caller
+    does not use comes back as a gradient of None, taken as zeros."""
+
+    @staticmethod
+    def forward(ctx, x, a, B, C, initial_state, norm_weights,
+                initial_norm_state):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, a, B, C, initial_state, norm_weights,
+                              initial_norm_state)
+        return _forward(x, a, B, C, initial_state=initial_state,
+                        norm_weights=norm_weights,
+                        initial_norm_state=initial_norm_state)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        x, a, B, C, s0, w, sn0 = ctx.saved_tensors
+        if w is None:
+            (dy, d_state), dn, d_norm_state = grads, None, None
+        else:
+            dy, dn, d_state, d_norm_state = grads
+        dx, da, dB, dC, dw = ssd_scan_bwd(
+            x, a, B, C, dy, initial_state=s0, norm_weights=w,
+            initial_norm_state=sn0, dn=dn, d_state=d_state,
+            d_norm_state=d_norm_state)
+        return (dx.to(x.dtype), da.to(a.dtype), dB.to(B.dtype),
+                dC.to(C.dtype), None, None if w is None else dw.to(w.dtype),
+                None)
+
+
+def ssd_scan_bwd_ref(x, a, B, C, dy, *, initial_state=None,
+                     norm_weights=None, initial_norm_state=None, dn=None,
+                     d_state=None, d_norm_state=None):
+    """Plain backward in fp32, the explicit formulas that
+    ``csrc/ssd_scan_bwd.cu`` computes in chunks. With G_t the gradient of
+    S_t (its own y_t's and every later step's), G_t = C_t dy_t^T +
+    exp(a_{t+1}) G_{t+1} from G at T = ``d_state`` (or zeros):
+
+        dx_t = G_t^T B_t, dB_t = G_t x_t, dC_t = S_t dy_t,
+        da_t = exp(a_t) <S_{t-1}, G_t>;
+
+    the normalizer chain likewise with its one column (input w, output n,
+    gradients ``dn`` and ``d_norm_state``): dw_t = Gn_t . B_t, and its
+    terms added to dB, dC and da. dB and dC are summed over each group's
+    heads. The states are recomputed ``CHUNK`` steps at a time from the
+    chunks' first states. A gradient given as None is zeros. Returns (dx,
+    da, dB, dC, dw) in fp32; dw is None without ``norm_weights``."""
+    b, T, H, P = x.shape
+    G, N = B.shape[2:]
+    rep = H // G
+    dev = x.device
+    xf, af = x.float(), a.float()
+    Bf, Cf = (t.float().repeat_interleave(rep, dim=2) for t in (B, C))
+    dyf = torch.zeros_like(xf) if dy is None else dy.float()
+    norm = norm_weights is not None
+
+    def state(t, shape):
+        return (torch.zeros(shape, dtype=F32, device=dev) if t is None
+                else t.float())
+
+    if norm:
+        wf = norm_weights.float()
+        dnf = (torch.zeros(b, T, H, dtype=F32, device=dev) if dn is None
+               else dn.float())
+
+    def advance(S, Sn, t):                  # the states after step t
+        e = torch.exp(af[:, t])
+        S = e[..., None, None] * S + Bf[:, t, :, :, None] * xf[:, t, :, None, :]
+        if norm:
+            Sn = e[..., None] * Sn + Bf[:, t] * wf[:, t, :, None]
+        return S, Sn
+
+    S = state(initial_state, (b, H, N, P))
+    Sn = state(initial_norm_state, (b, H, N)) if norm else None
+    starts = list(range(0, T, CHUNK))
+    firsts = []
+    for t0 in starts:                       # each chunk's first states
+        firsts.append((S, Sn))
+        for t in range(t0, min(t0 + CHUNK, T)):
+            S, Sn = advance(S, Sn, t)
+    g = state(d_state, (b, H, N, P))        # exp(a_{t+1}) G_{t+1}
+    gn = state(d_norm_state, (b, H, N)) if norm else None
+    dx = torch.empty(b, T, H, P, dtype=F32, device=dev)
+    da = torch.empty(b, T, H, dtype=F32, device=dev)
+    dBh = torch.empty(b, T, H, N, dtype=F32, device=dev)
+    dCh = torch.empty(b, T, H, N, dtype=F32, device=dev)
+    dw = torch.empty(b, T, H, dtype=F32, device=dev) if norm else None
+    for t0, (S, Sn) in zip(reversed(starts), reversed(firsts)):
+        t1 = min(t0 + CHUNK, T)
+        Ss, Sns = [S], [Sn]                 # states before steps t0..t1-1, then after
+        for t in range(t0, t1):
+            S, Sn = advance(S, Sn, t)
+            Ss.append(S)
+            Sns.append(Sn)
+        for t in reversed(range(t0, t1)):
+            e = torch.exp(af[:, t])
+            Gt = g + Cf[:, t, :, :, None] * dyf[:, t, :, None, :]
+            dx[:, t] = torch.einsum("bhnp,bhn->bhp", Gt, Bf[:, t])
+            dBh[:, t] = torch.einsum("bhnp,bhp->bhn", Gt, xf[:, t])
+            dCh[:, t] = torch.einsum("bhnp,bhp->bhn", Ss[t - t0 + 1], dyf[:, t])
+            da[:, t] = e * (Ss[t - t0] * Gt).sum(dim=(-2, -1))
+            g = e[..., None, None] * Gt
+            if norm:
+                Gn = gn + Cf[:, t] * dnf[:, t, :, None]
+                dw[:, t] = (Gn * Bf[:, t]).sum(-1)
+                dBh[:, t] += Gn * wf[:, t, :, None]
+                dCh[:, t] += Sns[t - t0 + 1] * dnf[:, t, :, None]
+                da[:, t] += e * (Sns[t - t0] * Gn).sum(-1)
+                gn = e[..., None] * Gn
+    dB = dBh.reshape(b, T, G, rep, N).sum(dim=3)
+    dC = dCh.reshape(b, T, G, rep, N).sum(dim=3)
+    return dx, da, dB, dC, dw
+
+
+def ssd_scan_bwd(x, a, B, C, dy, *, initial_state=None, norm_weights=None,
+                 initial_norm_state=None, dn=None, d_state=None,
+                 d_norm_state=None):
+    """(dx, da, dB, dC, dw) of ``ssd_scan`` at its inputs, given the
+    gradients of its results (None: zeros), as ``ssd_scan_bwd_ref``.
+
+    A CPU tensor takes ``ssd_scan_bwd_ref``; a CUDA tensor the kernels of
+    ``csrc/ssd_scan_bwd.cu`` (one call counted once in
+    ``LAUNCHES["ssd_scan_bwd"]``), fp32 only: any other dtype raises before
+    a launch. The normalizer runs as x's extra column (its input w appended
+    to x, dn to dy), so dw comes back as that column of dx."""
     if x.device.type == "cpu":
-        return ssd_scan_ref(x, a, B, C, **kw)
+        return ssd_scan_bwd_ref(x, a, B, C, dy, initial_state=initial_state,
+                                norm_weights=norm_weights,
+                                initial_norm_state=initial_norm_state, dn=dn,
+                                d_state=d_state, d_norm_state=d_norm_state)
     if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan: no kernel for device {x.device}")
-    _check(x, a, B, C, **kw)
-    out = _launch(path(B.shape[-1], x.shape[-1], norm_weights is not None),
-                  x, a, B, C, **kw)
-    build.LAUNCHES["ssd_scan"] += 1
-    return out
+        raise ValueError(f"ssd_scan_bwd: no kernel for device {x.device}")
+    _check(x, a, B, C, initial_state, norm_weights, initial_norm_state)
+    if x.dtype != F32:
+        raise ValueError(f"ssd_scan_bwd: x is {x.dtype}; the backward "
+                         "kernels take float32 only")
+    b, T, H, P = x.shape
+    G, N = B.shape[2:]
+    norm = norm_weights is not None
+    for name, t, shape in (("dy", dy, (b, T, H, P)), ("dn", dn, (b, T, H)),
+                           ("d_state", d_state, (b, H, N, P)),
+                           ("d_norm_state", d_norm_state, (b, H, N))):
+        if t is not None and (t.device != x.device or t.dtype != F32
+                              or tuple(t.shape) != shape):
+            raise ValueError(f"ssd_scan_bwd: {name} is {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}; takes {shape} "
+                             f"float32 on {x.device}")
+    if not norm and (dn is not None or d_norm_state is not None):
+        raise ValueError("ssd_scan_bwd: a normalizer gradient without "
+                         "norm_weights")
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=F32, device=x.device)
+
+    def columns(main, extra, shape):        # [.., P] (+ [..] as column P)
+        main = zeros(*shape, P) if main is None else main
+        if not norm:
+            return main.contiguous()
+        extra = zeros(*shape) if extra is None else extra
+        return torch.cat([main, extra[..., None]], dim=-1).contiguous()
+
+    xe = columns(x, norm_weights, (b, T, H))
+    dye = columns(dy, dn, (b, T, H))
+    s0 = (None if initial_state is None and initial_norm_state is None
+          else columns(initial_state, initial_norm_state, (b, H, N)))
+    dsf = (None if d_state is None and d_norm_state is None
+           else columns(d_state, d_norm_state, (b, H, N)))
+    Pe = P + norm
+    fn = build.function("ssd_scan_bwd", _BWD_ARGTYPES)
+    size = ctypes.c_longlong(0)
+    build.check(build.function("ssd_scan_bwd_workspace", _BWD_WS_ARGTYPES)(
+        b, T, H, G, N, Pe, ctypes.addressof(size)), "ssd_scan_bwd_workspace")
+    ws = torch.empty(size.value, dtype=F32, device=x.device)
+    dxe = torch.empty(b, T, H, Pe, dtype=F32, device=x.device)
+    da = torch.empty(b, T, H, dtype=F32, device=x.device)
+    dB = torch.empty(b, T, G, N, dtype=F32, device=x.device)
+    dC = torch.empty_like(dB)
+    dBh, dCh = ((dB, dC) if G == H else
+                (torch.empty(b, T, H, N, dtype=F32, device=x.device)
+                 for _ in range(2)))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = fn(xe.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(),
+                  dye.data_ptr(), _ptr(s0), _ptr(dsf), ws.data_ptr(),
+                  dxe.data_ptr(), da.data_ptr(), dBh.data_ptr(),
+                  dCh.data_ptr(), dB.data_ptr(), dC.data_ptr(), b, T, H, G, N,
+                  Pe, stream)
+    build.check(code, "ssd_scan_bwd")
+    build.LAUNCHES["ssd_scan_bwd"] += 1
+    if not norm:
+        return dxe, da, dB, dC, None
+    return dxe[..., :P], da, dB, dC, dxe[..., P]
 
 
 def _launch(route, x, a, B, C, *, initial_state=None, norm_weights=None,

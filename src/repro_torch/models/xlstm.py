@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.slstm_scan import scalar_max, scalar_min
 
 from .common import (F32, dense_init, group_norm_heads, matmul, normal_init,
                      rms_norm)
@@ -80,7 +81,7 @@ def _head_proj(x, w, out_dtype=None):
 
 def _gates(p, gif):
     """gif: [..., 2, nh] fp32 -> (log input gate, log forget gate)."""
-    i_log = torch.clamp(gif[..., 0, :] + p["b_i"], max=I_CLAMP)
+    i_log = scalar_min(gif[..., 0, :] + p["b_i"], I_CLAMP)
     f_log = F.logsigmoid(gif[..., 1, :] + p["b_f"])              # <= 0
     return i_log, f_log
 
@@ -113,7 +114,7 @@ def _mlstm_recurrence(q, k, v, i_log, f_log):
 def _mlstm_output(p, cfg, y, n, z, Bsz, T):
     """y: [B,T,H,dv]; n: [B,T,H]; z: [B,T,d_in]."""
     d_in = mlstm_dims(cfg)[0]
-    h = y.float() / torch.clamp(n.abs(), min=1.0)[..., None]
+    h = y.float() / scalar_max(n.abs(), 1.0)[..., None]
     h = group_norm_heads(h, p["gn"].float(), cfg.norm_eps)
     h = h.reshape(Bsz, T, d_in).to(z.dtype)
     h = h * F.silu(z.float()).to(z.dtype)
@@ -203,14 +204,14 @@ def _slstm_cell(p, cfg, wx_t, state):
     rec = rec.reshape(-1, nh, 4, dh).transpose(1, 2).reshape(-1, 4 * d)
     pre = wx_t.float() + rec + p["b"]
     i_r, f_r, z_r, o_r = pre.split(d, dim=-1)
-    i_log = torch.clamp(i_r, max=I_CLAMP)
+    i_log = scalar_min(i_r, I_CLAMP)
     f_log = F.logsigmoid(f_r)
     m_new = torch.maximum(f_log + m, i_log)
     ig = torch.exp(i_log - m_new)
     fg = torch.exp(f_log + m - m_new)
     c_new = fg * c + ig * torch.tanh(z_r)
     n_new = fg * n + ig
-    h_new = torch.sigmoid(o_r) * c_new / torch.clamp(n_new, min=1.0)
+    h_new = torch.sigmoid(o_r) * c_new / scalar_max(n_new, 1.0)
     return c_new, n_new, m_new, h_new
 
 

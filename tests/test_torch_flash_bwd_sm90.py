@@ -135,10 +135,11 @@ def test_kernel_names_are_the_ones_chip_smoke_traces():
 
 def test_sm90_backward_switches_take_the_backward_head_dims():
     """The C entries have a case for each hd the wrapper lets through to a
-    backward (32, 64, 128), in both switches, and no other."""
+    bf16 backward (32, 64, 80, 128), in both switches, and no other."""
     flash_module = importlib.import_module(
         "repro_torch.kernels.flash_attention")
     code = _code("flash_attention_bwd_sm90.cu")
     cases = [int(n) for n in re.findall(r"case (\d+):", code)]
-    assert sorted(set(cases)) == sorted(flash_module._BWD_HEAD_DIMS)
-    assert len(cases) == 2 * len(flash_module._BWD_HEAD_DIMS)
+    dims = flash_module._BWD_HEAD_DIMS[torch.bfloat16]
+    assert sorted(set(cases)) == sorted(dims) == [32, 64, 80, 128]
+    assert len(cases) == 2 * len(dims)

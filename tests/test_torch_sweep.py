@@ -13,10 +13,24 @@ supervisor, the copied task-array and exec layers, and
   ``test_torch_procpool.py`` and ``test_torch_analysis.py``).
 - The CLI: 2 members x 3 steps of ``run_sweep`` from converted JAX params
   against the JAX sweep's jitted ``member_step`` driven as its
-  ``run_member`` drives it; final losses within 1e-5 relative (fp32, the
-  same math in another summation order). Not 5 steps: at the grid's top lr,
-  3e-2, Adam's ``g/|g|`` sign noise where |g| ~ 0 compounds after the third
-  update and the two sides' fifth losses differ by ~3e-3.
+  ``run_member`` drives it; final losses within ``LOSS_RTOL`` relative
+  (fp32, the same math in another summation order; at lr 1e-4 the runs
+  agree within 1e-6). Adam's first update is lr * sign(g), so at the
+  grid's top lr, 3e-2, the few gradient elements near 0 whose sign fp32
+  rounding decides move by 2 lr, and the third loss carries that. Against
+  a float64 run of the same steps (``scripts/sweep_f64_arbiter.py``: JAX
+  with x64, its models' F32 set to float64, the params drawn in fp32),
+  JAX's fp32 run ends 1.8e-5 from it, JAX's op by op 2.0e-5 and the
+  port's 3.0e-5 (relative). The port is no farther for a fault of its
+  own: the float64 run fed the port's step-0 gradient ends 3.0e-5 from
+  float64 too, so its whole distance is its step-0 gradient, which is as
+  close to float64's as JAX's (max 9.5e-6 of a leaf's largest, against
+  1.1e-5 and 7.9e-6) and has the other sign at 2 of 624,000 elements, as
+  each JAX run has, all where float64's gradient is under 3e-7 of its
+  leaf's largest. Which of those elements flip is rounding's choice, so
+  the top lr's bound is ``SIGN_NOISE_RTOL``, twice JAX's own farthest
+  fp32 run from float64. Not 5 steps: the sign noise compounds after the
+  third update and the fifth losses differ by ~3e-3.
 """
 from __future__ import annotations
 
@@ -56,6 +70,7 @@ from repro_torch.optim import adamw_init
 SRC = Path(__file__).resolve().parents[1] / "src"
 CPU = torch.device("cpu")
 LOSS_RTOL = 1e-5
+SIGN_NOISE_RTOL = 4.1e-5   # lr 3e-2: 2 x 2.04e-5, the module doc
 
 
 def tiny_cfg():
@@ -428,7 +443,8 @@ def test_run_sweep_matches_the_jax_sweep():
     np.testing.assert_allclose(lrs, np.geomspace(1e-4, 3e-2, members))
     want = _jax_sweep_losses(jparams, lrs, steps)
     for m, w in zip(run.members, want):
-        assert abs(m["loss"] - w) / w < LOSS_RTOL, (m["lr"], m["loss"], w)
+        bound = SIGN_NOISE_RTOL if np.isclose(m["lr"], 3e-2) else LOSS_RTOL
+        assert abs(m["loss"] - w) / w < bound, (m["lr"], m["loss"], w)
         assert m["launch_s"] is not None
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(base), before))
 
