@@ -8,10 +8,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Identify the card (nvidia-smi name and power limit, torch and CUDA).
 2. Build the hand-written kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, all at once); log ptxas's registers, shared memory
-   and spills, the tensor-core flash kernel's dynamic shared memory, and the
-   fp32 flash forward and backward kernels' shared memory and blocks per
-   SM (the forwards at hd 32, 64, 80, 128 and 192, the backward at 32, 64
-   and 128 in fp32 and in bf16 and at 80 in bf16; each must fit at least
+   and spills, the tensor-core flash forward's registers, local (spill)
+   bytes, dynamic shared memory and blocks per SM at each head dim (hd
+   192: its own kernel, three 64-row blocks an SM), and the flash forward
+   and backward kernels' shared memory and blocks per SM
+   (the fp32 forward at hd 32, 64, 80, 128 and 192, the backward at 32, 64
+   and 128 in fp32 and in bf16 and at 80 in bf16, the bf16 backward's
+   kernels with their registers and local bytes; each must fit at least
    one block on an SM).
 3. The serve paths' bf16 GEMMs (prefill and decode rows) against the fp32
    product of the same operands rounded to bf16, with
@@ -96,13 +99,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    (qwen2-vl's GQA group of 7); rmsnorm at 6000 x 768 (the encoder's
    rows) and 1000 x 3584 in both dtypes, timed in bf16. Then phase 5h's
    regimes on a generator of their own: flash at hd 192 with nemotron's
-   GQA 96:8, causal, in both dtypes at B=1 T=S=1000, T=S=137 and a
-   decode-shaped row (T=1 against S=1100 at q_offset 1099), each held
-   against the plain version and in bf16 per row; T=S=1000 timed in bf16
-   beside SDPA and in fp32 (the CUDA-core kernel, which phase 5h's fp32
-   reference runs) beside SDPA in fp32; the backward at hd 192 must raise
-   NotImplementedError on the card; rmsnorm at 1000 x 18432 in both
-   dtypes (the streamed path), timed in bf16.
+   GQA 96:8, causal, in both dtypes at B=1 T=S=1000, T=S=137 and two
+   decode shapes (T=1 against S=1100 at q_offset 1099, T=4 against S=1100
+   at q_offset 1096: the 4-slot decode), each held against the plain
+   version and in bf16 per row and called twice for the same bits;
+   T=S=1000 timed in bf16 beside SDPA and in fp32 (the CUDA-core kernel,
+   which phase 5h's fp32 reference runs) beside SDPA in fp32; the
+   backward at hd 192 must raise NotImplementedError on the card; rmsnorm
+   at 1000 x 18432 in both dtypes (the streamed path), timed in bf16.
 5. Serve: ``ServeEngine`` at full width, bf16 weights drawn from a seeded
    generator, 4 slots, 8 requests (prompt lengths from ``default_rng(0)`` in
    [100, 1500], 32 new tokens each), for three models in turn:
@@ -280,8 +284,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``slstm_scan_bwd_ref``) within GRAD_TOL of every gradient's largest
    magnitude (dr from bf16 r within a bf16 rounding), two calls the same
    bits, timed beside the plain version and the bound; the bf16 flash
-   backward at hd 80 (zamba2's H=KV=32, and a GQA case) per row as the
-   other bf16 backward cases, timed beside SDPA's; the bf16 rmsnorm
+   backward at hd 80 (zamba2's H=KV=32 at B=4 T=512, GQA groups 2 and 4,
+   and zamba2's heads under a 128-key window) per row as the other bf16
+   backward cases, each called twice for the same bits, timed beside
+   SDPA's with its three kernels apart; the bf16 rmsnorm
    backward at 2048 rows of d = 2048, 2560 and 5120, timed.
 5e. The paper's launch layer on the card's host, with no JAX (no kernel
    runs here: the counts, set to 0 just before, must still be 0 after):
@@ -308,8 +314,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      src/repro_torch/analysis/baseline.txt``, in a subprocess under a
      timeout: exit 0.
 6. Print the kernels' JSON line (flash and rmsnorm with every serving
-   path's launches, phase 5f's four, 5g's two and 5h's one under ``"<arch>
-   serve"``, and under ``"regimes"`` the rows timed for phases 5g and 5h;
+   path's launches, phase 5f's four and 5g's two under ``"<arch> serve"``,
+   and under ``"regimes"`` the rows timed for phase 5g; the bf16 forward
+   at hd 192, its own kernel, as a row of its own with nemotron's
+   launches; rmsnorm's phase 5h row under ``"regimes"``;
    the fp32 forward with its hd 192 row under ``"regimes"``; the fp32
    forward and both backward kernels with their training and sweep
    launches beside the serving kernels, the bf16 backward kernels with the
@@ -359,8 +367,7 @@ from repro_torch.kernels import (LAUNCHES, build, flash_attention,  # noqa: E402
                                  ssd_scan_bwd, ssd_scan_bwd_ref, ssd_scan_ref)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     _BWD_HEAD_DIMS, _FWD_HEAD_DIMS, _forward as flash_forward, bwd_occupancy,
-    fwd_occupancy,
-    sm90_smem_bytes, visible)
+    fwd_occupancy, sm90_occupancy, visible)
 from repro_torch.kernels.rmsnorm import (  # noqa: E402
     bwd_layout as rmsnorm_bwd_layout, plan as rmsnorm_plan)
 from repro_torch.kernels.slstm_scan import (  # noqa: E402
@@ -612,7 +619,8 @@ MODAL_RMS = ((4 * ENC_LEN, 768), (1000, 3584))  # whisper's encoder rows, qwen2-
 NEMO_FLASH = (   # phase 5h's regimes (hd 192, GQA 96:8, causal): B, T, S, q_offset
     (1, 1000, 1000, 0),          # a prefill (timed in bf16 and fp32)
     (1, 137, 137, 0),            # a ragged T
-    (1, 1, 1100, 1099))          # decode-shaped: one row against S at q_offset
+    (1, 1, 1100, 1099),          # decode-shaped: one row against S at q_offset
+    (1, 4, 1100, 1096))          # the 4-slot decode: 4 rows of one 64-row block
 NEMO_RMS = (1000, 18432)                     # nemotron's d_model, one prefill
 REPORT_T = 1000                              # the JSON line's flash shape
 REPORT_RMS = "rows=16000 d=128 bfloat16"     # q_norm rows at T=1000
@@ -880,11 +888,11 @@ def check_modal_kernels(gen):
 def check_nemotron_kernels(gen):
     """Phase 5h's regimes, on a generator of their own: flash at hd 192
     with nemotron's GQA 96:8, causal, at ``NEMO_FLASH`` (a prefill, a
-    ragged T and a decode-shaped row against S at a q_offset) in both
-    dtypes, each held against the plain version and in bf16 per row; the
-    prefill timed in bf16 (the tensor-core kernel, beside SDPA) and in
-    fp32 (the CUDA-core kernel, which the streamed fp32 check of phase 5h
-    runs); the backward at hd 192 must raise NotImplementedError on the
+    ragged T and two decode shapes against S at a q_offset) in both
+    dtypes, each held against the plain version and in bf16 per row and
+    called twice for the same bits; the prefill timed in bf16 (the
+    tensor-core kernel, beside SDPA) and in fp32 (the CUDA-core kernel,
+    which the streamed fp32 check of phase 5h runs); the backward at hd 192 must raise NotImplementedError on the
     card; rmsnorm at ``NEMO_RMS`` in both dtypes, timed in bf16. Returns
     the timed bf16 flash, fp32 flash and rmsnorm rows."""
     H, KV, hd = 96, 8, 192
@@ -895,6 +903,9 @@ def check_nemotron_kernels(gen):
                                                  dtype, True, 0, off)
             if dtype == torch.bfloat16:
                 check_flash_rows(q, k, v, got, name, q_offset=off)
+            again = flash_attention(q, k, v, causal=True, q_offset=off)
+            require(torch.equal(got, again),
+                    f"two flash_attention calls differ: {name}")
             if T == S == REPORT_T:
                 rows[dtype] = (time_flash(q, k, v, err)
                                if dtype == torch.bfloat16
@@ -1076,8 +1087,11 @@ def check_flash_bwd_repeats(q, k, v, do, name):
 
 
 def device_ms_by_kernel(fn, iters: int) -> dict:
-    """Device ms per call of each kernel ``fn`` launches, summed by name
-    over a profiler trace of ``iters`` calls after three warm-up calls."""
+    """Device ms per call of each kernel ``fn`` launches, by name, from a
+    profiler trace of ``iters`` calls after three warm-up calls: each
+    name's mean per launch times its launches per call. The trace can miss
+    the first calls' launches (it once kept 11 of 20), so a name's total
+    over ``iters`` would undercount; a missed launch is logged."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -1086,10 +1100,15 @@ def device_ms_by_kernel(fn, iters: int) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    times = Counter()
+    times, missed = Counter(), {}
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            times[e.key] += e.self_device_time_total / 1e3 / iters
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.count:
+            per_call = max(1, round(e.count / iters))
+            if e.count != per_call * iters:
+                missed[e.key[:60]] = f"{e.count} of {per_call * iters}"
+            times[e.key] += e.self_device_time_total / 1e3 / e.count * per_call
+    if missed:
+        log(f"  the trace kept fewer launches than were made: {missed}")
     return times
 
 
@@ -1771,6 +1790,10 @@ SSD_BWD_TRAIN = {   # the Trainer's microbatch (B.T = 4 x 512)
 }
 SLSTM_BWD_TRAIN = (4, 512, 4, 512)            # xlstm: B, T, nh, dh
 SLSTM_BWD_GRID = [(2, 9, 2, 32, torch.float32), (3, 70, 1, 64, torch.bfloat16)]
+FLASH_BWD_80_CASES = [                        # (B, T, S, H, KV, hd), window
+    ((2, 137, 137, 8, 4, 80), 0),             # GQA 2, a ragged T
+    ((2, 256, 256, 16, 4, 80), 0),            # GQA 4
+    ((1, 512, 512, 32, 32, 80), 128)]         # zamba2's heads under a window
 FLASH_BWD_ZAMBA = (4, 512, 32, 32, 80)        # B, T=S, H, KV, hd: zamba2's
 RMS_BWD_RECURRENT = [(2048, 2048), (2048, 2560), (2048, 5120)]  # rows, d:
 #   xlstm's d_model, zamba2's d_model, zamba2's mixer norm (2 x d_model)
@@ -1951,11 +1974,11 @@ def check_recurrent_bwd_kernels(gen):
     ssd_rows = check_ssd_bwd(gen)
     slstm_rows = check_slstm_bwd(gen)
     B, T, H, KV, hd = FLASH_BWD_ZAMBA
-    kw = dict(causal=True, window=0, q_offset=0)
-    for shape in ((2, 137, 137, 8, 4, hd), (B, T, T, H, KV, hd)):
+    for shape, window in FLASH_BWD_80_CASES + [((B, T, T, H, KV, hd), 0)]:
+        kw = dict(causal=True, window=window, q_offset=0)
         q, k, v, do, o, lse = flash_bwd_bf16_inputs(gen, *shape, kw)
         name = (f"B={shape[0]} T=S={shape[1]} H={shape[3]} KV={shape[4]} "
-                f"hd={hd} bf16 causal")
+                f"hd={hd} bf16 causal window={window}")
         got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
         want = flash_attention_bwd_ref(q.float(), k.float(), v.float(),
@@ -1966,7 +1989,11 @@ def check_recurrent_bwd_kernels(gen):
         log_rounded_rows(got, flash_attention_bwd_ref(
             q.float(), k.float(), v.float(), o.float(), lse, do.float(),
             bf16_operands=True, **kw), name)
-        check_flash_bwd_repeats(q, k, v, do, name)
+        again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        same = [torch.equal(a, b) for a, b in zip(got, again)]
+        log(f"flash_attention_bwd {name}: two calls bit-identical in dq, dk, "
+            f"dv: {same}")
+        require(all(same), f"flash_attention_bwd is not deterministic: {name}")
     flash_row = time_flash_bwd_bf16(q, k, v, do, o, lse, err)
     rms_rows = {}
     for rows, d in RMS_BWD_RECURRENT:
@@ -3931,8 +3958,18 @@ def main():
     for line in build.BUILD_INFO.get("log", "").splitlines():
         if any(w in line for w in ("registers", "spill", "Compiling", "smem")):
             log(f"  {line.strip()}")
-    log("flash_fwd_sm90_kernel dynamic shared memory per block: " + ", ".join(
-        f"hd={hd} {sm90_smem_bytes(hd)} bytes" for hd in _FWD_HEAD_DIMS))
+    for hd in _FWD_HEAD_DIMS:
+        occ = sm90_occupancy(hd)
+        kernel = ("flash_fwd_sm90_hd192_kernel (4 warps, K and V single-"
+                  "buffered, O stored by TMA)" if hd == 192
+                  else "flash_fwd_sm90_kernel (4 warps)")
+        log(f"flash_attention bf16 forward hd={hd}: {kernel}: "
+            f"{occ['registers']} registers a thread at launch, "
+            f"{occ['spill_bytes']} local (spill) bytes a thread, "
+            f"{occ['smem_bytes']} bytes of shared memory, "
+            f"{occ['blocks_per_sm']} block(s) per SM")
+        require(occ["blocks_per_sm"] >= 1,
+                f"the bf16 flash forward does not fit an SM at hd={hd}")
     for hd in _FWD_HEAD_DIMS:
         fwd_occ = fwd_occupancy(hd)
         log(f"flash_attention_fwd hd={hd}: {fwd_occ['smem_bytes']} bytes of "
@@ -3941,16 +3978,21 @@ def main():
         require(fwd_occ["blocks_per_sm"] >= 1,
                 f"the fp32 flash forward does not fit an SM at hd={hd}")
         for dtype, warps in ((torch.float32, (16, 16)),
-                             (torch.bfloat16, (8, 4))):
+                             (torch.bfloat16, (4 if hd == 80 else 8, 4))):
             if hd not in _BWD_HEAD_DIMS[dtype]:  # fp32 80, both 192
                 continue
             occ = bwd_occupancy(hd, dtype)
+            regs = ("" if dtype == torch.float32 else
+                    f" (dk/dv {occ['dkdv_registers']} registers, "
+                    f"{occ['dkdv_spill_bytes']} local bytes; dq "
+                    f"{occ['dq_registers']} registers, "
+                    f"{occ['dq_spill_bytes']} local bytes a thread)")
             log(f"flash_attention_bwd hd={hd} {str(dtype)[6:]}: dk/dv kernel "
                 f"{occ['dkdv_smem_bytes']} bytes of shared memory, "
                 f"{occ['dkdv_blocks_per_sm']} block(s) of {warps[0]} warps per "
                 f"SM; dq kernel {occ['dq_smem_bytes']} bytes, "
                 f"{occ['dq_blocks_per_sm']} block(s) of {warps[1]} warps per "
-                f"SM")
+                f"SM{regs}")
             require(min(occ["dkdv_blocks_per_sm"],
                         occ["dq_blocks_per_sm"]) >= 1,
                     f"a flash backward kernel does not fit an SM at hd={hd} "
@@ -4037,9 +4079,15 @@ def main():
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": csrc + "flash_attention_sm90.cu", "replaces": flash_tpu,
-         **launches("flash_attention", {**serving, **bf16_training}),
-         **flash_rows[REPORT_T],
-         "regimes": flash_5g_rows + [flash_5h_row]},
+         **launches("flash_attention", {
+             k: v for k, v in {**serving, **bf16_training}.items()
+             if k not in nemotron}),
+         **flash_rows[REPORT_T], "regimes": flash_5g_rows},
+        {"name": "flash_attention_hd192", "route": "cuda",
+         "source": csrc + "flash_attention_sm90.cu", "replaces": flash_tpu,
+         "kernel": "flash_fwd_sm90_hd192_kernel<192> (64-row blocks, three "
+                   "an SM, O stored by TMA)",
+         **launches("flash_attention", nemotron), **flash_5h_row},
         {"name": "flash_attention_fp32", "route": "cuda",
          "source": csrc + "flash_attention.cu", "replaces": flash_tpu,
          **launches("flash_attention", training), **flash_fp32_row,
@@ -4054,6 +4102,8 @@ def main():
          **flash_bwd_bf16_row},
         {"name": "flash_attention_bwd_bf16_hd80", "route": "cuda",
          "source": csrc + "flash_attention_bwd_sm90.cu", "replaces": flash_tpu,
+         "kernel": "flash_bwd_dkdv_sm90_kernel_one_wg<80>, "
+                   "flash_bwd_dq_sm90_kernel<80> (80-column tiles)",
          **launches("flash_attention_bwd", zamba_train), **flash_80_row},
         {"name": "rmsnorm", "route": "cuda", "source": csrc + "rmsnorm.cu",
          "replaces": rms_tpu,

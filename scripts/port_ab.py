@@ -13,13 +13,19 @@ so that a drift of the card or the host shows as a spread:
 
 - ``flash_attention_fwd`` (the fp32 forward, with lse) and
   ``flash_attention_bwd`` at the member step's shape (B=4 T=S=512 H=16
-  KV=8 hd=128, fp32, causal), then the backward in bf16: the parent's
-  ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu`` are each
-  built alone into a library of their own under ``build/ab/`` and called
-  through the C entry of the dtype (``flash_attention_bwd_bf16`` for
-  bf16), this checkout's through its wrapper; device ms per call from
-  CUDA-graph replay (``chip_smoke.device_ms``), whether the two give the
-  same bits, and their largest difference.
+  KV=8 hd=128, fp32, causal), then the backward in bf16 at that shape and
+  at zamba2's Trainer shape (B=4 T=S=512 H=KV=32 hd=80), then the bf16
+  forward (``flash_attention_sm90_fwd``, no lse, as serving calls it) at
+  B=1 T=S=1000 H=16 KV=8 hd=128 and at nemotron's B=1 T=S=1000 H=96 KV=8
+  hd=192: the parent's ``csrc/flash_attention.cu``,
+  ``csrc/flash_attention_bwd.cu`` (or ``_bwd_sm90.cu``) and
+  ``csrc/flash_attention_sm90.cu`` are each built alone into a library of
+  their own under ``build/ab/`` and called through the C entry of the
+  dtype (``flash_attention_bwd_bf16`` for bf16), this checkout's through
+  its wrapper; device ms per call from CUDA-graph replay
+  (``chip_smoke.device_ms``), whether the two give the same bits, and
+  their largest difference; the bf16 backward's rows also split by kernel
+  (delta, dk/dv, dq) with the profiler.
 - ``ssd_scan_fwd`` (the parent's C entry, built alone as above, B and C
   expanded to every head as the parent's callers handed them) against
   this checkout's ``ssd_scan`` on the same inputs with B and C as its
@@ -52,6 +58,7 @@ import functools
 import importlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -60,6 +67,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = Path("src/repro_torch/kernels/csrc")
 SHAPE = (4, 512, 16, 8, 128)                 # B, T=S, H, KV, hd
+BWD80 = (4, 512, 32, 32, 80)                 # zamba2's Trainer microbatch
+FWD_SM90 = ((1, 1000, 16, 8, 128),           # qwen3-0.6b's prefill
+            (1, 1000, 96, 8, 192))           # nemotron's prefill
 
 
 def serve(tree: Path, arch: str) -> dict:
@@ -113,19 +123,35 @@ def parent_entry(parent: Path, source: str, entry: str, argtypes):
     return fn
 
 
-def ab_rows(kernel: str, parent_call, this_call, dtype="fp32") -> list:
+def kernel_name(key: str) -> str:
+    """A profiler key's kernel name without its template and arguments."""
+    found = re.search(r"flash_\w*kernel\w*", key)
+    return found.group(0) if found else key[:40]
+
+
+def ab_rows(kernel: str, parent_call, this_call, dtype="fp32",
+            shape=SHAPE, split=False) -> list:
+    """Rows of parent, this, this, parent; with ``split``, each row also
+    gives every kernel's device ms per call (``chip_smoke.device_ms_by_kernel``,
+    the profiler) under ``split_ms``."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     import torch
     pairs = list(zip(parent_call(), this_call()))
     same = all(torch.equal(a, b) for a, b in pairs)
     diff = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
-    B, T, H, KV, hd = SHAPE
+    B, T, H, KV, hd = shape
     shape = f"B={B} T=S={T} H={H} KV={KV} hd={hd} {dtype} causal"
-    return [{kernel: name, "shape": shape, "ms": cs.device_ms(fn, 10),
-             "same_bits_as_parent": same, "max_abs_diff": diff}
-            for name, fn in (("parent", parent_call), ("this", this_call),
-                             ("this", this_call), ("parent", parent_call))]
+    rows = []
+    for name, fn in (("parent", parent_call), ("this", this_call),
+                     ("this", this_call), ("parent", parent_call)):
+        row = {kernel: name, "shape": shape, "ms": cs.device_ms(fn, 10),
+               "same_bits_as_parent": same, "max_abs_diff": diff}
+        if split:
+            row["split_ms"] = {kernel_name(k): round(v, 4) for k, v in
+                               cs.device_ms_by_kernel(fn, 20).items()}
+        rows.append(row)
+    return rows
 
 
 def flash_fwd(parent: Path) -> list:
@@ -154,7 +180,35 @@ def flash_fwd(parent: Path) -> list:
     return ab_rows("flash_attention_fwd", lambda: call(old), lambda: call(new))
 
 
-def flash_bwd(parent: Path, dtype: str = "fp32") -> list:
+def flash_sm90_fwd(parent: Path, shape) -> list:
+    """The bf16 forward without lse: the parent's C entry against this
+    checkout's wrapper."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    import torch
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    entry = "flash_attention_sm90_fwd"
+    old = parent_entry(parent, "flash_attention_sm90.cu", entry,
+                       fa._ARGTYPES[entry])
+    B, T, H, KV, hd = shape
+    gen = torch.Generator("cuda").manual_seed(0)
+    q = cs.randn(gen, B, T, H, hd, dtype=torch.bfloat16)
+    k, v = (cs.randn(gen, B, T, KV, hd, dtype=torch.bfloat16)
+            for _ in range(2))
+
+    def parent_call():
+        o = torch.empty_like(q)
+        code = old(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                   None, B, T, T, H, KV, hd, 1, 0, 0, 1.0 / math.sqrt(hd),
+                   torch.cuda.current_stream().cuda_stream)
+        cs.build.check(code, "parent flash_attention_sm90_fwd")
+        return (o,)
+
+    this_call = lambda: (fa.flash_attention(q, k, v),)
+    return ab_rows(entry, parent_call, this_call, "bf16", shape)
+
+
+def flash_bwd(parent: Path, dtype: str = "fp32", shape=SHAPE) -> list:
     """``dtype`` "fp32" or "bf16": the parent's C entry for that dtype (in
     its ``flash_attention_bwd_sm90.cu`` where it has one) against this
     checkout's backward."""
@@ -167,7 +221,7 @@ def flash_bwd(parent: Path, dtype: str = "fp32") -> list:
     if dtype == "fp32" or not (parent / CSRC / source).exists():
         source = "flash_attention_bwd.cu"
     old = parent_entry(parent, source, entry[dtype], fa._BWD_ARGTYPES)
-    B, T, H, KV, hd = SHAPE
+    B, T, H, KV, hd = shape
     gen = torch.Generator("cuda").manual_seed(0)
     tdt = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype]
     q, do = (cs.randn(gen, B, T, H, hd, dtype=tdt) for _ in range(2))
@@ -186,7 +240,8 @@ def flash_bwd(parent: Path, dtype: str = "fp32") -> list:
         return dq, dk, dv
 
     this_call = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do)
-    return ab_rows("flash_attention_bwd", parent_call, this_call, dtype)
+    return ab_rows("flash_attention_bwd", parent_call, this_call, dtype,
+                   shape, split=dtype == "bf16")
 
 
 SSD_MAMBA = (1, 80, 64, 64)                  # b, H, N, P (zamba2)
@@ -334,6 +389,8 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     rows = ((flash_fwd(parent) + flash_bwd(parent) + flash_bwd(parent, "bf16")
+             + flash_bwd(parent, "bf16", BWD80)
+             + sum((flash_sm90_fwd(parent, shape) for shape in FWD_SM90), [])
              if "flash" in only else [])
             + (ssd(parent) if "ssd" in only else [])
             + (rmsnorm(parent) if "rmsnorm" in only else []))

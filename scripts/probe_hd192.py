@@ -6,9 +6,9 @@ of command with the build.
     python3 scripts/probe_hd192.py
 
 Builds the kernels, prints ptxas's lines for the hd 192 instantiations
-(registers, spills), the bf16 kernel's shared memory and the fp32 kernel's
-blocks per SM, then holds each case against its plain version with
-``chip_smoke.py``'s functions: H:KV 12:1, 24:2 and 12:2 at T = 128 / 137 /
+(registers, spills), the bf16 kernel's registers, shared memory and blocks
+per SM and the fp32 kernel's blocks per SM, then holds each case against
+its plain version with ``chip_smoke.py``'s functions: H:KV 12:1, 24:2 and 12:2 at T = 128 / 137 /
 256 (a window of 64) and non-causal, T=1 at q_offset 76, T=37 at q_offset
 63, in both dtypes, per row in bf16 where T >= 128; B=1 T=S=1000 H=96 KV=8
 held per row and timed beside SDPA in bf16, held and timed in fp32; rmsnorm
@@ -28,7 +28,7 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    fwd_occupancy, sm90_smem_bytes)
+    fwd_occupancy, sm90_occupancy)
 
 
 def main():
@@ -44,7 +44,7 @@ def main():
         if "ILi192E" in line:
             for shown in lines[i:i + 3]:
                 print("  ", shown.strip())
-    print("sm90 smem hd192", sm90_smem_bytes(192), "fp32 occ",
+    print("sm90 occ hd192", sm90_occupancy(192), "fp32 occ",
           fwd_occupancy(192), flush=True)
     gen = torch.Generator("cuda").manual_seed(0)
     cases = []

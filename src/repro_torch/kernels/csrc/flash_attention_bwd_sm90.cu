@@ -65,19 +65,30 @@
 //   are masked element by element; tiles that no row sees are never loaded.
 //   Rows past T and keys past S are zero-filled by TMA.
 // - Shared memory per block and blocks per SM on the H100 (DkdvSmem,
-//   DqSmem; the occupancy entry below, logged by chip_smoke.py with
-//   ptxas's registers): dk/dv 116,760 bytes, 1 block of 8 warps at hd 128
-//   (168 registers), 67,608 and 2 at hd 64, 43,032 and 2 at hd 32; dq
-//   99,352 bytes, 2 blocks of 4 warps at hd 128 (195 registers), 50,200
-//   and 3 at hd 64, 25,624 and 3 at hd 32. No spills.
-// - hd 80 (zamba2's shared block) runs hd 128's tiles, as the forward does:
-//   the tensor maps keep the true extent (80 columns, rows H*80*2 and
-//   KV*80*2 bytes apart), so the second 64-column atom's box reads 16 real
-//   columns and TMA fills the other 48 with zeros at every load. S^T, dP^T,
-//   S and dP sum over the 80 columns (5 k16 steps); dV, dK and dQ are
-//   m64n128k16 over the zero-padded tiles and only 80 columns are stored;
-//   delta reads 80. Registers, shared memory and blocks per SM are hd
-//   128's.
+//   DkdvOneSmem, DqSmem; the occupancy entry below, logged by
+//   chip_smoke.py with the registers and local bytes of each kernel): dk/dv
+//   116,760 bytes, 1 block of 8 warps at hd 128 (168 registers), 67,608 and
+//   2 at hd 64, 43,032 and 2 at hd 32; dq 99,352 bytes, 2 blocks of 4 warps
+//   at hd 128 (195 registers), 50,200 and 3 at hd 64, 25,624 and 3 at hd
+//   32. No spills. hd 80: below.
+// - hd 80 (zamba2's shared block) has tiles of its own: five 16-column
+//   atoms in 32-byte swizzle (10,240 bytes a tile, one TMA box of 64 rows
+//   x 32 bytes an atom), so no column is padding. S^T, dP^T, S and dP keep
+//   their 5 k16 steps; dV, dK and dQ are m64n80k16 (40 accumulator
+//   registers a thread, where hd 128's tiles cost 64 over 48 zero columns).
+//   dk/dv runs flash_bwd_dkdv_sm90_kernel_one_wg: one warpgroup a block
+//   holds both accumulators, computes S^T and dP^T together and P^T and
+//   dS^T on the same thread's elements (no P^T hand-over), and two blocks
+//   share an SM (63,512 bytes and 252 registers each; three blocks' 168
+//   registers spilled and ran slower). The two-warpgroup kernel on the
+//   same tiles fitted two blocks an SM and ran each pass as one chain
+//   through both warpgroups; it was slower (PERF.md section 6). dq is the
+//   kernel above on these tiles, three blocks an SM. At hd 80 dq, dk and
+//   dv go through shared memory (the Q, K and V tiles, no longer read) and
+//   out by TMA, and dk/dv issues its first tiles' loads before its lse and
+//   D: a block's first loads and 4-byte stores of its outputs had been a
+//   large part of its time. Both give the bits of hd 128's padded tiles:
+//   the dropped columns added only zeros.
 // Left for later: a producer warp with setmaxnreg, the next pass's S^T
 // issued under this pass's exponentials, a persistent grid, dq summed in
 // the dk/dv kernel (5 products instead of 7).
@@ -95,17 +106,23 @@ constexpr int DELTA_NT = 512; // the delta kernel: one warp per row
 constexpr float LOG2E = 1.4426950408889634f;
 
 // A 64-row tile of a [*, *, *, hd] bf16 tensor as TMA writes it: atoms of
-// SW-byte rows side by side along hd, swizzled by SW.
+// SW-byte rows side by side along hd, swizzled by SW. hd 80 is five atoms
+// of 16 columns in 32-byte swizzle, so no column of a tile is padding.
 template <int HD>
 struct Tile {
     static_assert(HD == 32 || HD == 64 || HD == 80 || HD == 128,
                   "the backward takes hd 32, 64, 80 or 128");
-    static constexpr int W = HD == 80 ? 128 : HD;            // columns of a tile in shared memory
-    static constexpr int SW = W * 2 < 128 ? W * 2 : 128;     // swizzle = atom row bytes
+    static constexpr int W = HD;                             // columns of a tile in shared memory
+    static constexpr int SW = HD == 80 ? 32 : W * 2 < 128 ? W * 2 : 128;  // swizzle = atom row bytes
     static constexpr int ATOM = SW / 2;                      // columns per atom
     static constexpr int NATOM = W / ATOM;
     static constexpr int BYTES = 64 * W * 2;
+    static constexpr bool ONE_WG = HD == 80;                 // dk/dv by one warpgroup a block
+    static constexpr bool TMA_STORE = HD == 80;              // dq, dk, dv stored by TMA
+    static constexpr int DQ_BLOCKS = HD == 80 ? 3 : 2;       // dq blocks per SM (launch bounds)
 };
+
+constexpr int ONE_WG_BLOCKS = 2;  // blocks per SM of the one-warpgroup dk/dv kernel
 
 template <int HD>
 struct DkdvSmem {                                           // byte offsets, 1024-aligned tiles
@@ -115,6 +132,17 @@ struct DkdvSmem {                                           // byte offsets, 102
     static constexpr int dout = q + STAGES * tile;
     static constexpr int p = dout + STAGES * tile;          // P^T, fp32, fragment order
     static constexpr int stats = p + WG * 32 * 4;           // STAGES x (lse[64], D[64])
+    static constexpr int bar = stats + STAGES * 2 * BQ * 4; // k/v barrier, then one per stage
+    static constexpr int bytes = bar + 8 * (1 + STAGES) + 1024;  // + alignment slack
+};
+
+template <int HD>
+struct DkdvOneSmem {                                        // the one-warpgroup dk/dv kernel
+    static constexpr int tile = Tile<HD>::BYTES;
+    static constexpr int k = 0, v = tile;
+    static constexpr int q = 2 * tile;                      // STAGES tiles each
+    static constexpr int dout = q + STAGES * tile;
+    static constexpr int stats = dout + STAGES * tile;      // STAGES x (lse[64], D[64])
     static constexpr int bar = stats + STAGES * 2 * BQ * 4; // k/v barrier, then one per stage
     static constexpr int bytes = bar + 8 * (1 + STAGES) + 1024;  // + alignment slack
 };
@@ -163,7 +191,7 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, 
 }
 
 // acc = A B^T over hd for two 64-row tiles, both K-major: m64n64k16 per 16
-// columns of hd (at hd 80 the pad columns are left out).
+// columns of hd.
 template <int HD>
 __device__ __forceinline__ void rows_by_rows(float (&acc)[32], uint32_t a, uint32_t b) {
     using T = Tile<HD>;
@@ -195,6 +223,41 @@ __device__ __forceinline__ void to_a_frag(uint32_t (&a)[4][4], const float (&s)[
         a[kc][2] = pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
         a[kc][3] = pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
     }
+}
+
+// A 64-row output fragment (rows r0 and r0 + 8, columns 8i + col and
+// 8i + col + 1, times mul) in bf16 into a tile laid out as TMA writes it
+// (store_tiles then copies it out with the same boxes): in an atom, row r
+// at r * SW and its 16-byte chunk c at c ^ ((r * SW / 128) % (SW / 16)).
+template <int HD>
+__device__ __forceinline__ void tile_from_frag(uint32_t tile, const float (&acc)[HD / 2],
+                                               float mul, int r0, int col) {
+    using T = Tile<HD>;
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i) {
+        const int c = (8 * i % T::ATOM) / 8;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const int r = r0 + 8 * half;
+            const uint32_t a = tile + (8 * i / T::ATOM) * 64 * T::SW + r * T::SW +
+                               ((c ^ ((r * T::SW >> 7) & (T::SW / 16 - 1))) * 16) + col * 2;
+            asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(a),
+                         "r"(pack_bf16(acc[4 * i + 2 * half] * mul,
+                                       acc[4 * i + 2 * half + 1] * mul))
+                         : "memory");
+        }
+    }
+}
+
+// Thread 0 stores a 64-row tile (rows row0.., one head) by TMA; rows past
+// the tensor's end are not written.
+template <int HD>
+__device__ __forceinline__ void store_tile(const CUtensorMap* map, uint32_t src, int head,
+                                           int row0, int b) {
+    using T = Tile<HD>;
+#pragma unroll
+    for (int a = 0; a < T::NATOM; ++a)
+        tma_store_4d(map, src + a * 64 * T::SW, a * T::ATOM, head, row0, b);
 }
 
 __device__ __forceinline__ bool visible(int t, int s, int T_len, int S_len, int causal,
@@ -392,12 +455,171 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     }
 }
 
+// dk/dv at hd 80: one warpgroup a block, both accumulators in its
+// registers (2 x 40 a thread). Each pass computes S^T = K Q^T and dP^T =
+// V dO^T together, then P^T and dS^T on the two fragments as the kernel
+// above's two warpgroups do (the same elements in the same thread, so the
+// same bits, with no hand-over through shared memory), then dV += P^T dO
+// and dK += dS^T Q together. Two blocks share an SM, each pass its own
+// chain, where the kernel above (two warpgroups, P^T handed over) runs a
+// pass as one chain across both warpgroups. dK and dV leave through the K
+// and V tiles by TMA.
 template <int HD>
-__global__ void __launch_bounds__(WG, 2)
+__global__ void __launch_bounds__(WG, ONE_WG_BLOCKS)
+flash_bwd_dkdv_sm90_kernel_one_wg(const __grid_constant__ CUtensorMap qmap,
+                                  const __grid_constant__ CUtensorMap kmap,
+                                  const __grid_constant__ CUtensorMap vmap,
+                                  const __grid_constant__ CUtensorMap dmap,
+                                  const __grid_constant__ CUtensorMap dkmap,
+                                  const __grid_constant__ CUtensorMap dvmap,
+                                  const float* __restrict__ lse, const float* __restrict__ delta,
+                                  int T_len, int S_len, int H, int KV, int causal, int window,
+                                  int q_offset, float scale) {
+    using T = Tile<HD>;
+    using L = DkdvOneSmem<HD>;
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t raw = smem_u32(smem_raw), base = (raw + 1023) & ~1023u;
+    unsigned char* gen = smem_raw + (base - raw);            // the same bytes, generic
+    const uint32_t Ks = base + L::k, Vs = base + L::v, Qs = base + L::q, Ds = base + L::dout;
+    const uint32_t kvbar = base + L::bar;
+    auto full = [&](int s) { return kvbar + 8 * (1 + s); };
+    float* stats = reinterpret_cast<float*>(gen + L::stats);
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int b = blockIdx.x / KV, kvh = blockIdx.x % KV, group = H / KV;
+    const int k0 = blockIdx.y * BK;
+
+    // The passes, as in the kernel above: every query tile that sees a key
+    // of this tile, for every head of the group.
+    const int nq = (T_len + BQ - 1) / BQ, k_last = min(k0 + BK, S_len) - 1;
+    auto sees = [&](int qt) {
+        const int q_first = qt * BQ + q_offset, q_last = min(qt * BQ + BQ, T_len) - 1 + q_offset;
+        return (!causal || k0 <= q_last) && (window <= 0 || k_last > q_first - window);
+    };
+    int qt_lo = 0;
+    while (qt_lo < nq && !sees(qt_lo)) ++qt_lo;
+    int qt_hi = qt_lo;
+    while (qt_hi < nq && sees(qt_hi)) ++qt_hi;
+    const int nqv = qt_hi - qt_lo, n_pass = group * nqv;
+    auto head_of = [&](int p) { return kvh * group + p / nqv; };
+    auto q0_of = [&](int p) { return (qt_lo + p % nqv) * BQ; };
+
+    auto load_pass = [&](int stage, int p) {                // thread 0: Q and dO by TMA
+        mbar_expect_tx(full(stage), 2 * T::BYTES);
+        load_tile<HD>(Qs + stage * T::BYTES, &qmap, full(stage), head_of(p), q0_of(p), b);
+        load_tile<HD>(Ds + stage * T::BYTES, &dmap, full(stage), head_of(p), q0_of(p), b);
+    };
+    auto load_stats = [&](int stage, int p) {               // every thread: lse[64], D[64]
+        const int r = tid % BQ, q0 = q0_of(p);
+        const float* src = (tid < BQ ? lse : delta) +
+                           (static_cast<long long>(b) * H + head_of(p)) * T_len + q0;
+        const bool ok = q0 + r < T_len;                     // rows past T: 0 (masked)
+        cp_async4(smem_u32(stats + stage * 2 * BQ + tid), ok ? src + r : src, ok);
+    };
+
+    if (tid == 0) {
+        mbar_init(kvbar, 1);
+        for (int s = 0; s < STAGES; ++s) mbar_init(full(s), 1);
+        mbar_fence_init();
+    }
+    __syncthreads();
+    if (tid == 0 && n_pass > 0) {                           // no pass: nothing to load
+        mbar_expect_tx(kvbar, 2 * T::BYTES);
+        load_tile<HD>(Ks, &kmap, kvbar, kvh, k0, b);
+        load_tile<HD>(Vs, &vmap, kvbar, kvh, k0, b);
+        for (int s = 0; s < STAGES && s < n_pass; ++s) load_pass(s, s);
+    }
+    for (int s = 0; s < STAGES && s < n_pass; ++s) load_stats(s, s);  // under the tiles' loads
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+
+    // This thread's fragment: key rows jr and jr + 8 of the tile, query
+    // columns ic + 8n and ic + 8n + 1 (n = 0..7) of the pass's tile.
+    const int jr = 16 * warp + (lane >> 2), ic = 2 * (lane & 3);
+    const float scale_log2 = scale * LOG2E;
+    float acc_v[T::W / 2], acc_k[T::W / 2];                 // dv; dk / scale
+#pragma unroll
+    for (int i = 0; i < T::W / 2; ++i) acc_v[i] = acc_k[i] = 0.f;
+
+    if (n_pass > 0) mbar_wait(kvbar, 0);
+    for (int p = 0; p < n_pass; ++p) {
+        const int stage = p % STAGES, q0 = q0_of(p);
+        const uint32_t Qt = Qs + stage * T::BYTES, Dt = Ds + stage * T::BYTES;
+        const float* st = stats + stage * 2 * BQ;
+        mbar_wait(full(stage), (p / STAGES) & 1);
+
+        float s[32], dp[32];                                // S^T, dP^T
+        wgmma_fence();
+        rows_by_rows<HD>(s, Ks, Qt);
+        rows_by_rows<HD>(dp, Vs, Dt);
+        wgmma_commit();
+        wgmma_wait_all();
+        reg_fence(s);
+        reg_fence(dp);
+
+        const bool whole = whole_tiles(q0, k0, T_len, S_len, causal, window, q_offset);
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {                   // P^T = exp(S^T scale - lse)
+                const int i = ic + 8 * n + (e & 1);
+                float x = exp2f(fmaf(s[4 * n + e], scale_log2, -st[i] * LOG2E));
+                if (!whole && !visible(q0 + i, k0 + jr + 8 * (e >> 1), T_len, S_len, causal,
+                                       window, q_offset))
+                    x = 0.f;
+                s[4 * n + e] = x;
+            }
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {                       // dS^T = P^T (dP^T - D)
+            const float d0 = st[BQ + ic + 8 * n], d1 = st[BQ + ic + 8 * n + 1];
+            dp[4 * n] = s[4 * n] * (dp[4 * n] - d0);
+            dp[4 * n + 1] = s[4 * n + 1] * (dp[4 * n + 1] - d1);
+            dp[4 * n + 2] = s[4 * n + 2] * (dp[4 * n + 2] - d0);
+            dp[4 * n + 3] = s[4 * n + 3] * (dp[4 * n + 3] - d1);
+        }
+
+        uint32_t a_p[4][4], a_ds[4][4];                     // P^T, dS^T in bf16
+        to_a_frag(a_p, s);
+        to_a_frag(a_ds, dp);
+        reg_fence(acc_v);
+        reg_fence(acc_k);
+        wgmma_fence();
+        frag_by_tile<HD>(acc_v, a_p, Dt);                   // dV += P^T dO
+        frag_by_tile<HD>(acc_k, a_ds, Qt);                  // dK += dS^T Q
+        wgmma_commit();
+        wgmma_wait_all();
+        reg_fence(acc_v);
+        reg_fence(acc_k);
+
+        cp_async_wait_all();                                // pass p + 1's stats landed
+        __syncthreads();                                    // every warp left this stage
+        if (p + STAGES < n_pass) {
+            if (tid == 0) load_pass(stage, p + STAGES);
+            load_stats(stage, p + STAGES);
+            cp_async_commit();
+        }
+    }
+
+    // dK and dV into the K and V tiles (no longer read), then out by TMA
+    tile_from_frag<HD>(Ks, acc_k, scale, jr, ic);
+    tile_from_frag<HD>(Vs, acc_v, 1.f, jr, ic);
+    fence_async_shared();
+    __syncthreads();
+    if (tid == 0) {
+        store_tile<HD>(&dkmap, Ks, kvh, k0, b);
+        store_tile<HD>(&dvmap, Vs, kvh, k0, b);
+        tma_store_commit_wait_read();
+    }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(WG, Tile<HD>::DQ_BLOCKS)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                          const __grid_constant__ CUtensorMap kmap,
                          const __grid_constant__ CUtensorMap vmap,
                          const __grid_constant__ CUtensorMap dmap,
+                         const __grid_constant__ CUtensorMap dqmap,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          __nv_bfloat16* __restrict__ dq, int T_len, int S_len, int H, int KV,
                          int causal, int window, int q_offset, float scale) {
@@ -493,6 +715,16 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
         if (tid == 0 && kt + STAGES < kt_end) load_kv(stage, kt + STAGES);
     }
 
+    if constexpr (T::TMA_STORE) {                           // dQ into Q's tile, then by TMA
+        tile_from_frag<HD>(Qs, acc, scale, r0, col);
+        fence_async_shared();
+        __syncthreads();
+        if (tid == 0) {
+            store_tile<HD>(&dqmap, Qs, h, q0, b);
+            tma_store_commit_wait_read();
+        }
+        return;
+    }
     const long long row_stride = static_cast<long long>(H) * HD;
     __nv_bfloat16* o0 = dq + (static_cast<long long>(b) * T_len + q0 + r0) * row_stride + h * HD;
     __nv_bfloat16* o1 = o0 + 8 * row_stride;
@@ -507,11 +739,22 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     }
 }
 
+// The dk/dv kernel that head dim HD launches, its threads and shared memory.
+template <int HD>
+struct Dkdv {
+    static auto kernel() {
+        if constexpr (Tile<HD>::ONE_WG) return flash_bwd_dkdv_sm90_kernel_one_wg<HD>;
+        else return flash_bwd_dkdv_sm90_kernel<HD>;
+    }
+    static constexpr int threads = Tile<HD>::ONE_WG ? WG : 2 * WG;
+    static constexpr int bytes = Tile<HD>::ONE_WG ? DkdvOneSmem<HD>::bytes : DkdvSmem<HD>::bytes;
+};
+
 template <int HD>
 cudaError_t set_smem() {
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_sm90_kernel<HD>,
+    cudaError_t err = cudaFuncSetAttribute(Dkdv<HD>::kernel(),
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           DkdvSmem<HD>::bytes);
+                                           Dkdv<HD>::bytes);
     if (err == cudaSuccess)
         err = cudaFuncSetAttribute(flash_bwd_dq_sm90_kernel<HD>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -525,11 +768,14 @@ int launch(const void* q, const void* k, const void* v, const void* o, const flo
            int S_len, int H, int KV, int causal, int window, int q_offset, float scale,
            cudaStream_t s) {
     using T = Tile<HD>;
-    CUtensorMap qmap, kmap, vmap, dmap;
+    CUtensorMap qmap, kmap, vmap, dmap, dqmap, dkmap, dvmap;
     if (!make_map(&qmap, q, B, T_len, H, HD, BQ, T::ATOM, T::SW) ||
         !make_map(&kmap, k, B, S_len, KV, HD, BK, T::ATOM, T::SW) ||
         !make_map(&vmap, v, B, S_len, KV, HD, BK, T::ATOM, T::SW) ||
-        !make_map(&dmap, dout, B, T_len, H, HD, BQ, T::ATOM, T::SW))
+        !make_map(&dmap, dout, B, T_len, H, HD, BQ, T::ATOM, T::SW) ||
+        !make_map(&dqmap, dq, B, T_len, H, HD, BQ, T::ATOM, T::SW) ||
+        !make_map(&dkmap, dk, B, S_len, KV, HD, BK, T::ATOM, T::SW) ||
+        !make_map(&dvmap, dv, B, S_len, KV, HD, BK, T::ATOM, T::SW))
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaError_t err = set_smem<HD>();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -541,12 +787,17 @@ int launch(const void* q, const void* k, const void* v, const void* o, const flo
                                                        rows_per_block),
                                  DELTA_NT, 0, s>>>(bf(o), bf(dout), delta, n_rows, T_len, H);
     const dim3 kv_grid(B * KV, (S_len + BK - 1) / BK);
-    flash_bwd_dkdv_sm90_kernel<HD><<<kv_grid, 2 * WG, DkdvSmem<HD>::bytes, s>>>(
-        qmap, kmap, vmap, dmap, lse, delta, wbf(dk), wbf(dv), T_len, S_len, H, KV, causal,
-        window, q_offset, scale);
+    if constexpr (Tile<HD>::ONE_WG)
+        flash_bwd_dkdv_sm90_kernel_one_wg<HD><<<kv_grid, WG, DkdvOneSmem<HD>::bytes, s>>>(
+            qmap, kmap, vmap, dmap, dkmap, dvmap, lse, delta, T_len, S_len, H, KV, causal,
+            window, q_offset, scale);
+    else
+        flash_bwd_dkdv_sm90_kernel<HD><<<kv_grid, 2 * WG, DkdvSmem<HD>::bytes, s>>>(
+            qmap, kmap, vmap, dmap, lse, delta, wbf(dk), wbf(dv), T_len, S_len, H, KV, causal,
+            window, q_offset, scale);
     const dim3 q_grid(B * H, (T_len + BQ - 1) / BQ);
     flash_bwd_dq_sm90_kernel<HD><<<q_grid, WG, DqSmem<HD>::bytes, s>>>(
-        qmap, kmap, vmap, dmap, lse, delta, wbf(dq), T_len, S_len, H, KV, causal, window,
+        qmap, kmap, vmap, dmap, dqmap, lse, delta, wbf(dq), T_len, S_len, H, KV, causal, window,
         q_offset, scale);
     return static_cast<int>(cudaGetLastError());
 }
@@ -555,13 +806,22 @@ template <int HD>
 int occupancy(int* out) {
     cudaError_t err = set_smem<HD>();
     if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            out + 1, flash_bwd_dkdv_sm90_kernel<HD>, 2 * WG, DkdvSmem<HD>::bytes);
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 1, Dkdv<HD>::kernel(),
+                                                            Dkdv<HD>::threads, Dkdv<HD>::bytes);
     if (err == cudaSuccess)
         err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 3, flash_bwd_dq_sm90_kernel<HD>,
                                                             WG, DqSmem<HD>::bytes);
-    out[0] = DkdvSmem<HD>::bytes;
+    cudaFuncAttributes dkdv, dq;
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&dkdv, Dkdv<HD>::kernel());
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&dq, flash_bwd_dq_sm90_kernel<HD>);
+    out[0] = Dkdv<HD>::bytes;
     out[2] = DqSmem<HD>::bytes;
+    if (err == cudaSuccess) {
+        out[4] = dkdv.numRegs;
+        out[5] = static_cast<int>(dkdv.localSizeBytes);
+        out[6] = dq.numRegs;
+        out[7] = static_cast<int>(dq.localSizeBytes);
+    }
     return static_cast<int>(err);
 }
 
@@ -595,7 +855,9 @@ extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void
 }
 
 // out[0..3] = dynamic shared memory of the dk/dv kernel (bytes), its blocks
-// per SM, the same two of the dq kernel, at head dim hd.
+// per SM, the same two of the dq kernel, at head dim hd; out[4..7] =
+// registers a thread and local (spill) bytes a thread of the dk/dv kernel,
+// then of the dq kernel.
 extern "C" int flash_attention_bwd_bf16_occupancy(int hd, int* out) {
     switch (hd) {
         case 32: return occupancy<32>(out);

@@ -58,6 +58,23 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
            "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
 }
 
+// One box of a 4-d tensor map from shared memory, in this thread's bulk
+// async group; rows outside the tensor are not written.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+        :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+        : "memory");
+}
+
+// Commits this thread's bulk stores and waits until they have read shared
+// memory (the block may then exit; the writes complete on their own).
+__device__ __forceinline__ void tma_store_commit_wait_read() {
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 // Two fp32 values as one register of two bf16 (lo in the low half): a
 // piece of a wgmma A fragment.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -75,7 +92,6 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
-
 // Keeps the compiler from moving reads or writes of accumulator registers
 // across the asynchronous wgmma that owns them.
 template <int N>
@@ -117,6 +133,12 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
         : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// Makes this thread's shared-memory writes visible to the asynchronous
+// proxy (the tensor cores reading a wgmma operand).
+__device__ __forceinline__ void fence_async_shared() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // O += P V for one 16-key slice: m64n32k16, A (P, bf16) from registers,
 // B (V) from shared memory with its MN dimension contiguous (trans-b = 1).
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
@@ -149,6 +171,31 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// acc += A X for one 16-row slice: m64n80k16 (the bf16 backward at hd 80:
+// five 16-column atoms of 32-byte swizzle in one product), A (bf16) from
+// registers, B from shared memory with its MN dimension contiguous
+// (trans-b = 1).
+__device__ __forceinline__ void wgmma_rs(float (&d)[40], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39}, "
+        "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -263,7 +310,9 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int batch, int positions
     const CUresult r = encode(
         map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
         one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-        swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+        swizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+        : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                        : CU_TENSOR_MAP_SWIZZLE_32B,
         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS;
 }

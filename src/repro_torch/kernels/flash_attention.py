@@ -19,9 +19,10 @@ kernels of ``csrc/flash_attention_bwd_sm90.cu`` (bf16). On CPU tensors the
 same Function runs the plain forward and the plain backward
 ``flash_attention_bwd_ref``, explicit formulas rather than autograd of the
 plain forward. Both forwards take hd 32, 64, 80, 128 and 192
-(nemotron-4-340b); the bf16 backward 32, 64, 80 (zamba2's shared block, on
-hd 128's tiles) and 128, the fp32 backward 32, 64 and 128. A backward at
-another head_dim on the card is not written yet and raises.
+(nemotron-4-340b; in bf16 a kernel of its own, three 64-row blocks an SM);
+the bf16 backward 32, 64, 80 (zamba2's shared block, on 80-column tiles)
+and 128, the fp32 backward 32, 64 and 128. A backward at another head_dim
+on the card is not written yet and raises.
 """
 from __future__ import annotations
 
@@ -284,15 +285,25 @@ def fwd_occupancy(hd: int) -> dict:
 def bwd_occupancy(hd: int, dtype=torch.float32) -> dict:
     """Dynamic shared memory per block and blocks per SM of the backward's
     dk/dv and dq kernels at head dim ``hd`` in ``dtype`` on the current
-    card."""
-    out = (ctypes.c_int * 4)()
+    card; in bf16 also each kernel's registers and local (spill) bytes a
+    thread."""
+    out = (ctypes.c_int * 8)()
     fn = build.function(f"{_BWD_ENTRY[dtype]}_occupancy", _OCC_ARGTYPES)
     build.check(fn(hd, ctypes.addressof(out)), "flash_attention_bwd_occupancy")
-    return {"dkdv_smem_bytes": out[0], "dkdv_blocks_per_sm": out[1],
-            "dq_smem_bytes": out[2], "dq_blocks_per_sm": out[3]}
+    occ = {"dkdv_smem_bytes": out[0], "dkdv_blocks_per_sm": out[1],
+           "dq_smem_bytes": out[2], "dq_blocks_per_sm": out[3]}
+    if dtype == torch.bfloat16:
+        occ.update(dkdv_registers=out[4], dkdv_spill_bytes=out[5],
+                   dq_registers=out[6], dq_spill_bytes=out[7])
+    return occ
 
 
-def sm90_smem_bytes(hd: int) -> int:
-    """Dynamic shared memory of one block of the bf16 tensor-core kernel."""
-    fn = build.function("flash_attention_sm90_smem_bytes", (ctypes.c_int,))
-    return fn(hd)
+def sm90_occupancy(hd: int) -> dict:
+    """The bf16 forward kernel that head dim ``hd`` launches: its dynamic
+    shared memory per block, blocks per SM, registers a thread and
+    local (spill) bytes a thread, on the current card."""
+    out = (ctypes.c_int * 4)()
+    fn = build.function("flash_attention_sm90_occupancy", _OCC_ARGTYPES)
+    build.check(fn(hd, ctypes.addressof(out)), "flash_attention_sm90_occupancy")
+    return {"smem_bytes": out[0], "blocks_per_sm": out[1],
+            "registers": out[2], "spill_bytes": out[3]}

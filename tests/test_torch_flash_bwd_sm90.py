@@ -39,6 +39,8 @@ CASES = [   # B, T, S, H, KV, hd, window, q_offset, causal (chip_smoke's,
     (2, 100, 100, 8, 2, 64, 0, 0, True),      # hd 64, GQA group 4
     (1, 50, 150, 4, 2, 128, 0, 100, True),    # q_offset > 0
     (1, 75, 100, 8, 4, 64, 32, 0, False),     # non-causal, a window, S > T
+    (2, 64, 64, 4, 4, 80, 0, 0, True),        # zamba2's hd 80, H = KV
+    (1, 137, 137, 4, 2, 80, 64, 0, True),     # hd 80, GQA 2, a window
 ]
 
 

@@ -118,11 +118,27 @@ def test_flash_plain_row_without_keys_gives_zero():
     assert torch.all(out[:, 2:].abs().sum(-1) > 0)
 
 
-def _sm90_emulation(q, k, v, *, causal, q_offset=0, block_k=64):
+def _live_tiles(r0, T, S, causal, window, q_offset, rows=64, block_k=64):
+    """``live_tiles`` of ``csrc/flash_attention_sm90.cu``: the key tiles
+    [begin, end) that some of the ``rows`` query rows from r0 see; empty
+    when r0 is past T."""
+    n_kt = -(-S // block_k)
+    if r0 >= T:
+        return 0, 0
+    q_first, q_last = r0 + q_offset, min(r0 + rows, T) - 1 + q_offset
+    end = (0 if q_last < 0 else min(n_kt, q_last // block_k + 1)) \
+        if causal else n_kt
+    begin = max(0, (q_first - window + 1) // block_k) if window > 0 else 0
+    return begin, end
+
+
+def _sm90_emulation(q, k, v, *, causal, q_offset=0, block_k=64, rows=64):
     """The bf16 tensor-core kernel's arithmetic (``csrc/flash_attention_sm90.cu``)
     written out in fp32: 64-key tiles, a running max in log2 units, exp2 with
     scale*log2(e) folded in, fp32 row sums of the unrounded P, and P rounded
-    to bf16 before P V (the one departure from the TPU kernel)."""
+    to bf16 before P V (the one departure from the TPU kernel). Each group
+    of ``rows`` query rows (a block: 64 rows, at hd 192 too) runs only its
+    live tiles."""
     B, T, H, hd = q.shape
     S, group = k.shape[1], H // k.shape[2]
     qf = q.float().transpose(1, 2)
@@ -130,30 +146,59 @@ def _sm90_emulation(q, k, v, *, causal, q_offset=0, block_k=64):
     vf = v.float().repeat_interleave(group, dim=2).transpose(1, 2)
     c = math.log2(math.e) / math.sqrt(hd)
     ok = flash_module.visible(T, S, q_offset, causal, 0, q.device)
-    m = torch.full((B, H, T, 1), -math.inf)
-    l = torch.zeros(B, H, T, 1)
-    acc = torch.zeros(B, H, T, hd)
-    for k0 in range(0, S, block_k):
-        s = qf @ kf[:, :, k0:k0 + block_k].transpose(-1, -2)
-        s = torch.where(ok[:, k0:k0 + block_k], s, -math.inf)
-        new = torch.maximum(m, s.amax(-1, keepdim=True) * c)
-        ref = torch.where(new == -math.inf, 0.0, new)
-        alpha = torch.exp2(m - ref)
-        p = torch.exp2(s * c - ref)
-        l = l * alpha + p.sum(-1, keepdim=True)
-        acc = acc * alpha + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + block_k]
-        m = new
-    out = acc / torch.where(l == 0, 1.0, l)
+    out = torch.zeros(B, H, T, hd)
+    for r0 in range(0, T, rows):
+        r1 = min(r0 + rows, T)
+        m = torch.full((B, H, r1 - r0, 1), -math.inf)
+        l = torch.zeros(B, H, r1 - r0, 1)
+        acc = torch.zeros(B, H, r1 - r0, hd)
+        begin, end = _live_tiles(r0, T, S, causal, 0, q_offset, rows, block_k)
+        for k0 in range(begin * block_k, end * block_k, block_k):
+            s = qf[:, :, r0:r1] @ kf[:, :, k0:k0 + block_k].transpose(-1, -2)
+            s = torch.where(ok[r0:r1, k0:k0 + block_k], s, -math.inf)
+            new = torch.maximum(m, s.amax(-1, keepdim=True) * c)
+            ref = torch.where(new == -math.inf, 0.0, new)
+            alpha = torch.exp2(m - ref)
+            p = torch.exp2(s * c - ref)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = (acc * alpha
+                   + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + block_k])
+            m = new
+        out[:, :, r0:r1] = acc / torch.where(l == 0, 1.0, l)
     return out.transpose(1, 2).to(q.dtype)
+
+
+def test_sm90_emulation_pruned_tiles_change_no_bit():
+    """Running only a row group's live tiles gives the bits of running
+    every tile: a tile no row of the group sees leaves m, l and acc as
+    they are (alpha is exactly 1, or 0 on a row with no key yet)."""
+    _, (q, k, v) = _inputs(9, (1, 200, 4, 32), (1, 264, 2, 32),
+                           (1, 264, 2, 32), dtype="bfloat16")
+    for off in (64, -40):
+        every = _sm90_emulation(q, k, v, causal=True, q_offset=off,
+                                rows=10_000)
+        for rows in (64, 128):
+            got = _sm90_emulation(q, k, v, causal=True, q_offset=off,
+                                  rows=rows)
+            assert torch.equal(got, every), (off, rows)
+    assert _live_tiles(128, 100, 100, True, 0, 0) == (0, 0)
+    assert _live_tiles(0, 1, 1100, True, 0, 1099) == (0, 18)
+    assert _live_tiles(64, 300, 300, True, 100, 0) == (0, 2)
+    assert _live_tiles(192, 300, 300, True, 100, 0) == (1, 4)
 
 
 @pytest.mark.parametrize("B,T,S,H,KV,hd", [
     (1, 128, 128, 4, 4, 64), (2, 128, 128, 4, 2, 64), (1, 256, 256, 8, 1, 32),
     (1, 128, 384, 4, 4, 64), (2, 384, 384, 2, 2, 128),
     (1, 128, 128, 4, 2, 80),             # zamba2's shared-block head dim
+    (1, 128, 128, 12, 1, 192),           # nemotron's hd 192 at GQA 12
+    (1, 100, 100, 12, 1, 192),           # a 128-row block half empty
 ])                                       # the bf16 grid of tests/test_kernels.py
 def test_flash_sm90_bf16_arithmetic_vs_pallas(B, T, S, H, KV, hd):
-    """Rounding P to bf16 before P V stays inside the bf16 tolerance."""
+    """Rounding P to bf16 before P V stays inside the bf16 tolerance. hd 192
+    has a kernel of its own with the same 64-row arithmetic (its blocks
+    differ in their buffering and in how O is stored): the emulation runs
+    64-row groups; at T=100 the second group is ragged."""
     (jq, jk, jv), (tq, tk, tv) = _inputs(6, (B, T, H, hd), (B, S, KV, hd),
                                          (B, S, KV, hd), dtype="bfloat16")
     off = S - T
@@ -163,6 +208,69 @@ def test_flash_sm90_bf16_arithmetic_vs_pallas(B, T, S, H, KV, hd):
     assert got.dtype == torch.bfloat16
     _close(got, want, TOL["bfloat16"])
 
+
+
+def _swizzled(offset, sw):
+    """TMA's swizzle of a byte offset in a box with rows of ``sw`` bytes
+    (CUTLASS's Swizzle<log2(sw / 16), 4, 3>): bits 4.. of the offset XOR
+    bits 7.. of it, as many bits as a row has 16-byte chunks' index."""
+    mask = sw // 16 - 1
+    return offset ^ (((offset >> 7) & mask) << 4)
+
+
+@pytest.mark.parametrize("sw", [32, 64, 128])
+def test_fragment_stores_use_the_swizzle_tma_reads(sw):
+    """The tiles that the hd 192 forward (``store_o``) and the bf16 backward
+    (``tile_from_frag``) write from a fragment, for TMA to store, put every
+    byte where TMA's swizzle puts it: row r's chunk c at
+    r * sw + (c ^ ((r * sw >> 7) % (sw / 16))) * 16, as the sources write
+    it, and no two bytes of a tile on one address."""
+    seen = set()
+    for r in range(64):
+        for x in range(sw):
+            c, within = divmod(x, 16)
+            kernel = r * sw + (c ^ ((r * sw >> 7) & (sw // 16 - 1))) * 16 + within
+            assert kernel == _swizzled(r * sw + x, sw), (r, x)
+            seen.add(kernel)
+    assert seen == set(range(64 * sw))
+    fwd = _code("flash_attention_sm90.cu")
+    bwd = _code("flash_attention_bwd_sm90.cu")
+    assert "(((i % 8) ^ (r0 & 7)) * 16)" in fwd            # sw 128: r * 128 >> 7 = r
+    assert "((c ^ ((r * T::SW >> 7) & (T::SW / 16 - 1))) * 16)" in bwd
+
+
+def test_hd192_forward_is_a_kernel_of_its_own_three_blocks_an_sm():
+    """``case 192`` launches the hd 192 kernel (64-row blocks, Q, K and V one
+    24 KB tile each, O stored by TMA) whose shared memory lets three blocks
+    share an SM's 228 KB (1 KB of it reserved per block); every other head
+    dim launches the kernel it launched before."""
+    code = _code("flash_attention_sm90.cu")
+    assert "case 192: return launch_hd192<192>(" in code
+    for hd in (32, 64, 80, 128):
+        assert f"case {hd}: return launch<{hd}>(" in code
+    assert "__launch_bounds__(NT, H192_BLOCKS)" in code
+    blocks = int(re.search(r"constexpr int H192_BLOCKS = (\d+);", code).group(1))
+    tile = 64 * 192 * 2
+    smem = 3 * tile + 8 * 3 + 1024
+    assert blocks == 3 and blocks * (smem + 1024) <= 233_472
+    assert "tma_store_4d(&omap" in code and "load(Ks, &kmap, kbar" in code
+
+
+def test_bf16_backward_hd80_tiles_have_no_padding():
+    """At hd 80 the bf16 backward's tiles are five 16-column atoms in 32-byte
+    swizzle (80 columns, 10,240 bytes), its dV, dK and dQ products
+    m64n80k16, dk/dv run by one warpgroup a block holding both
+    accumulators, and the tensor maps take a 32-byte swizzle."""
+    code = _code("flash_attention_bwd_sm90.cu")
+    assert "static constexpr int W = HD;" in code
+    assert "HD == 80 ? 32 :" in code
+    assert "m64n80k16" in _code("sm90.cuh")
+    assert "CU_TENSOR_MAP_SWIZZLE_32B" in _code("sm90.cuh")
+    assert "flash_bwd_dkdv_sm90_kernel_one_wg<HD><<<kv_grid, WG," in code
+    blocks = int(re.search(r"constexpr int ONE_WG_BLOCKS = (\d+);", code).group(1))
+    tile = 64 * 80 * 2
+    one_wg = 2 * tile + 2 * 2 * tile + 2 * 2 * 64 * 4 + 8 * 3 + 1024
+    assert tile == 10_240 and blocks * (one_wg + 1024) <= 233_472
 
 def _cuda_core_emulation(q, k, v, *, causal, window=0, q_offset=0,
                          block_k=64):
@@ -672,7 +780,7 @@ def test_check_takes_head_dim_80_for_the_forward_only(dtype):
     """Both forwards take hd 32, 64, 80 and 128; the fp32 backward only 32,
     64 and 128, and at hd 80 it raises NotImplementedError naming the
     ROADMAP item before any launch (the C switch never sees the call); the
-    bf16 backward also takes hd 80 (zamba2's shared block, on hd 128's
+    bf16 backward also takes hd 80 (zamba2's shared block, on 80-column
     tiles); any other hd is a ValueError."""
     def qkv(hd):
         q = torch.zeros(1, 8, 4, hd, dtype=dtype)
@@ -917,6 +1025,8 @@ def test_backward_wrappers_raise_on_other_devices():
     ("rmsnorm_fwd", "rmsnorm.cu", rms_module._ARGTYPES),
     ("rmsnorm_bwd", "rmsnorm_bwd.cu", rms_module._BWD_ARGTYPES),
     ("flash_attention_fwd_occupancy", "flash_attention.cu",
+     flash_module._OCC_ARGTYPES),
+    ("flash_attention_sm90_occupancy", "flash_attention_sm90.cu",
      flash_module._OCC_ARGTYPES),
 ])
 def test_c_entries_take_what_the_wrappers_pass(entry, source, argtypes):
