@@ -367,13 +367,15 @@ from repro_torch.kernels import (LAUNCHES, build, flash_attention,  # noqa: E402
                                  ssd_scan_bwd, ssd_scan_bwd_ref, ssd_scan_ref)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     _BWD_HEAD_DIMS, _FWD_HEAD_DIMS, _forward as flash_forward, bwd_occupancy,
-    fwd_occupancy, sm90_occupancy, visible)
+    bwd_operands, fwd_occupancy, per_kv_head, sm90_occupancy, visible)
 from repro_torch.kernels.rmsnorm import (  # noqa: E402
     bwd_layout as rmsnorm_bwd_layout, plan as rmsnorm_plan)
 from repro_torch.kernels.slstm_scan import (  # noqa: E402
     _forward as slstm_forward, slstm_max_clusters, slstm_plan)
 from repro_torch.kernels.ssd_scan import _launch as ssd_launch  # noqa: E402
 from repro_torch.kernels.ssd_scan import path as ssd_path  # noqa: E402
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    bwd_occupancy as ssd_bwd_occupancy)
 from repro_torch.ckpt import latest_step  # noqa: E402
 from repro_torch.core import measure_launch, realproc  # noqa: E402
 from repro_torch.exec import (FAULT, KILL_LAUNCHER, LOST,  # noqa: E402
@@ -1307,15 +1309,20 @@ RMS_BWD_BF16_STEP = {   # a Trainer step's launches at each shape, B.T = 2048
 RMS_BWD_BF16_WIDE = (2048, 5120)   # qwen3-14b's d_model
 
 
-def grad_row_rel_err(got, want) -> float:
-    """``row_rel_err`` for gradients: a row's error relative to its RMS, or
-    to a thousandth of the whole tensor's RMS where the row's is smaller (a
-    row whose true gradient is 0, such as dq of a query that sees one key,
-    has no relative error to speak of)."""
-    got, want = got.float(), want.float()
+def grad_row_rms(want):
+    """Each row's RMS (the last dim), or a thousandth of the whole tensor's
+    RMS where the row's is smaller (a row whose true gradient is 0, such as
+    dq of a query that sees one key, has no relative error to speak of)."""
+    want = want.float()
     rms = want.pow(2).mean(dim=-1).sqrt()
-    rms = rms.clamp_min(1e-3 * float(want.pow(2).mean().sqrt()) + 1e-30)
-    return float(((got - want).abs().amax(dim=-1) / rms).max())
+    return rms.clamp_min(1e-3 * float(want.pow(2).mean().sqrt()) + 1e-30)
+
+
+def grad_row_rel_err(got, want) -> float:
+    """``row_rel_err`` for gradients: the largest of the rows' errors, each
+    relative to its row's ``grad_row_rms``."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs().amax(dim=-1) / grad_row_rms(want)).max())
 
 
 def bf16_rows_ok(kernel, name, got, want32):
@@ -1340,6 +1347,76 @@ def bf16_rows_ok(kernel, name, got, want32):
     ok = worst <= 1.0
     log(f"{kernel} {name}: per row |err| / row RMS vs limit (2x the bf16 "
         f"rounding of the fp32 result) {', '.join(parts)}; max_abs_err vs the "
+        f"plain bf16 result {abs_err:.3e} {'ok' if ok else 'FAIL'}")
+    return worst, abs_err
+
+
+BF16_ULP = 2.0 ** -7     # one unit in bf16's last place, relative: 8 bits
+
+
+def flash_bwd_operand_bounds(q, k, v, o, lse, do, **kw):
+    """Per element of (dq, dk, dv), fp32: u scale (|dS| |K|), u scale
+    (|dS|^T |Q|) and u (|P|^T |dO|) with u = ``BF16_ULP``, from the plain
+    backward's fp32 P and dS on these inputs (``bwd_operands``), dk and dv
+    summed over each KV head's query heads: what rounding each element of
+    P and dS to bf16 once, to either neighbour, can move each gradient
+    element (``flash_bwd_rows_ok``)."""
+    qf, kf, dof, p, ds, scale = bwd_operands(q, k, v, o, lse, do, **kw)
+    p, ds = p.abs(), ds.abs()
+    dq = torch.matmul(ds, kf.abs()) * (BF16_ULP * scale)
+    dk = torch.matmul(ds.transpose(-1, -2), qf.abs()) * (BF16_ULP * scale)
+    dv = torch.matmul(p.transpose(-1, -2), dof.abs()) * BF16_ULP
+    KV = k.shape[2]
+    return dq.transpose(1, 2), per_kv_head(dk, KV), per_kv_head(dv, KV)
+
+
+def flash_bwd_rows_ok(kernel, name, got, want32, bounds):
+    """The bf16 flash backward's (dq, dk, dv) against the fp32 result of the
+    plain version on the same inputs, per row (the last dim) relative to the
+    row's RMS as ``bf16_rows_ok``, each row within a limit of its own: twice
+    the bf16 rounding of the fp32 result (``bf16_rows_ok``'s limit) plus
+    what the kernels' rounding of their tensor-core operands can move that
+    row (``bounds``, from ``flash_bwd_operand_bounds`` on the same call's
+    inputs).
+
+    The derivation. The kernels round P to bf16 before dv = P^T dO, and dS
+    before dq = scale dS K and dk = scale dS^T Q, and sum each product in
+    fp32. Rounding a value x to bf16 moves it by less than one unit in its
+    last place, at most u |x| with u = 2^-7 (8 significant bits): a whole
+    unit, not the half of rounding to nearest, because the kernels' fp32 P
+    and dS may differ from the plain version's in their last bits and round
+    to the other neighbour. Each output element is a sum of such products,
+    so it moves by at most u times the sum of its terms' magnitudes: u
+    (|P|^T |dO|) in dv, u scale (|dS| |K|) in dq, u scale (|dS|^T |Q|) in
+    dk, summed over a KV head's query heads as dk and dv are. A row's share
+    is its largest element over the row's RMS (``grad_row_rms``), the
+    measure ``grad_row_rel_err`` takes of an error. That bound does not
+    cover the rounding of the output itself, nor sums taken in another
+    order: the first term, unchanged, does. Returns (largest ratio of a
+    row's error to its limit, max abs error against the plain version's
+    bf16 result)."""
+    worst, abs_err, parts = 0.0, 0.0, []
+    for i, (g, w, e) in enumerate(zip(got, want32, bounds)):
+        require(g.dtype == torch.bfloat16 and g.shape == w.shape
+                and bool(torch.isfinite(g).all()),
+                f"{kernel}: output {i} not finite bf16 {tuple(w.shape)}: {name}")
+        w2 = w.float().reshape(-1, w.shape[-1])
+        g2, e2 = g.float().reshape(w2.shape), e.float().reshape(w2.shape)
+        rms = grad_row_rms(w2)
+        rounding = 2 * grad_row_rel_err(w2.to(torch.bfloat16), w2)
+        limit = rounding + e2.amax(dim=-1) / rms
+        err = (g2 - w2).abs().amax(dim=-1) / rms
+        ratio = float((err / limit).max())
+        worst = max(worst, ratio)
+        abs_err = max(abs_err, float((g.float() - w.to(torch.bfloat16).float())
+                                     .abs().max()))
+        parts.append(f"{float(err.max()):.3e} ({ratio:.3f}x; rounding "
+                     f"{rounding:.3e}, operands up to "
+                     f"{float((e2.amax(dim=-1) / rms).max()):.3e})")
+    ok = worst <= 1.0
+    log(f"{kernel} {name}: per row |err| / row RMS, worst share of the row's "
+        f"limit (2x the bf16 rounding of the fp32 result + the bound of the "
+        f"bf16 P and dS), dq dk dv: {', '.join(parts)}; max_abs_err vs the "
         f"plain bf16 result {abs_err:.3e} {'ok' if ok else 'FAIL'}")
     return worst, abs_err
 
@@ -1371,7 +1448,9 @@ def check_flash_bwd_bf16(gen):
         torch.cuda.synchronize()
         want = flash_attention_bwd_ref(q.float(), k.float(), v.float(),
                                        o.float(), lse, do.float(), **kw)
-        worst, err = bf16_rows_ok("flash_attention_bwd_bf16", name, got, want)
+        bounds = flash_bwd_operand_bounds(q, k, v, o, lse, do, **kw)
+        worst, err = flash_bwd_rows_ok("flash_attention_bwd_bf16", name, got,
+                                       want, bounds)
         require(worst <= 1.0, f"flash_attention_bwd bf16 off its plain "
                 f"version: {name}")
         log_rounded_rows(got, flash_attention_bwd_ref(
@@ -1379,7 +1458,7 @@ def check_flash_bwd_bf16(gen):
             bf16_operands=True, **kw), name)
         if (B, T, hd) == FLASH_BWD_BF16_DROPPED:
             check_flash_bwd_repeats(q, k, v, do, name)
-            check_flash_bwd_bf16_dropped_tile(q, k, v, do, want)
+            check_flash_bwd_bf16_dropped_tile(q, k, v, do, want, bounds)
         if (B, T, H, KV, hd) == FLASH_BWD_REPORT:
             check_flash_bwd_repeats(q, k, v, do, name)
             row = time_flash_bwd_bf16(q, k, v, do, o, lse, err)
@@ -1412,9 +1491,10 @@ def log_rounded_rows(got, want, name):
         f"{', '.join(parts)}")
 
 
-def check_flash_bwd_bf16_dropped_tile(q, k, v, do, want):
+def check_flash_bwd_bf16_dropped_tile(q, k, v, do, want, bounds):
     """The bf16 kernels run without the first 64 keys (q_offset -64: rows
-    0..63 see no key, their lse is +inf) must fail the per-row check."""
+    0..63 see no key, their lse is +inf) must fail the per-row check
+    (``flash_bwd_rows_ok`` with the whole run's ``bounds``)."""
     T = q.shape[1]
     k64, v64 = k[:, 64:].contiguous(), v[:, 64:].contiguous()
     kw = dict(causal=True, window=0, q_offset=-64)
@@ -1425,8 +1505,9 @@ def check_flash_bwd_bf16_dropped_tile(q, k, v, do, want):
     o, lse = flash_attention_ref(q, k64, v64, with_lse=True, **kw)
     dq, dk, dv = flash_attention_bwd(q, k64, v64, o.contiguous(), lse, do, **kw)
     pad = lambda t: F.pad(t, (0, 0, 0, 0, 64, 0))
-    worst, _ = bf16_rows_ok("flash_attention_bwd_bf16", f"T={T}, first key "
-                            "tile dropped", (dq, pad(dk), pad(dv)), want)
+    worst, _ = flash_bwd_rows_ok("flash_attention_bwd_bf16", f"T={T}, first "
+                                 "key tile dropped", (dq, pad(dk), pad(dv)),
+                                 want, bounds)
     require(worst > 1.0, "the bf16 gradient check cannot see a dropped key "
             "tile")
     log(f"flash_attention_bwd_bf16 T={T}: the run without the first key tile "
@@ -1799,6 +1880,52 @@ RMS_BWD_RECURRENT = [(2048, 2048), (2048, 2560), (2048, 5120)]  # rows, d:
 #   xlstm's d_model, zamba2's d_model, zamba2's mixer norm (2 x d_model)
 
 
+SSD_BWD_KERNELS = (  # csrc/ssd_scan_bwd.cu's kernels, in launch order
+    "ssd_bwd_decay_kernel", "ssd_bwd_gram_kernel", "ssd_bwd_state_kernel",
+    "ssd_bwd_pass_kernel", "ssd_bwd_dx_kernel", "ssd_bwd_dbc_kernel",
+    "ssd_bwd_da_kernel", "ssd_bwd_group_sum_kernel")
+
+
+def ssd_bwd_work(b, T, H, G, N, Pe) -> dict:
+    """What each product kernel of ``ssd_scan_bwd`` computes at these sizes,
+    in flops (2 a multiply-add, over whole 64-step chunks): C B^T and dy x^T
+    (gram), dS and dG (state), Gin^T B and the chunk's dy sum (dx), Gin x or
+    S_prev dy and the chunk's sum (dbc, both modes); and the pass's bytes
+    (S_prev read and written forward; Gin read and written and S_prev read
+    backward)."""
+    L, nc = 64, -(-T // 64)
+    bhc = b * H * nc
+    return {"ssd_bwd_gram_kernel": 2 * L * L * (b * G * nc * N + bhc * Pe),
+            "ssd_bwd_state_kernel": 2 * 2 * L * N * Pe * bhc,
+            "ssd_bwd_dx_kernel": 2 * L * Pe * (N + L) * bhc,
+            "ssd_bwd_dbc_kernel": 2 * 2 * L * N * (Pe + L) * bhc,
+            "ssd_bwd_pass_kernel": 5 * 4 * N * Pe * bhc}
+
+
+def ssd_bwd_split(fn, work: dict, iters: int = 5):
+    """Device ms per call of each kernel of an ``ssd_scan_bwd`` call ``fn``
+    by its name in ``SSD_BWD_KERNELS`` (``device_ms_by_kernel``), and a line
+    with each product's TFLOP/s and the pass's GB/s from ``work``
+    (``ssd_bwd_work``), then the four products' together."""
+    ms = Counter()
+    for key, t in device_ms_by_kernel(fn, iters).items():
+        found = re.search(r"ssd_bwd_\w*?kernel", key)
+        ms[found.group(0) if found else key[:40]] += t
+    parts = []
+    for name, t in ms.items():
+        rate = ("" if name not in work else
+                f" ({work[name] / t / 1e6:.0f} GB/s)"
+                if name == "ssd_bwd_pass_kernel" else
+                f" ({work[name] / t / 1e9:.1f} TFLOP/s)")
+        parts.append(f"{name} {t:.4f}{rate}")
+    products = [n for n in work if n != "ssd_bwd_pass_kernel"]
+    t = sum(ms[n] for n in products)
+    flops = sum(work[n] for n in products)
+    parts.append(f"the four products {t:.4f} ms, "
+                 f"{flops / max(t, 1e-9) / 1e9:.1f} TFLOP/s")
+    return dict(ms), ", ".join(parts)
+
+
 def ssd_bwd_inputs(gen, b, T, H, G, N, P, norm, draw):
     """x, a, B, C, norm weights (or None) and the gradients dy, dn of y and
     n: grid draws, or the model's (``mamba2_like_ssd``,
@@ -1875,11 +2002,8 @@ def time_ssd_bwd(x, a, B, C, w, dy, dn, err):
         "shape": f"b={b} T={T} H={H} G={G} N={N} P={P} fp32"
                  + ("" if w is None else " + normalizer"),
     }
-    parts = []
-    for k, v in device_ms_by_kernel(kernel, 5).items():
-        name = re.search(r"ssd_bwd_\w*kernel", k)
-        parts.append(f"{name.group(0) if name else k[:40]} {v:.4f}")
-    log("  device ms by kernel: " + ", ".join(parts))
+    _, split = ssd_bwd_split(kernel, ssd_bwd_work(b, T, H, G, N, cols))
+    log(f"  device ms by kernel: {split}")
     log(f"  device time {row['shape']} backward: kernels {row['ms']:.4f} ms, "
         f"plain {row['plain_ms']:.4f} ms, no one-call PyTorch equivalent, "
         f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; operations "
@@ -1983,7 +2107,9 @@ def check_recurrent_bwd_kernels(gen):
         torch.cuda.synchronize()
         want = flash_attention_bwd_ref(q.float(), k.float(), v.float(),
                                        o.float(), lse, do.float(), **kw)
-        worst, err = bf16_rows_ok("flash_attention_bwd_bf16", name, got, want)
+        worst, err = flash_bwd_rows_ok(
+            "flash_attention_bwd_bf16", name, got, want,
+            flash_bwd_operand_bounds(q, k, v, o, lse, do, **kw))
         require(worst <= 1.0, f"flash_attention_bwd bf16 off its plain "
                 f"version: {name}")
         log_rounded_rows(got, flash_attention_bwd_ref(
@@ -3970,6 +4096,15 @@ def main():
             f"{occ['blocks_per_sm']} block(s) per SM")
         require(occ["blocks_per_sm"] >= 1,
                 f"the bf16 flash forward does not fit an SM at hd={hd}")
+    for draw, (*_, N, P) in SSD_BWD_TRAIN.items():
+        Pe = P + (draw == "mlstm")
+        for name, occ in ssd_bwd_occupancy(N, Pe).items():
+            log(f"ssd_scan_bwd N={N} Pe={Pe}: ssd_bwd_{name}_kernel "
+                f"{occ['registers']} registers, {occ['spill_bytes']} local "
+                f"(spill) bytes a thread, {occ['smem_bytes']} bytes of "
+                f"shared memory, {occ['blocks_per_sm']} block(s) per SM")
+            require(occ["blocks_per_sm"] >= 1 and occ["spill_bytes"] == 0,
+                    f"ssd_bwd_{name}_kernel at N={N} spills or does not fit")
     for hd in _FWD_HEAD_DIMS:
         fwd_occ = fwd_occupancy(hd)
         log(f"flash_attention_fwd hd={hd}: {fwd_occ['smem_bytes']} bytes of "

@@ -4,11 +4,12 @@
     git archive <rev> | tar -x -C build/parent     # build/ is gitignored
     python3 scripts/port_ab.py --parent build/parent
     python3 scripts/port_ab.py --parent build/parent --only rmsnorm
+    python3 scripts/port_ab.py --parent build/parent --only ssd_bwd
     python3 scripts/port_ab.py --parent build/parent --only ssd,serve \
         --arch zamba2-2.7b
 
-Comparisons (``--only`` picks some of flash, ssd, rmsnorm and serve; all
-by default), each in the order parent, this checkout, this checkout, parent,
+Comparisons (``--only`` picks some of flash, ssd, ssd_bwd, rmsnorm and
+serve; all by default), each in the order parent, this checkout, this checkout, parent,
 so that a drift of the card or the host shows as a spread:
 
 - ``flash_attention_fwd`` (the fp32 forward, with lse) and
@@ -35,6 +36,16 @@ so that a drift of the card or the host shows as a spread:
   (``repeat_interleave`` to 80 heads), and the mLSTM shape (b=1 T=1000 H=4
   N=512 P=1024 fp32 with the normalizer, G = H), whose bits must not
   change.
+- ``ssd_scan_bwd`` at the Trainer's two shapes (``chip_smoke.SSD_BWD_TRAIN``:
+  zamba2's b=4 T=512 H=80 G=1 N=P=64 and xlstm's mLSTM b=4 T=512 H=G=4
+  N=512 P=1024 with the normalizer), on ``chip_smoke.ssd_bwd_inputs``'s
+  draws: the parent's ``csrc/ssd_scan_bwd.cu`` built alone as above and
+  called through its C entry (x and dy copied to Pe = P (+ 1) columns in
+  the call, as the parent's wrapper did), against this checkout's
+  ``ssd_scan_bwd``;
+  ms per call, each kernel's ms with the products' TFLOP/s and the pass's
+  GB/s (``chip_smoke.ssd_bwd_split``), and which of dx, da, dB, dC (and dw)
+  have the parent's bits.
 - The rmsnorm backward at the Trainer's three norm shapes (2048x1024:
   ln1, ln2, final_norm; 32768x128: q_norm; 16384x128: k_norm, all at
   B·T = 2048): the parent's ``csrc/rmsnorm_bwd.cu`` built alone as above
@@ -312,6 +323,71 @@ def ssd(parent: Path) -> list:
     return result
 
 
+def ssd_bwd(parent: Path) -> list:
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    import torch
+    ssd_module = importlib.import_module("repro_torch.kernels.ssd_scan")
+    old = parent_entry(parent, "ssd_scan_bwd.cu", "ssd_scan_bwd",
+                       ssd_module._BWD_ARGTYPES)
+    old_ws = parent_entry(parent, "ssd_scan_bwd.cu", "ssd_scan_bwd_workspace",
+                          ssd_module._BWD_WS_ARGTYPES)
+    gen = torch.Generator("cuda").manual_seed(0)
+    result = []
+    for draw, (b, T, H, G, N, P) in cs.SSD_BWD_TRAIN.items():
+        norm = draw == "mlstm"
+        x, a, B, C, w, dy, dn = cs.ssd_bwd_inputs(gen, b, T, H, G, N, P, norm,
+                                                  draw)
+        Pe = P + norm
+        cat = lambda m, e: (torch.cat([m, e[..., None]], -1) if norm
+                            else m).contiguous()
+        size = ctypes.c_longlong(0)
+        cs.build.check(old_ws(b, T, H, G, N, Pe, ctypes.addressof(size)),
+                       "parent ssd_scan_bwd_workspace")
+
+        def parent_call():             # with its wrapper's copies of x, dy
+            xe, dye = cat(x, w), cat(dy, dn)
+            ws = torch.empty(size.value, device="cuda")
+            dxe = torch.empty(b, T, H, Pe, device="cuda")
+            da = torch.empty(b, T, H, device="cuda")
+            dB, dC = (torch.empty(b, T, G, N, device="cuda")
+                      for _ in range(2))
+            dBh, dCh = ((dB, dC) if G == H else
+                        (torch.empty(b, T, H, N, device="cuda")
+                         for _ in range(2)))
+            code = old(xe.data_ptr(), a.data_ptr(), B.data_ptr(),
+                       C.data_ptr(), dye.data_ptr(), None, None,
+                       ws.data_ptr(), dxe.data_ptr(), da.data_ptr(),
+                       dBh.data_ptr(), dCh.data_ptr(), dB.data_ptr(),
+                       dC.data_ptr(), b, T, H, G, N, Pe,
+                       torch.cuda.current_stream().cuda_stream)
+            cs.build.check(code, "parent ssd_scan_bwd")
+            return (dxe[..., :P], da, dB, dC) + ((dxe[..., P],) if norm
+                                                 else ())
+
+        this_call = lambda: tuple(
+            t for t in cs.ssd_scan_bwd(x, a, B, C, dy, norm_weights=w, dn=dn)
+            if t is not None)
+        names = ("dx", "da", "dB", "dC", "dw")
+        same = {n: torch.equal(p_, t_) for n, p_, t_
+                in zip(names, parent_call(), this_call())}
+        again = all(torch.equal(p_, t_) for p_, t_
+                    in zip(this_call(), this_call()))
+        work = cs.ssd_bwd_work(b, T, H, G, N, Pe)
+        shape = (f"b={b} T={T} H={H} G={G} N={N} P={P} fp32"
+                 + (" + normalizer" if norm else ""))
+        for name, fn in (("parent", parent_call), ("this", this_call),
+                         ("this", this_call), ("parent", parent_call)):
+            split_ms, split = cs.ssd_bwd_split(fn, work)
+            result.append({"ssd_scan_bwd": name, "shape": shape,
+                           "ms": cs.device_ms(fn, 5),
+                           "split_ms": {k: round(v, 4)
+                                        for k, v in split_ms.items()},
+                           "split": split, "same_bits_as_parent": same,
+                           "this_twice_same_bits": again})
+    return result
+
+
 RMS_SHAPES = ((2048, 1024), (32768, 128), (16384, 128))   # rows, d
 
 
@@ -374,8 +450,9 @@ def rmsnorm(parent: Path) -> list:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path, required=True)
-    ap.add_argument("--only", default="flash,ssd,rmsnorm,serve",
-                    help="comma-separated: flash, ssd, rmsnorm, serve")
+    ap.add_argument("--only", default="flash,ssd,ssd_bwd,rmsnorm,serve",
+                    help="comma-separated: flash, ssd, ssd_bwd, rmsnorm, "
+                    "serve")
     ap.add_argument("--arch", default="qwen3-0.6b", help="the served model")
     ap.add_argument("--serve-one", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -393,6 +470,7 @@ def main():
              + sum((flash_sm90_fwd(parent, shape) for shape in FWD_SM90), [])
              if "flash" in only else [])
             + (ssd(parent) if "ssd" in only else [])
+            + (ssd_bwd(parent) if "ssd_bwd" in only else [])
             + (rmsnorm(parent) if "rmsnorm" in only else []))
     for row in rows:
         print(json.dumps(row), flush=True)

@@ -91,18 +91,12 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     return out, lse
 
 
-def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
-                            window: int = 0, q_offset: int = 0,
-                            bf16_operands: bool = False):
-    """Plain backward in fp32, the formulas of ``csrc/flash_attention_bwd.cu``:
-    with s = scale * q.k and P = exp(s - lse) on visible keys,
-    dv = P^T do, dS = P * (do v^T - rowsum(do * o)), dq = scale * dS k,
-    dk = scale * dS^T q; dk and dv summed over each KV head's query heads.
-    ``bf16_operands`` rounds P and dS to bf16 where the bf16 kernels of
-    ``csrc/flash_attention_bwd_sm90.cu`` hand them to the tensor cores (P
-    before P^T do, dS before dS k and dS^T q), every sum still in fp32.
-    Returns (dq, dk, dv) in q's, k's and v's dtypes."""
-    B, T, H, hd = q.shape
+def bwd_operands(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0,
+                 q_offset: int = 0):
+    """The plain backward's fp32 operands: q, k and v (k and v repeated to
+    q's heads) and do as [B,H,T or S,hd], P = exp(s - lse) on visible keys
+    and dS = P * (do v^T - rowsum(do * o)) as [B,H,T,S], and the scale."""
+    T, H, hd = q.shape[1:]
     S, KV = k.shape[1], k.shape[2]
     group = H // KV
     scale = 1.0 / math.sqrt(hd)
@@ -114,17 +108,36 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
     p = torch.where(ok, torch.exp(s - lse.float()[..., None]), 0.0)
     delta = (dof * of).sum(dim=-1, keepdim=True)
     ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)
+    return qf, kf, dof, p, ds, scale
+
+
+def per_kv_head(t, KV: int):
+    """[B,H,S,hd] summed over each KV head's query heads -> [B,S,KV,hd]."""
+    B, H, S, hd = t.shape
+    return t.reshape(B, KV, H // KV, S, hd).sum(dim=2).transpose(1, 2)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                            window: int = 0, q_offset: int = 0,
+                            bf16_operands: bool = False):
+    """Plain backward in fp32, the formulas of ``csrc/flash_attention_bwd.cu``:
+    with s = scale * q.k and P = exp(s - lse) on visible keys,
+    dv = P^T do, dS = P * (do v^T - rowsum(do * o)), dq = scale * dS k,
+    dk = scale * dS^T q; dk and dv summed over each KV head's query heads.
+    ``bf16_operands`` rounds P and dS to bf16 where the bf16 kernels of
+    ``csrc/flash_attention_bwd_sm90.cu`` hand them to the tensor cores (P
+    before P^T do, dS before dS k and dS^T q), every sum still in fp32.
+    Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    qf, kf, dof, p, ds, scale = bwd_operands(
+        q, k, v, o, lse, do, causal=causal, window=window, q_offset=q_offset)
     if bf16_operands:
         p, ds = (t.to(torch.bfloat16).float() for t in (p, ds))
     dq = torch.matmul(ds, kf) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qf) * scale         # [B,H,S,hd]
     dv = torch.matmul(p.transpose(-1, -2), dof)
-
-    def per_kv_head(t):                    # [B,H,S,hd] -> [B,S,KV,hd]
-        return t.reshape(B, KV, group, S, hd).sum(dim=2).transpose(1, 2)
-
-    return (dq.transpose(1, 2).to(q.dtype), per_kv_head(dk).to(k.dtype),
-            per_kv_head(dv).to(v.dtype))
+    KV = k.shape[2]
+    return (dq.transpose(1, 2).to(q.dtype), per_kv_head(dk, KV).to(k.dtype),
+            per_kv_head(dv, KV).to(v.dtype))
 
 
 def _check(q, k, v, backward: bool = False):

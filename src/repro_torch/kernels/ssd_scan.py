@@ -39,6 +39,8 @@ _CHUNKS_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 7
                     + (ctypes.c_void_p,))
 _BWD_ARGTYPES = (ctypes.c_void_p,) * 14 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 _BWD_WS_ARGTYPES = (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+_BWD_OCC_ARGTYPES = (ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+BWD_PRODUCTS = ("gram", "state", "dx", "dbc")         # ssd_scan_bwd_occupancy's order
 
 
 def ssd_scan_ref(x, a, B, C, *, initial_state=None, norm_weights=None,
@@ -280,7 +282,9 @@ def ssd_scan_bwd(x, a, B, C, dy, *, initial_state=None, norm_weights=None,
     ``csrc/ssd_scan_bwd.cu`` (one call counted once in
     ``LAUNCHES["ssd_scan_bwd"]``), fp32 only: any other dtype raises before
     a launch. The normalizer runs as x's extra column (its input w appended
-    to x, dn to dy), so dw comes back as that column of dx."""
+    to x, dn to dy), so dw comes back as that column of dx; x, dy and dx
+    carry zero columns up to a multiple of 4 (``bwd_columns``,
+    ``bwd_split``)."""
     if x.device.type == "cpu":
         return ssd_scan_bwd_ref(x, a, B, C, dy, initial_state=initial_state,
                                 norm_weights=norm_weights,
@@ -310,26 +314,26 @@ def ssd_scan_bwd(x, a, B, C, dy, *, initial_state=None, norm_weights=None,
     def zeros(*shape):
         return torch.zeros(shape, dtype=F32, device=x.device)
 
-    def columns(main, extra, shape):        # [.., P] (+ [..] as column P)
+    def columns(main, extra, shape, width):
         main = zeros(*shape, P) if main is None else main
-        if not norm:
-            return main.contiguous()
-        extra = zeros(*shape) if extra is None else extra
-        return torch.cat([main, extra[..., None]], dim=-1).contiguous()
+        if norm and extra is None:
+            extra = zeros(*shape)
+        return bwd_columns(main, extra if norm else None, width)
 
-    xe = columns(x, norm_weights, (b, T, H))
-    dye = columns(dy, dn, (b, T, H))
-    s0 = (None if initial_state is None and initial_norm_state is None
-          else columns(initial_state, initial_norm_state, (b, H, N)))
-    dsf = (None if d_state is None and d_norm_state is None
-           else columns(d_state, d_norm_state, (b, H, N)))
     Pe = P + norm
+    xe = columns(x, norm_weights, (b, T, H), bwd_width(Pe))
+    dye = columns(dy, dn, (b, T, H), bwd_width(Pe))
+    s0 = (None if initial_state is None and initial_norm_state is None
+          else columns(initial_state, initial_norm_state, (b, H, N), Pe))
+    dsf = (None if d_state is None and d_norm_state is None
+           else columns(d_state, d_norm_state, (b, H, N), Pe))
+    B, C = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (B, C))
     fn = build.function("ssd_scan_bwd", _BWD_ARGTYPES)
     size = ctypes.c_longlong(0)
     build.check(build.function("ssd_scan_bwd_workspace", _BWD_WS_ARGTYPES)(
         b, T, H, G, N, Pe, ctypes.addressof(size)), "ssd_scan_bwd_workspace")
     ws = torch.empty(size.value, dtype=F32, device=x.device)
-    dxe = torch.empty(b, T, H, Pe, dtype=F32, device=x.device)
+    dxe = torch.empty(b, T, H, bwd_width(Pe), dtype=F32, device=x.device)
     da = torch.empty(b, T, H, dtype=F32, device=x.device)
     dB = torch.empty(b, T, G, N, dtype=F32, device=x.device)
     dC = torch.empty_like(dB)
@@ -345,9 +349,49 @@ def ssd_scan_bwd(x, a, B, C, dy, *, initial_state=None, norm_weights=None,
                   Pe, stream)
     build.check(code, "ssd_scan_bwd")
     build.LAUNCHES["ssd_scan_bwd"] += 1
-    if not norm:
-        return dxe, da, dB, dC, None
-    return dxe[..., :P], da, dB, dC, dxe[..., P]
+    dx, dw = bwd_split(dxe, P, norm)
+    return dx, da, dB, dC, dw
+
+
+def bwd_width(Pe: int) -> int:
+    """Columns of x, dy and dx in ``csrc/ssd_scan_bwd.cu``: Pe rounded up to
+    a multiple of 4, so that every row starts on a 16-byte boundary."""
+    return -(-Pe // 4) * 4
+
+
+def bwd_columns(main, extra, width):
+    """``main`` [.., P] with ``extra`` [..] (or None) as column P, then zero
+    columns up to ``width``: one contiguous tensor on a 16-byte boundary
+    (the backward kernels' layout of x and dy, and of the states)."""
+    parts = [main] + ([] if extra is None else [extra[..., None]])
+    used = sum(t.shape[-1] for t in parts)
+    if width > used:
+        parts.append(main.new_zeros(*main.shape[:-1], width - used))
+    if len(parts) > 1:
+        return torch.cat(parts, dim=-1)
+    main = main.contiguous()
+    return main if main.data_ptr() % 16 == 0 else main.clone()
+
+
+def bwd_split(dxe, P, norm):
+    """(dx, dw) from the kernels' dx [.., bwd_width(Pe)]: its first P columns
+    and, with the normalizer, column P (None without)."""
+    dx = dxe if dxe.shape[-1] == P else dxe[..., :P]
+    return dx, (dxe[..., P] if norm else None)
+
+
+def bwd_occupancy(N: int, Pe: int) -> dict:
+    """Per product kernel of ``csrc/ssd_scan_bwd.cu`` (``BWD_PRODUCTS``), as
+    a call with state size N and Pe columns launches it on the current
+    card: dynamic
+    shared memory of a block, blocks per SM, registers and local (spill)
+    bytes a thread."""
+    out = (ctypes.c_int * (4 * len(BWD_PRODUCTS)))()
+    fn = build.function("ssd_scan_bwd_occupancy", _BWD_OCC_ARGTYPES)
+    build.check(fn(N, Pe, ctypes.addressof(out)), "ssd_scan_bwd_occupancy")
+    keys = ("smem_bytes", "blocks_per_sm", "registers", "spill_bytes")
+    return {name: dict(zip(keys, out[4 * i:4 * i + 4]))
+            for i, name in enumerate(BWD_PRODUCTS)}
 
 
 def _launch(route, x, a, B, C, *, initial_state=None, norm_weights=None,

@@ -7,12 +7,15 @@ kernels' source against what ``chip_smoke.py`` reads of it. The kernels
 themselves run only on the card, where ``chip_smoke.py`` phase 4 holds them
 against the same plain versions.
 
-Tolerances, unchanged from the bf16 checks they mirror: per row (the last
-dim), the error relative to the row's RMS within twice the bf16 rounding of
-the fp32 result (``chip_smoke.bf16_rows_ok``, the check the kernels pass on
-the card); against JAX, each output's largest distance from JAX's fp32
-result within twice JAX's own bf16 distance from it (as
-``test_torch_bf16_grads.py`` holds the fp32 formulas).
+Tolerances: per row (the last dim), the error relative to the row's RMS
+within the flash backward's own limit, ``chip_smoke.flash_bwd_rows_ok`` (the
+check the kernels pass on the card): twice the bf16 rounding of the fp32
+result plus a bound, from the same call's fp32 P and dS, on what rounding
+each of them to bf16 once can move the row (its docstring derives it);
+against JAX, each output's largest distance from JAX's fp32 result within
+twice JAX's own bf16 distance from it (as ``test_torch_bf16_grads.py`` holds
+the fp32 formulas). ``chip_smoke.bf16_rows_ok``, twice the output's rounding
+alone, stays the limit of the rmsnorm backward.
 """
 from __future__ import annotations
 
@@ -26,10 +29,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.models.attention import attend_naive as jax_attend_naive
 from repro_torch.kernels import (build, flash_attention_bwd_ref,
-                                 flash_attention_ref)
+                                 flash_attention_ref, rmsnorm_bwd_ref)
 
 CASES = [   # B, T, S, H, KV, hd, window, q_offset, causal (chip_smoke's,
             # smaller)
@@ -65,22 +69,32 @@ def _bf16_inputs(case, seed):
     return (q, k, v, o, lse, do), kw
 
 
+def _fp32_and_bounds(smoke, q, k, v, o, lse, do, kw):
+    """The fp32 formulas on the bf16 inputs, and the operands' rounding
+    bounds of ``chip_smoke.flash_bwd_rows_ok`` from the same call."""
+    want = flash_attention_bwd_ref(q.float(), k.float(), v.float(), o.float(),
+                                   lse, do.float(), **kw)
+    return want, smoke.flash_bwd_operand_bounds(q, k, v, o, lse, do, **kw)
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_rounded_plain_backward_within_the_per_row_limit(case, capsys):
-    """P and dS in bf16 keep dq, dk and dv within ``bf16_rows_ok``'s limit
-    of the fp32 formulas on the same bf16 inputs, on three draws; the worst
-    margin is printed. The rounding moves the result: the flag is not a
-    no-op, and off it gives the fp32 formulas' bits."""
+    """P and dS in bf16 keep dq, dk and dv within ``flash_bwd_rows_ok``'s
+    limit of the fp32 formulas on the same bf16 inputs, on three draws
+    (case7 at seed 70 among them, the draw that exceeded the output's
+    rounding alone); the worst margin is printed. The rounding moves the
+    result: the flag is not a no-op, and off it gives the fp32 formulas'
+    bits."""
     smoke = _chip_smoke()
     worst = 0.0
     for seed in range(3):
         (q, k, v, o, lse, do), kw = _bf16_inputs(case, 70 + seed)
-        want = flash_attention_bwd_ref(q.float(), k.float(), v.float(),
-                                       o.float(), lse, do.float(), **kw)
+        want, bounds = _fp32_and_bounds(smoke, q, k, v, o, lse, do, kw)
         got = flash_attention_bwd_ref(q, k, v, o, lse, do, bf16_operands=True,
                                       **kw)
-        ratio, _ = smoke.bf16_rows_ok("flash_attention_bwd_ref rounded",
-                                      f"{case} seed {seed}", got, want)
+        ratio, _ = smoke.flash_bwd_rows_ok("flash_attention_bwd_ref rounded",
+                                           f"{case} seed {seed}", got, want,
+                                           bounds)
         worst = max(worst, ratio)
         plain = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
         off = flash_attention_bwd_ref(q, k, v, o, lse, do,
@@ -91,6 +105,59 @@ def test_rounded_plain_backward_within_the_per_row_limit(case, capsys):
         print(f"\n{case}: worst per-row error of the rounded plain backward "
               f"{worst:.3f}x its limit (margin {1 - worst:.3f})")
     assert worst <= 1.0, (case, worst)
+
+
+def _without_first_keys(q, k, v, do, kw, n=64):
+    """The rounded plain backward run without keys 0 .. n-1 (k and v from
+    key n on, at q_offset - n, as ``chip_smoke``'s dropped-tile check runs
+    the kernels), dk and dv zero for the dropped keys; all zeros where no
+    key is left."""
+    if k.shape[1] <= n:
+        return tuple(torch.zeros_like(t) for t in (q, k, v))
+    k2, v2 = k[:, n:].contiguous(), v[:, n:].contiguous()
+    kw2 = dict(kw, q_offset=kw["q_offset"] - n)
+    o2, lse2 = flash_attention_ref(q, k2, v2, with_lse=True, **kw2)
+    dq, dk, dv = flash_attention_bwd_ref(q, k2, v2, o2, lse2, do,
+                                         bf16_operands=True, **kw2)
+    pad = lambda t: F.pad(t, (0, 0, 0, 0, n, 0))
+    return dq, pad(dk), pad(dv)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_dropped_keys_fail_the_per_row_limit(case):
+    """A run without the first 64 keys fails ``flash_bwd_rows_ok`` against
+    the whole run's fp32 formulas and bounds: the operands' term does not
+    widen the limit past a missing key tile."""
+    smoke = _chip_smoke()
+    (q, k, v, o, lse, do), kw = _bf16_inputs(case, 70)
+    want, bounds = _fp32_and_bounds(smoke, q, k, v, o, lse, do, kw)
+    ratio, _ = smoke.flash_bwd_rows_ok(
+        "flash_attention_bwd_ref rounded", f"{case} without keys 0..63",
+        _without_first_keys(q, k, v, do, kw), want, bounds)
+    assert ratio > 1.0, (case, ratio)
+
+
+def test_bf16_rows_ok_keeps_its_limit_for_the_rmsnorm_backward():
+    """``bf16_rows_ok`` still holds a row to twice the bf16 rounding of the
+    fp32 result alone, and the rmsnorm backward's checks still call it (the
+    flash backward's call sites take ``flash_bwd_rows_ok``)."""
+    smoke = _chip_smoke()
+    rng = np.random.default_rng(5)
+    x, dy = (torch.from_numpy(rng.standard_normal((64, 256))
+                              .astype(np.float32)).to(torch.bfloat16)
+             for _ in range(2))
+    g = torch.from_numpy(1 + 0.1 * rng.standard_normal(256)
+                         .astype(np.float32)).to(torch.bfloat16)
+    want = rmsnorm_bwd_ref(x.float(), g.float(), dy.float(), eps=1e-6)
+    got = tuple(w.to(torch.bfloat16) for w in want)
+    ratio, err = smoke.bf16_rows_ok("rmsnorm_bwd_bf16", "rounded", got, want)
+    assert err == 0.0 and ratio == 0.5       # each error is half its limit
+    text = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
+    calls = lambda fn, kernel: len(re.findall(rf"\b{fn}\(\s*\"{kernel}\"",
+                                              text))
+    assert calls("bf16_rows_ok", "rmsnorm_bwd_bf16") == 2
+    assert calls("bf16_rows_ok", "flash_attention_bwd_bf16") == 0
+    assert calls("flash_bwd_rows_ok", "flash_attention_bwd_bf16") == 3
 
 
 @pytest.mark.parametrize("case", CASES)

@@ -22,6 +22,9 @@ tied term there, orders of magnitude more.
 from __future__ import annotations
 
 import importlib
+import importlib.util
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -485,6 +488,8 @@ def _code(name):
     ("ssd_scan_bwd.cu", "ssd_scan_bwd", ssd_module._BWD_ARGTYPES),
     ("ssd_scan_bwd.cu", "ssd_scan_bwd_workspace",
      ssd_module._BWD_WS_ARGTYPES),
+    ("ssd_scan_bwd.cu", "ssd_scan_bwd_occupancy",
+     ssd_module._BWD_OCC_ARGTYPES),
     ("slstm_scan_bwd.cu", "slstm_scan_bwd", slstm_module._BWD_ARGTYPES),
     ("slstm_scan.cu", "slstm_scan_fwd", slstm_module._ARGTYPES),
 ])
@@ -519,3 +524,62 @@ def test_backward_wrappers_raise_on_other_devices():
         slstm_module.slstm_scan_bwd(wx, torch.empty(2, 16, 64, device="meta"),
                                     torch.empty(2, 64, device="meta"),
                                     torch.empty(1, 8, 2, 16, device="meta"))
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_ssd_bwd_kernel_names_are_the_ones_chip_smoke_traces():
+    """``chip_smoke.py`` splits ``ssd_scan_bwd``'s time by kernel name
+    (``SSD_BWD_KERNELS``; the products' flops and the pass's bytes in
+    ``ssd_bwd_work``), logs the products' occupancy by name and counts the
+    Trainer's ``ssd_scan_bwd`` calls by ``ssd_bwd_da_kernel`` in its trace:
+    each name it looks for is a kernel that ``ssd_scan_bwd.cu`` launches."""
+    smoke = _chip_smoke()
+    code = _code("ssd_scan_bwd.cu")
+    launched = set(re.findall(r"\b(ssd_bwd_\w+_kernel)(?:<[^<>]*>)?<<<", code))
+    assert launched == set(smoke.SSD_BWD_KERNELS)
+    assert set(smoke.ssd_bwd_work(1, 64, 1, 1, 8, 4)) <= launched
+    assert {f"ssd_bwd_{name}_kernel"
+            for name in ssd_module.BWD_PRODUCTS} <= launched
+    text = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
+    assert '"ssd_bwd_da_kernel": want["ssd_scan_bwd"]' in text
+
+
+def test_ssd_bwd_padded_layout():
+    """x and dy reach the backward kernels with the normalizer's column at P
+    and zero columns up to ``bwd_width`` (a multiple of 4: 16-byte rows),
+    contiguous and 16-byte aligned (a misaligned view is copied); the
+    states keep Pe columns; dx and dw come back as the kernels' first P
+    columns and column P, without a copy."""
+    assert [ssd_module.bwd_width(pe) for pe in (1025, 1024, 64, 6, 9)] == [
+        1028, 1024, 64, 8, 12]
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((2, 5, 3, 8)).astype(np.float32))
+    w = torch.from_numpy(rng.random((2, 5, 3)).astype(np.float32))
+    xe = ssd_module.bwd_columns(x, w, ssd_module.bwd_width(9))
+    assert xe.shape == (2, 5, 3, 12) and xe.is_contiguous()
+    assert xe.data_ptr() % 16 == 0
+    assert torch.equal(xe[..., :8], x) and torch.equal(xe[..., 8], w)
+    assert not xe[..., 9:].any()
+    state = ssd_module.bwd_columns(x, w, 9)           # the states: Pe columns
+    assert state.shape == (2, 5, 3, 9) and torch.equal(state[..., 8], w)
+    assert ssd_module.bwd_columns(x, None, 8) is x    # nothing to add
+    flat = torch.zeros(x.numel() + 1)
+    view = flat[1:].view(x.shape)                     # 4 bytes off a boundary
+    view.copy_(x)
+    moved = ssd_module.bwd_columns(view, None, 8)
+    assert moved.data_ptr() % 16 == 0 and torch.equal(moved, x)
+    dx, dw = ssd_module.bwd_split(xe, 8, True)
+    assert torch.equal(dx, x) and torch.equal(dw, w)
+    assert dx.data_ptr() == xe.data_ptr()             # views of the kernels' dx
+    dx, dw = ssd_module.bwd_split(xe, 12, False)
+    assert dx is xe and dw is None
+    dx, dw = ssd_module.bwd_split(ssd_module.bwd_columns(x, None, 12), 8,
+                                  False)
+    assert torch.equal(dx, x) and dw is None
