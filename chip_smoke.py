@@ -15,7 +15,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    (the fp32 forward at hd 32, 64, 80, 128 and 192, the backward at 32, 64
    and 128 in fp32 and in bf16 and at 80 in bf16, the bf16 backward's
    kernels with their registers and local bytes; each must fit at least
-   one block on an SM).
+   one block on an SM), and the sLSTM backward walk's registers, local
+   bytes, shared memory and clusters held at xlstm's microbatch with r in
+   bf16 and fp32 (no spill).
 3. The serve paths' bf16 GEMMs (prefill and decode rows) against the fp32
    product of the same operands rounded to bf16, with
    ``allow_bf16_reduced_precision_reduction`` at its default and False:
@@ -279,11 +281,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    zamba2's b=4 H=80 G=1 N=P=64 and xlstm's H=4 N=512 P=1024 with the
    normalizer (drawn like the models) and on a grid (groups, ragged T,
    decays of e^-8 a step and near 1), ``slstm_scan_bwd``
-   (csrc/slstm_scan_bwd.cu) at B=4 T=512 nh=4 dh=512 with r in bf16 and
-   fp32, each against its plain backward (``ssd_scan_bwd_ref``,
+   (csrc/slstm_scan_bwd.cu: one launch of a cluster per head) at B=4
+   T=512 nh=4 dh=512 with r in bf16 and fp32 and on a grid (B=16 at dh
+   512, 16-unit blocks at dh 48, T=1, the input gate across I_CLAMP),
+   each against its plain backward (``ssd_scan_bwd_ref``,
    ``slstm_scan_bwd_ref``) within GRAD_TOL of every gradient's largest
    magnitude (dr from bf16 r within a bf16 rounding), two calls the same
-   bits, timed beside the plain version and the bound; the bf16 flash
+   bits, timed beside the plain version and the bound (the sLSTM walk
+   also without its dR product, with the clusters the card holds at
+   once and µs a step); the bf16 flash
    backward at hd 80 (zamba2's H=KV=32 at B=4 T=512, GQA groups 2 and 4,
    and zamba2's heads under a 128-key window) per row as the other bf16
    backward cases, each called twice for the same bits, timed beside
@@ -371,7 +377,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.rmsnorm import (  # noqa: E402
     bwd_layout as rmsnorm_bwd_layout, plan as rmsnorm_plan)
 from repro_torch.kernels.slstm_scan import (  # noqa: E402
-    _forward as slstm_forward, slstm_max_clusters, slstm_plan)
+    I_CLAMP, _forward as slstm_forward, bwd_walk as slstm_bwd_walk,
+    slstm_bwd_occupancy, slstm_max_clusters, slstm_plan)
 from repro_torch.kernels.ssd_scan import _launch as ssd_launch  # noqa: E402
 from repro_torch.kernels.ssd_scan import path as ssd_path  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
@@ -1870,7 +1877,12 @@ SSD_BWD_TRAIN = {   # the Trainer's microbatch (B.T = 4 x 512)
     "mlstm": (4, 512, 4, 4, 512, 1024),       # xlstm: + the normalizer
 }
 SLSTM_BWD_TRAIN = (4, 512, 4, 512)            # xlstm: B, T, nh, dh
-SLSTM_BWD_GRID = [(2, 9, 2, 32, torch.float32), (3, 70, 1, 64, torch.bfloat16)]
+SLSTM_BWD_GRID = [  # B, T, nh, dh, r dtype, scale of the input gate's wx
+    (2, 9, 2, 32, torch.float32, 1.0), (3, 70, 1, 64, torch.bfloat16, 1.0),
+    (16, 33, 2, 512, torch.bfloat16, 1.0),    # MAX_BATCH at dh 512
+    (2, 15, 2, 48, torch.bfloat16, 1.0),      # 16-unit blocks (G = 3)
+    (3, 1, 2, 64, torch.bfloat16, 1.0),       # T = 1: no recurrent product
+    (4, 40, 2, 128, torch.bfloat16, 20.0)]    # i across I_CLAMP
 FLASH_BWD_80_CASES = [                        # (B, T, S, H, KV, hd), window
     ((2, 137, 137, 8, 4, 80), 0),             # GQA 2, a ragged T
     ((2, 256, 256, 16, 4, 80), 0),            # GQA 4
@@ -2022,11 +2034,15 @@ def check_slstm_bwd(gen):
     two calls the same bits. Returns the timed rows by r dtype."""
     rows = {}
     B, T, nh, dh = SLSTM_BWD_TRAIN
-    cases = SLSTM_BWD_GRID + [(B, T, nh, dh, r_dtype)
+    cases = SLSTM_BWD_GRID + [(B, T, nh, dh, r_dtype, 1.0)
                               for r_dtype in (torch.bfloat16, torch.float32)]
-    for B, T, nh, dh, r_dtype in cases:
+    for B, T, nh, dh, r_dtype, i_scale in cases:
         wx, r, b = slstm_inputs(gen, B, T, nh, dh, torch.float32, True,
                                 r_dtype)
+        wx[..., :dh] *= i_scale
+        if i_scale > 1:
+            require(bool((wx[..., :dh] + b[:, :dh] > I_CLAMP).any()),
+                    "slstm_scan_bwd: no input gate across I_CLAMP")
         dhs = randn(gen, B, T, nh, dh)
         (hs, _), trace = slstm_forward(wx, r, b, trace=True)
         want_hs, _ = slstm_scan_ref(wx, r, b)
@@ -2039,7 +2055,8 @@ def check_slstm_bwd(gen):
         torch.cuda.synchronize()
         same = all(torch.equal(g, h) for g, h in zip(got, again))
         want = slstm_scan_bwd_ref(wx, r, b, dhs)
-        name = f"B={B} T={T} nh={nh} dh={dh} r {str(r_dtype)[6:]}"
+        name = (f"B={B} T={T} nh={nh} dh={dh} r {str(r_dtype)[6:]}"
+                + (f" i x {i_scale:g}" if i_scale > 1 else ""))
         tol = GRAD_TOL if r_dtype == torch.float32 else 2 ** -7
         err = max(check_grads("slstm_scan_bwd", name, got[::2], want[::2]),
                   check_grads("slstm_scan_bwd", name + ", dr", got[1:2],
@@ -2054,9 +2071,14 @@ def check_slstm_bwd(gen):
 def time_slstm_bwd(wx, r, b, dhs, trace, err):
     """The bound: the recurrent product R dpre and dR = sum h^T dpre, 2 B T
     nh dh 4dh flops each, ~40 gate operations a unit and step; or pre,
-    the per-step states, dhs and r read once and dwx, dr, db written once."""
+    the per-step states, dhs and r read once and dwx, dr, db written once.
+    The walk (the kernel's one launch) is also timed alone, without the
+    wrapper's dR product, with the clusters the card holds at once."""
     B, T, nh, gd = wx.shape
     dh = gd // 4
+    occ = slstm_bwd_occupancy(B, nh, dh, wx.dtype, r.dtype)
+    G = slstm_plan(B, nh, dh, r.dtype).blocks
+    dstate = torch.zeros(3, B, nh, dh, device="cuda")
     flops = 4 * B * T * nh * dh * gd + 40 * B * T * nh * dh
     nbytes = (4 * (trace[0].numel() + trace[1].numel()) + 4 * dhs.numel()
               + 2 * r.numel() * r.element_size() + 4 * wx.numel()
@@ -2081,13 +2103,20 @@ def time_slstm_bwd(wx, r, b, dhs, trace, err):
         "bound_ms": max(bound.values()),
         "shape": f"B={B} T={T} nh={nh} dh={dh} wx fp32 r {str(r.dtype)[6:]}",
         "eager_ms": eager[0].elapsed_time(eager[1]) / 3,
+        "walk_ms": device_ms(lambda: slstm_bwd_walk(r, *trace, dhs, dstate),
+                             3),
+        "clusters_held": occ["clusters"],
     }
     log(f"  device time {row['shape']} backward: {row['ms']:.4f} ms replayed "
-        f"in a CUDA graph ({row['ms'] / T * 1e3:.3f} us per step), "
-        f"{row['eager_ms']:.4f} ms launched eagerly as the path does "
-        f"({T} step launches from the host), plain {row['plain_ms']:.4f} ms, "
-        f"no one-call PyTorch equivalent, bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']})")
+        f"in a CUDA graph, {row['eager_ms']:.4f} ms launched eagerly as the "
+        f"path does (one launch and the dR product), plain "
+        f"{row['plain_ms']:.4f} ms, no one-call PyTorch equivalent, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+        f"{row['bound_ms'] / row['ms']:.1%} of the bound; the walk alone "
+        f"{row['walk_ms']:.4f} ms ({row['walk_ms'] / T * 1e3:.3f} us per "
+        f"step), dR and the copies {row['ms'] - row['walk_ms']:.4f} ms; the "
+        f"card holds {occ['clusters']} such clusters of {G} blocks at once "
+        f"({nh} needed)")
     return row
 
 
@@ -3882,7 +3911,7 @@ def train_recurrent(arch: str):
             return m["loss"]
         expect = {"ssd_bwd_da_kernel": want["ssd_scan_bwd"]}
         if "slstm_scan_bwd" in want:
-            expect["slstm_bwd_bias_kernel"] = want["slstm_scan_bwd"]
+            expect["slstm_bwd_walk_kernel"] = want["slstm_scan_bwd"]
         if "flash_attention_bwd" in want:
             expect["flash_bwd_dq_sm90_kernel<"] = want["flash_attention_bwd"]
         profile = profile_train_step(step_once, expect)
@@ -4105,6 +4134,16 @@ def main():
                 f"shared memory, {occ['blocks_per_sm']} block(s) per SM")
             require(occ["blocks_per_sm"] >= 1 and occ["spill_bytes"] == 0,
                     f"ssd_bwd_{name}_kernel at N={N} spills or does not fit")
+    B, _, nh, dh = SLSTM_BWD_TRAIN
+    for r_dtype in (torch.bfloat16, torch.float32):
+        occ = slstm_bwd_occupancy(B, nh, dh, torch.float32, r_dtype)
+        log(f"slstm_scan_bwd B={B} nh={nh} dh={dh} r {str(r_dtype)[6:]}: "
+            f"slstm_bwd_walk_kernel {occ['registers']} registers, "
+            f"{occ['spill_bytes']} local (spill) bytes a thread, "
+            f"{occ['smem_bytes']} bytes of shared memory, {occ['clusters']} "
+            f"clusters held at once")
+        require(occ["clusters"] >= 1 and occ["spill_bytes"] == 0,
+                f"slstm_bwd_walk_kernel spills or does not fit: r {r_dtype}")
     for hd in _FWD_HEAD_DIMS:
         fwd_occ = fwd_occupancy(hd)
         log(f"flash_attention_fwd hd={hd}: {fwd_occ['smem_bytes']} bytes of "
@@ -4279,6 +4318,8 @@ def main():
         {"name": "slstm_scan_bwd", "route": "cuda",
          "source": csrc + "slstm_scan_bwd.cu",
          "replaces": "src/repro/kernels/slstm_scan.py:94",
+         "kernel": "slstm_bwd_walk_kernel (one cluster per head for the "
+                   "whole walk; bf16 R on the tensor cores)",
          **launches("slstm_scan_bwd", xlstm_train),
          **slstm_bwd_rows["bfloat16"],
          "regimes": [slstm_bwd_rows["float32"]]},

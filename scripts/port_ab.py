@@ -5,11 +5,12 @@
     python3 scripts/port_ab.py --parent build/parent
     python3 scripts/port_ab.py --parent build/parent --only rmsnorm
     python3 scripts/port_ab.py --parent build/parent --only ssd_bwd
+    python3 scripts/port_ab.py --parent build/parent --only slstm_bwd
     python3 scripts/port_ab.py --parent build/parent --only ssd,serve \
         --arch zamba2-2.7b
 
-Comparisons (``--only`` picks some of flash, ssd, ssd_bwd, rmsnorm and
-serve; all by default), each in the order parent, this checkout, this checkout, parent,
+Comparisons (``--only`` picks some of flash, ssd, ssd_bwd, slstm_bwd,
+rmsnorm and serve; all by default), each in the order parent, this checkout, this checkout, parent,
 so that a drift of the card or the host shows as a spread:
 
 - ``flash_attention_fwd`` (the fp32 forward, with lse) and
@@ -46,6 +47,17 @@ so that a drift of the card or the host shows as a spread:
   ms per call, each kernel's ms with the products' TFLOP/s and the pass's
   GB/s (``chip_smoke.ssd_bwd_split``), and which of dx, da, dB, dC (and dw)
   have the parent's bits.
+- ``slstm_scan_bwd`` at the Trainer's microbatch (``chip_smoke.SLSTM_BWD_TRAIN``:
+  xlstm's B=4 T=512 nh=4 dh=512, wx fp32, r in bf16 and in fp32, drawn as
+  ``chip_smoke.slstm_inputs``), through the forward's trace: the parent's
+  ``csrc/slstm_scan_bwd.cu`` built alone as above and called through its C
+  entry with its wrapper's carry and dR product, against this checkout's
+  ``slstm_scan_bwd``; ms per call, the largest difference of dwx, dr and
+  db between the two, and each one's error against the plain backward
+  (``slstm_scan_bwd_ref``) relative to each gradient's largest magnitude:
+  the order of the recurrent sum may differ between the two, so the gate
+  is ``chip_smoke.GRAD_TOL`` against the plain backward (dr from bf16 r
+  within a bf16 rounding), not the parent's bits.
 - The rmsnorm backward at the Trainer's three norm shapes (2048x1024:
   ln1, ln2, final_norm; 32768x128: q_norm; 16384x128: k_norm, all at
   B·T = 2048): the parent's ``csrc/rmsnorm_bwd.cu`` built alone as above
@@ -388,6 +400,64 @@ def ssd_bwd(parent: Path) -> list:
     return result
 
 
+def slstm_bwd(parent: Path) -> list:
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    import torch
+    m = importlib.import_module("repro_torch.kernels.slstm_scan")
+    # the parent's entry: r, pre, steps, dhs, carry, dpre, db, the dtypes,
+    # B, T, nh, dh and the stream
+    old = parent_entry(parent, "slstm_scan_bwd.cu", "slstm_scan_bwd",
+                       (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6
+                       + (ctypes.c_void_p,))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator("cuda").manual_seed(0)
+    B, T, nh, dh = cs.SLSTM_BWD_TRAIN
+    result = []
+    for r_dtype in (torch.bfloat16, torch.float32):
+        wx, r, b = cs.slstm_inputs(gen, B, T, nh, dh, torch.float32, True,
+                                   r_dtype)
+        dhs = cs.randn(gen, B, T, nh, dh)
+        _, (pre, steps) = m._forward(wx, r, b, trace=True)
+
+        def parent_call():            # as the parent's wrapper
+            carry = torch.zeros(3, B, nh, dh, device="cuda")
+            dpre = torch.empty(B, T, nh, 4 * dh, device="cuda")
+            db = torch.empty(nh, 4 * dh, device="cuda")
+            code = old(r.data_ptr(), pre.data_ptr(), steps.data_ptr(),
+                       dhs.data_ptr(), carry.data_ptr(), dpre.data_ptr(),
+                       db.data_ptr(), m._DTYPES[wx.dtype], m._DTYPES[r_dtype],
+                       B, T, nh, dh, torch.cuda.current_stream().cuda_stream)
+            cs.build.check(code, "parent slstm_scan_bwd")
+            h_prev = torch.cat([torch.zeros_like(steps[3, :, :1]),
+                                steps[3, :, :-1]], dim=1)
+            dr = torch.einsum("btnd,btne->nde", h_prev, dpre)
+            return dpre, dr.to(r_dtype), db
+
+        this_call = lambda: m.slstm_scan_bwd(wx, r, b, dhs,
+                                             trace=(pre, steps))
+        names = ("dwx", "dr", "db")
+        got = {"parent": parent_call(), "this": this_call()}
+        again = all(torch.equal(x, y) for x, y in zip(this_call(),
+                                                      got["this"]))
+        want = m.slstm_scan_bwd_ref(wx, r, b, dhs)
+        diff = {n: float((x.float() - y.float()).abs().max())
+                for n, x, y in zip(names, got["parent"], got["this"])}
+        vs_plain = {side: {n: float((g.float() - w.float()).abs().max()
+                                    / w.float().abs().max())
+                           for n, g, w in zip(names, grads, want)}
+                    for side, grads in got.items()}
+        shape = f"B={B} T={T} nh={nh} dh={dh} wx fp32 r {str(r_dtype)[6:]}"
+        for name, fn in (("parent", parent_call), ("this", this_call),
+                         ("this", this_call), ("parent", parent_call)):
+            result.append({"slstm_scan_bwd": name, "shape": shape,
+                           "ms": cs.device_ms(fn, 3),
+                           "max_abs_diff": diff,
+                           "vs_plain_rel": vs_plain[name],
+                           "this_twice_same_bits": again})
+    return result
+
+
 RMS_SHAPES = ((2048, 1024), (32768, 128), (16384, 128))   # rows, d
 
 
@@ -450,9 +520,10 @@ def rmsnorm(parent: Path) -> list:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path, required=True)
-    ap.add_argument("--only", default="flash,ssd,ssd_bwd,rmsnorm,serve",
-                    help="comma-separated: flash, ssd, ssd_bwd, rmsnorm, "
-                    "serve")
+    ap.add_argument("--only",
+                    default="flash,ssd,ssd_bwd,slstm_bwd,rmsnorm,serve",
+                    help="comma-separated: flash, ssd, ssd_bwd, slstm_bwd, "
+                    "rmsnorm, serve")
     ap.add_argument("--arch", default="qwen3-0.6b", help="the served model")
     ap.add_argument("--serve-one", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -471,6 +542,7 @@ def main():
              if "flash" in only else [])
             + (ssd(parent) if "ssd" in only else [])
             + (ssd_bwd(parent) if "ssd_bwd" in only else [])
+            + (slstm_bwd(parent) if "slstm_bwd" in only else [])
             + (rmsnorm(parent) if "rmsnorm" in only else []))
     for row in rows:
         print(json.dumps(row), flush=True)

@@ -34,7 +34,7 @@ LAUNCHES: Counter = Counter()
 kernel and nowhere else; a caller resets it with ``LAUNCHES.clear()``. A
 wrapper whose call launches several kernels counts the call once:
 ``ssd_scan`` (3 or 2), ``flash_attention_bwd`` (3), ``rmsnorm_bwd`` (2),
-``ssd_scan_bwd`` (8 or 9), ``slstm_scan_bwd`` (T + 1)."""
+``ssd_scan_bwd`` (8 or 9)."""
 
 BUILD_INFO: dict = {}
 """``seconds`` and ``log`` (nvcc's and ptxas's output) of the last build

@@ -80,7 +80,7 @@
 #include <cstdint>
 #include <type_traits>
 
-#include "common.cuh"
+#include "slstm.cuh"
 
 namespace {
 
@@ -130,90 +130,6 @@ bool make_layout(int B, int dh, int G, int segments, int resident, int r_size, L
     return off + kBarrierBytes <= kMaxSmem;
 }
 
-__device__ __forceinline__ float log_sigmoid(float x) {
-    return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-    uint32_t r;
-    asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-    return r;
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-    asm volatile("barrier.cluster.arrive.release;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-    asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-    asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// the same shared-memory address in block `rank` of the cluster
-__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
-    uint32_t remote;
-    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(smem_addr(p)),
-                 "r"(rank));
-    return remote;
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// this block's one arrival of the phase, expecting `bytes` from the cluster
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
-                 "r"(bytes)
-                 : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, int parity) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred P1;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, P1;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    return done != 0;
-}
-
-// Wait until the phase of the given parity has completed. A step whose bytes
-// never all arrive traps after some seconds instead of spinning forever.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-    for (long long n = 0; !mbar_try_wait(bar, parity); ++n)
-        if (n > (1LL << 28)) __trap();
-}
-
-// float4 into block `rank`'s shared memory at this block's address `p`;
-// its arrival counts 16 bytes on that block's mbarrier at this block's `bar`
-__device__ __forceinline__ void store_peer(const float* p, uint32_t rank, float4 v,
-                                           uint64_t* bar) {
-    asm volatile(
-        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
-        "[%5];" ::"r"(peer_addr(p, rank)),
-        "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(peer_addr(bar, rank))
-        : "memory");
-}
-
-__device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
-
-// 8 bf16 values packed in 16 bytes, exactly as fp32
-__device__ __forceinline__ void unpack8(const uint4 u, float (&v)[8]) {
-    v[0] = bf16_lo(u.x), v[1] = bf16_hi(u.x), v[2] = bf16_lo(u.y), v[3] = bf16_hi(u.y);
-    v[4] = bf16_lo(u.z), v[5] = bf16_hi(u.z), v[6] = bf16_lo(u.w), v[7] = bf16_hi(u.w);
-}
-
 // 8 adjacent values of the shared R slice, exactly as fp32
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
     unpack8(*reinterpret_cast<const uint4*>(p), v);
@@ -222,15 +138,6 @@ __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
     const float4 a = reinterpret_cast<const float4*>(p)[0];
     const float4 b = reinterpret_cast<const float4*>(p)[1];
     v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-}
-
-// two adjacent values of R in device memory, exactly as fp32
-__device__ __forceinline__ float2 load2_global(const float* p) {
-    return __ldg(reinterpret_cast<const float2*>(p));
-}
-__device__ __forceinline__ float2 load2_global(const __nv_bfloat16* p) {
-    const uint32_t u = __ldg(reinterpret_cast<const unsigned int*>(p));
-    return make_float2(bf16_lo(u), bf16_hi(u));
 }
 
 __device__ __forceinline__ float comp(const float4& v, int x) {
@@ -361,11 +268,7 @@ slstm_scan_kernel(const TW* __restrict__ wx, const TR* __restrict__ r,
         }
     };
     load_wx(0, 0);
-    if (tid == 0) {
-        mbar_init(bars);
-        mbar_init(bars + 1);
-        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    }
+    if (tid == 0) mbar_init_pair(bars);
     // every block's R slice, zeroed h, state and barriers in place
     cluster_arrive();
     cluster_wait();

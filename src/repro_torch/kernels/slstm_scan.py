@@ -12,8 +12,9 @@ chooses the cluster shape and the shared-memory layout.
 Where grad is enabled and wx, r or b requires it, the call goes through an
 ``autograd.Function``: the forward then also writes each step's gate
 pre-activations and (c, n, m, h), and the backward (``slstm_scan_bwd``)
-walks time in reverse, on the card through ``csrc/slstm_scan_bwd.cu``, on
-CPU tensors through the explicit formulas of ``slstm_scan_bwd_ref``. Both
+walks time in reverse, on the card through ``csrc/slstm_scan_bwd.cu`` (one
+launch of a cluster per head, laid out by ``slstm_bwd_plan``), on CPU
+tensors through the explicit formulas of ``slstm_scan_bwd_ref``. Both
 follow JAX's derivative, ties included: ``jnp.maximum`` / ``jnp.minimum``
 give each side half the gradient at a tie (``scalar_max``, ``scalar_min``).
 """
@@ -38,9 +39,11 @@ SMEM_MAX = 232_448              # kMaxSmem: shared memory a block may use
 BARRIER_BYTES = 16              # kBarrierBytes: its static part, two mbarriers
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}      # ReproDtype in common.cuh
 _ARGTYPES = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 9 + (ctypes.c_void_p,)
-_BWD_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
-BWD_UNITS = 16                  # kUnits in csrc/slstm_scan_bwd.cu: units per block
 _OCC_ARGTYPES = (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
+_BWD_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
+_BWD_OCC_ARGTYPES = (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
+BWD_STAGES = 3                  # kStages in csrc/slstm_scan_bwd.cu: the ring's steps
+BWD_WARP_ROWS = 64              # kWarpRows: rows of R one warp's product covers
 
 
 class SlstmPlan(NamedTuple):
@@ -103,6 +106,60 @@ def slstm_plan(B: int, nh: int, dh: int, r_dtype) -> SlstmPlan:
         raise ValueError(f"slstm_scan: B={B} dh={dh} needs {smem} bytes of "
                          f"shared memory per block, more than {SMEM_MAX}")
     return SlstmPlan(blocks, units, segments, tile, resident, smem)
+
+
+class SlstmBwdPlan(NamedTuple):
+    """The backward walk's cluster per head: ``blocks`` (G) blocks of
+    ``units`` units; ``tile`` batch rows per pass of the recurrent product
+    (1, 2 or TILE); the first ``resident_rows`` rows of an fp32 R slice in
+    shared memory (the rest read from device memory every step; bf16 R is
+    held in registers: 0); ``smem_bytes`` of dynamic shared memory per
+    block."""
+    blocks: int
+    units: int
+    tile: int
+    resident_rows: int
+    smem_bytes: int
+
+
+def slstm_bwd_plan(B: int, nh: int, dh: int, r_dtype,
+                   wx_dtype=F32) -> SlstmBwdPlan:
+    """``csrc/slstm_scan_bwd.cu``'s layout for the shapes the forward takes
+    (``slstm_plan``'s G and units); raises ``ValueError`` with the reason
+    for a shape it cannot take.
+
+    Shared memory holds dpre_t of the block's units for the batch rows
+    padded to the tile, the partial dots received (two buffers of B x dh
+    fp32) and a ring of BWD_STAGES steps of pre (4 gates), (c, n, m) fp32
+    and dhs (wx's dtype), B x units each; with bf16 r the tensor cores'
+    operand (dpre's three bf16 terms, 16 rows a tile) and each warp's
+    partial dots (3 tile rows of BWD_WARP_ROWS + 4), with fp32 r the R
+    slice (unit-major, as the forward), its rows beyond what fits (a dh =
+    512 slice does not), in whole warps' rows, read from L2."""
+    units = slstm_plan(B, nh, dh, r_dtype).units
+    if wx_dtype not in _DTYPES:
+        raise ValueError(f"slstm_scan_bwd: wx must be float32 or bfloat16, "
+                         f"got {wx_dtype}")
+    cols = 4 * units
+    tile = B if B <= 2 else TILE
+    bpad = -(-B // tile) * tile
+    w_size = 2 if wx_dtype == torch.bfloat16 else 4
+    fixed = (4 * bpad * cols + 8 * B * dh
+             + BWD_STAGES * B * units * (28 + w_size))
+    resident = 0
+    if r_dtype == torch.bfloat16:   # the tensor cores' operand and sums
+        fixed += (2 * bpad // tile * 16 * cols
+                  + 4 * THREADS // 32 * 3 * tile * (BWD_WARP_ROWS + 4))
+    else:
+        room = SMEM_MAX - BARRIER_BYTES - fixed
+        row_bytes = 4 * cols
+        resident = (dh if dh * row_bytes <= room else
+                    max(0, room) // row_bytes // BWD_WARP_ROWS * BWD_WARP_ROWS)
+    smem = fixed + resident * 4 * cols
+    if smem + BARRIER_BYTES > SMEM_MAX:
+        raise ValueError(f"slstm_scan_bwd: B={B} dh={dh} needs {smem} bytes "
+                         f"of shared memory per block, more than {SMEM_MAX}")
+    return SlstmBwdPlan(dh // units, units, tile, resident, smem)
 
 
 def scalar_max(x, v: float):
@@ -319,8 +376,7 @@ def slstm_scan_bwd(wx, r, b, dhs, d_state=None, trace=None):
 
     A CPU tensor takes ``slstm_scan_bwd_ref``. A CUDA tensor needs the
     forward's ``trace`` (pre-activations and per-step states); one launch of
-    ``csrc/slstm_scan_bwd.cu``'s step kernel per time step, in reverse,
-    then one of its bias-sum kernel, counted once in
+    ``csrc/slstm_scan_bwd.cu``'s walk (``bwd_walk``), counted in
     ``LAUNCHES["slstm_scan_bwd"]``; dr, which the TPU kernel's body has no
     counterpart of, is one fp32 product over the stacked steps
     (sum_t h_{t-1}^T dpre_t, TF32 off)."""
@@ -335,9 +391,6 @@ def slstm_scan_bwd(wx, r, b, dhs, d_state=None, trace=None):
         raise ValueError("slstm_scan_bwd: a CUDA call needs the forward's "
                          "trace (SlstmScan saves it)")
     pre, steps = trace
-    if dh % BWD_UNITS:
-        raise ValueError(f"slstm_scan_bwd: dh={dh} is not a multiple of "
-                         f"{BWD_UNITS} units per block")
     for name, t, shape, dtype in (
             ("dhs", dhs, (B, T, nh, dh), wx.dtype),
             ("pre", pre, (B, T, nh, gd), F32),
@@ -348,24 +401,16 @@ def slstm_scan_bwd(wx, r, b, dhs, d_state=None, trace=None):
                              f"{t.dtype}; takes a contiguous {shape} {dtype} "
                              f"on {wx.device}")
     d_state = d_state or (None,) * 4
-    carry = torch.zeros(3, B, nh, dh, dtype=F32, device=wx.device)
+    dstate = torch.zeros(3, B, nh, dh, dtype=F32, device=wx.device)
     for i, g in enumerate(d_state[:3]):      # dc, dn, dm of the final state
         if g is not None:
-            carry[i].copy_(g)
+            dstate[i].copy_(g)
     if d_state[3] is not None:               # h_T is hs[:, -1]
         dhs = dhs.clone()
         dhs[:, -1] += d_state[3].to(dhs.dtype)
-    dpre = torch.empty(B, T, nh, gd, dtype=F32, device=wx.device)
-    db = torch.empty(nh, gd, dtype=F32, device=wx.device)
-    fn = build.function("slstm_scan_bwd", _BWD_ARGTYPES)
-    with torch.cuda.device(wx.device):
-        stream = torch.cuda.current_stream(wx.device).cuda_stream
-        code = fn(r.data_ptr(), pre.data_ptr(), steps.data_ptr(),
-                  dhs.data_ptr(), carry.data_ptr(),
-                  dpre.data_ptr(), db.data_ptr(), _DTYPES[wx.dtype],
-                  _DTYPES[r.dtype], B, T, nh, dh, stream)
-    build.check(code, "slstm_scan_bwd")
-    build.LAUNCHES["slstm_scan_bwd"] += 1
+    if dhs.data_ptr() % 16:                  # the kernel copies 16 bytes
+        dhs = dhs.clone()
+    dpre, db = bwd_walk(r, pre, steps, dhs, dstate)
     h_prev = torch.cat([torch.zeros_like(steps[3, :, :1]), steps[3, :, :-1]],
                        dim=1)                # h_{t-1} [B,T,nh,dh]
     tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -375,6 +420,41 @@ def slstm_scan_bwd(wx, r, b, dhs, d_state=None, trace=None):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     return dpre.to(wx.dtype), dr.to(r.dtype), db.to(b.dtype)
+
+
+def bwd_walk(r, pre, steps, dhs, dstate):
+    """The kernel's walk alone: (dpre [B,T,nh,4dh], db [nh,4dh]) fp32 from
+    the forward's trace, dhs (wx's dtype, 16-byte aligned) and the final
+    state's (dc, dn, dm) [3,B,nh,dh]; one launch of nh clusters, counted in
+    ``LAUNCHES["slstm_scan_bwd"]``."""
+    B, T, nh, dh = dhs.shape
+    plan = slstm_bwd_plan(B, nh, dh, r.dtype, dhs.dtype)
+    dpre = torch.empty(B, T, nh, 4 * dh, dtype=F32, device=dhs.device)
+    db = torch.empty(nh, 4 * dh, dtype=F32, device=dhs.device)
+    fn = build.function("slstm_scan_bwd", _BWD_ARGTYPES)
+    with torch.cuda.device(dhs.device):
+        stream = torch.cuda.current_stream(dhs.device).cuda_stream
+        code = fn(r.data_ptr(), pre.data_ptr(), steps.data_ptr(),
+                  dhs.data_ptr(), dstate.data_ptr(), dpre.data_ptr(),
+                  db.data_ptr(), _DTYPES[dhs.dtype], _DTYPES[r.dtype], B, T,
+                  nh, dh, plan.blocks, plan.resident_rows, stream)
+    build.check(code, "slstm_scan_bwd")
+    build.LAUNCHES["slstm_scan_bwd"] += 1
+    return dpre, db
+
+
+def slstm_bwd_occupancy(B: int, nh: int, dh: int, wx_dtype, r_dtype) -> dict:
+    """The backward walk's ``clusters`` the current card holds at once
+    (``cudaOccupancyMaxActiveClusters``), its ``registers`` and local
+    (``spill_bytes``) a thread and ``smem_bytes`` a block."""
+    plan = slstm_bwd_plan(B, nh, dh, r_dtype, wx_dtype)
+    out = (ctypes.c_int * 4)()
+    fn = build.function("slstm_bwd_max_clusters", _BWD_OCC_ARGTYPES)
+    code = fn(_DTYPES[wx_dtype], _DTYPES[r_dtype], B, nh, dh, plan.blocks,
+              plan.resident_rows, ctypes.addressof(out))
+    build.check(code, "slstm_bwd_max_clusters")
+    return dict(zip(("clusters", "registers", "spill_bytes", "smem_bytes"),
+                    out))
 
 
 def slstm_max_clusters(B: int, nh: int, dh: int, wx_dtype, r_dtype) -> int:

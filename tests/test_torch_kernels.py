@@ -724,6 +724,7 @@ def test_slstm_kernel_is_a_cluster_launch_without_a_grid_barrier():
     fences or device-memory h buffer; the C entries take what the wrapper
     passes."""
     src = (build.CSRC / "slstm_scan.cu").read_text()
+    src += (build.CSRC / "slstm.cuh").read_text()   # its cluster helpers
     for used in ("cudaLaunchKernelEx", "cudaLaunchAttributeClusterDimension",
                  "cudaFuncAttributeNonPortableClusterSizeAllowed",
                  "st.async.shared::cluster", "barrier.cluster.arrive",

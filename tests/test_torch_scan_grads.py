@@ -9,7 +9,9 @@ its mLSTM and Mamba-2 differentiate) and the sLSTM scan of
 ``repro/kernels/ref.py`` (``slstm_ref``), and at the model level its
 ``_slstm_cell``, ``_mlstm_output`` and ``_mlstm_qkvif``. The CUDA kernels
 themselves are held against the same plain formulas on the card by
-``chip_smoke.py``; the SSD backward's chunk formulas are emulated here.
+``chip_smoke.py``; the SSD backward's chunk formulas and the sLSTM
+backward walk's order (partial dots per block summed in rank order, bf16
+r's three-term split, the cell's factors, db's order) are emulated here.
 
 Tolerances (fp32): every gradient within 2e-5 of its largest magnitude
 (both sides sum in fp32 in different orders: the port step by step, JAX by
@@ -316,6 +318,150 @@ def test_slstm_function_cpu_vs_jax_vjp(r_dtype, saved_launches):
             assert _rel_max(g, np.asarray(w, np.float32)) <= TOL, name
 
 
+@pytest.mark.parametrize("wx_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("r_dtype", ["float32", "bfloat16"])
+def test_slstm_bwd_plan_fits_or_raises(r_dtype, wx_dtype):
+    """For every shape the forward's ``slstm_plan`` takes (B 1-16, dh 16-512
+    and some it refuses), ``slstm_bwd_plan`` gives the forward's cluster
+    (G blocks of 16 or 32 units), a tile of 1, 2 or TILE batch rows and a
+    layout within SMEM_MAX; bf16 r holds R in registers (no resident rows),
+    fp32 r keeps whole warps' rows resident (or all of them) and reads the
+    rest from L2. A shape the forward refuses, the backward refuses with a
+    reason."""
+    r_dt, wx_dt = getattr(torch, r_dtype), getattr(torch, wx_dtype)
+    taken = 0
+    for B in list(range(1, 17)) + [0, 17]:
+        for dh in list(range(16, 513, 16)) + [8, 40, 1024]:
+            try:
+                fwd = slstm_module.slstm_plan(B, 4, dh, r_dt)
+            except ValueError as refused:
+                with pytest.raises(ValueError, match=str(refused)[:20]):
+                    slstm_module.slstm_bwd_plan(B, 4, dh, r_dt, wx_dt)
+                continue
+            plan = slstm_module.slstm_bwd_plan(B, 4, dh, r_dt, wx_dt)
+            taken += 1
+            assert (plan.blocks, plan.units) == (fwd.blocks, fwd.units)
+            assert plan.tile == (B if B <= 2 else slstm_module.TILE)
+            assert (plan.smem_bytes + slstm_module.BARRIER_BYTES
+                    <= slstm_module.SMEM_MAX), (B, dh)
+            if r_dt == torch.bfloat16:
+                assert plan.resident_rows == 0
+            else:
+                assert 0 <= plan.resident_rows <= dh
+                assert (plan.resident_rows == dh or plan.resident_rows
+                        % slstm_module.BWD_WARP_ROWS == 0)
+    assert taken == 16 * 24     # dh 272-496 with 16-unit blocks: 17-31 > 16
+    with pytest.raises(ValueError, match="wx must be"):
+        slstm_module.slstm_bwd_plan(4, 4, 64, r_dt, torch.float16)
+    full = slstm_module.slstm_bwd_plan(4, 4, 512, torch.float32, wx_dt)
+    assert full.resident_rows < 512      # a 256 KiB fp32 slice does not fit
+
+
+def _split3(x):
+    """bf16 r's operand: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi
+    - mid), each as fp32 (the kernel's ``split3``)."""
+    hi = x.to(torch.bfloat16).float()
+    r1 = x - hi
+    mid = r1.to(torch.bfloat16).float()
+    return hi, mid, (r1 - mid).to(torch.bfloat16).float()
+
+
+def _slstm_bwd_kernel_order(wx, r, b, dhs, units, r_bf16):
+    """``csrc/slstm_scan_bwd.cu``'s walk in plain torch, in its order: the
+    cell from the forward step's factors (``forward_step``: c_t / n', o /
+    n', ...), dh_t = dhs_t + the G blocks' partial dots summed in rank order
+    (block k's columns: gate q of units [k units, (k + 1) units)); with bf16
+    r each partial is R times dpre's three bf16 terms, summed (hi + mid) +
+    lo; db summed over time per (batch row, unit), then over batch rows in
+    order. Returns (dwx, dr, db) fp32; dr as the wrapper's product."""
+    B, T, nh, gd = wx.shape
+    dh = gd // 4
+    rf, bf = r.float(), b.float()
+    zeros = torch.zeros(B, nh, dh)
+    states = [(zeros, zeros, torch.full_like(zeros, slstm_module.M_INIT),
+               zeros)]
+    pres = []
+    for t in range(T):
+        pres.append(wx[:, t].float() + torch.einsum(
+            "bhd,hde->bhe", states[-1][3], rf) + bf[None])
+        states.append(slstm_module._cell(pres[-1], *states[-1][:3]))
+    tie = slstm_module._tie
+    blocks = [torch.cat([torch.arange(q * dh + k * units,
+                                      q * dh + (k + 1) * units)
+                         for q in range(4)]) for k in range(dh // units)]
+    dc, dn, dm, rec = zeros, zeros, zeros, zeros
+    dwx = torch.empty(B, T, nh, gd)
+    dbq = torch.zeros(B, nh, gd)
+    for t in reversed(range(T)):
+        c, n, m = states[t][:3]
+        i_r, f_r, z_r, o_r = pres[t].chunk(4, dim=-1)
+        i_log = torch.minimum(i_r, torch.full_like(i_r, slstm_module.I_CLAMP))
+        a = F.logsigmoid(f_r) + m
+        m_new = torch.maximum(a, i_log)
+        ig, fg = torch.exp(i_log - m_new), torch.exp(a - m_new)
+        z, o = torch.tanh(z_r), 1 / (1 + torch.exp(-o_r))
+        c_new, n_new = fg * c + ig * z, fg * n + ig
+        nn = torch.maximum(n_new, torch.ones_like(n_new))
+        a_do, a_dc = c_new / nn, o / nn
+        a_dn = o * c_new / (nn * nn) * tie(n_new, 1.0)
+        share = tie(a, i_log)
+        gh = dhs[:, t].float() + rec
+        dc_t, dn_t = dc + gh * a_dc, dn - gh * a_dn
+        dfg, dig = dc_t * c + dn_t * n, dc_t * z + dn_t
+        t_ig, t_fg = dig * ig, dfg * fg
+        dm_t = dm - t_ig - t_fg
+        da = t_fg + dm_t * share
+        dp = torch.cat([(t_ig + dm_t * (1 - share))
+                        * tie(-i_r, torch.tensor(-slstm_module.I_CLAMP)),
+                        da * (1 / (1 + torch.exp(f_r))),
+                        dc_t * (ig * (1 - z * z)), gh * a_do * (o * (1 - o))],
+                       dim=-1)
+        dc, dn, dm = dc_t * fg, dn_t * fg, da
+        dwx[:, t] = dp
+        dbq += dp
+        rec = zeros
+        for cols in blocks:                  # rank order
+            rk = rf[:, :, cols]
+            if r_bf16:
+                hi, mid, lo = (torch.einsum("bhe,hde->bhd", x, rk)
+                               for x in _split3(dp[..., cols]))
+                part = (hi + mid) + lo
+            else:
+                part = torch.einsum("bhe,hde->bhd", dp[..., cols], rk)
+            rec = rec + part
+    db = dbq[0].clone()
+    for row in dbq[1:]:
+        db += row
+    h_prev = torch.stack([s[3] for s in states[:-1]], 1)   # h_{t-1}, h_{-1} = 0
+    dr = torch.einsum("btnd,btne->nde", h_prev, dwx)
+    return dwx, dr, db
+
+
+@pytest.mark.parametrize("B,T,nh,dh,i_scale,r_dtype", [
+    (2, 9, 2, 32, 1.0, "float32"),
+    (3, 20, 1, 48, 20.0, "bfloat16"),   # 16-unit blocks; i past I_CLAMP
+    (2, 12, 2, 64, 20.0, "bfloat16"),   # two 32-unit blocks
+    (1, 1, 2, 32, 1.0, "bfloat16"),     # T = 1: no recurrent product
+])
+def test_slstm_bwd_kernel_order_vs_jax_vjp(B, T, nh, dh, i_scale, r_dtype):
+    """The CUDA walk's order (emulated) against jax.vjp of ``slstm_ref``:
+    dwx, db and the wrapper's dr within TOL of their largest magnitudes,
+    with r in either dtype (bf16 r: its fp32 values on both sides) and the
+    input gate past I_CLAMP where i_scale is 20."""
+    wx, r, b, dhs = _slstm_inputs(B * T + dh + 1, B, T, nh, dh, i_scale)
+    rt = torch.from_numpy(r).to(getattr(torch, r_dtype))
+    want = _jax_slstm_vjp(wx, rt.float().numpy(), b, dhs)
+    units = slstm_module.slstm_plan(B, nh, dh, rt.dtype).units
+    got = _slstm_bwd_kernel_order(torch.from_numpy(wx), rt,
+                                  torch.from_numpy(b), torch.from_numpy(dhs),
+                                  units, rt.dtype == torch.bfloat16)
+    if i_scale > 1:
+        assert (np.abs(wx[..., :dh]) > slstm_module.I_CLAMP).any()
+    for name, g, w in zip(("dwx", "dr", "db"), got, want):
+        assert torch.isfinite(g).all()
+        assert _rel_max(g, w) <= TOL, (name, _rel_max(g, w))
+
+
 # --------------------------------------------------------------------------
 # the tie fault: torch.clamp against jnp.maximum / jnp.minimum
 # --------------------------------------------------------------------------
@@ -491,6 +637,8 @@ def _code(name):
     ("ssd_scan_bwd.cu", "ssd_scan_bwd_occupancy",
      ssd_module._BWD_OCC_ARGTYPES),
     ("slstm_scan_bwd.cu", "slstm_scan_bwd", slstm_module._BWD_ARGTYPES),
+    ("slstm_scan_bwd.cu", "slstm_bwd_max_clusters",
+     slstm_module._BWD_OCC_ARGTYPES),
     ("slstm_scan.cu", "slstm_scan_fwd", slstm_module._ARGTYPES),
 ])
 def test_backward_c_entries_take_what_the_wrappers_pass(source, entry,
@@ -510,9 +658,17 @@ def test_backward_c_entries_take_what_the_wrappers_pass(source, entry,
     assert "atomic" not in code
     if source == "ssd_scan_bwd.cu":
         assert f"constexpr int kL = {ssd_module.CHUNK};" in code
-    if source == "slstm_scan_bwd.cu":
-        assert f"constexpr int kUnits = {slstm_module.BWD_UNITS};" in code
-        assert f"constexpr int kMaxBatch = {slstm_module.MAX_BATCH};" in code
+    if source == "slstm_scan_bwd.cu":       # the layout slstm_bwd_plan mirrors
+        for name, value in (("kThreads", slstm_module.THREADS),
+                            ("kTile", slstm_module.TILE),
+                            ("kMaxBatch", slstm_module.MAX_BATCH),
+                            ("kMaxCluster", slstm_module.MAX_CLUSTER),
+                            ("kMaxSmem", slstm_module.SMEM_MAX),
+                            ("kBarrierBytes", slstm_module.BARRIER_BYTES),
+                            ("kStages", slstm_module.BWD_STAGES),
+                            ("kWarpRows", slstm_module.BWD_WARP_ROWS)):
+            assert f"constexpr int {name} = {value};" in code
+        assert "constexpr int kScratchRow = kWarpRows + 4;" in code
 
 
 def test_backward_wrappers_raise_on_other_devices():
@@ -549,6 +705,22 @@ def test_ssd_bwd_kernel_names_are_the_ones_chip_smoke_traces():
             for name in ssd_module.BWD_PRODUCTS} <= launched
     text = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
     assert '"ssd_bwd_da_kernel": want["ssd_scan_bwd"]' in text
+
+
+def test_slstm_bwd_is_one_launch_of_the_kernel_chip_smoke_traces():
+    """``csrc/slstm_scan_bwd.cu`` defines one kernel, the walk, launched
+    once a call through cudaLaunchKernelEx (no step kernel, no db kernel,
+    no launch loop); phase 5i counts the Trainer's ``slstm_scan_bwd`` calls
+    by that name, which its "scan bwd" group matches by "slstm_bwd"."""
+    code = _code("slstm_scan_bwd.cu")
+    kernels = set(re.findall(r"__global__[^;{]*?\b(\w+_kernel)\(", code))
+    assert kernels == {"slstm_bwd_walk_kernel"}
+    assert code.count("cudaLaunchKernelEx(") == 1 and "<<<" not in code
+    for gone in ("slstm_bwd_step_kernel", "slstm_bwd_bias_kernel", "walk<"):
+        assert gone not in code
+    text = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
+    assert 'expect["slstm_bwd_walk_kernel"] = want["slstm_scan_bwd"]' in text
+    assert '"slstm_bwd" in name' in text
 
 
 def test_ssd_bwd_padded_layout():
