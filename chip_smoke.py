@@ -23,7 +23,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``allow_bf16_reduced_precision_reduction`` at its default and False:
    the worst error in bf16 ulps per shape (at most one at the default),
    and whether the flag changes a bit (a split-K GEMM reducing its
-   partials in bf16 would).
+   partials in bf16 would); also moonshot's expert products' bf16
+   backward GEMMs at its Trainer microbatch, batched over 64 experts of
+   120 slots (``dup @ w_up^T``, K = 1408; ``dy @ w_down^T``, K = 2048).
 4. Hold each kernel against its plain PyTorch version on the card (fp32
    tolerance 2e-5, bf16 2e-2, as |got - want| <= tol + tol * |want|, each
    output at its own dtype's tolerance), on the grids of
@@ -295,6 +297,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    backward cases, each called twice for the same bits, timed beside
    SDPA's with its three kernels apart; the bf16 rmsnorm
    backward at 2048 rows of d = 2048, 2560 and 5120, timed.
+5j. The Trainer on moonshot-v1-16b-a3b (MoE) in bf16 at full width, as
+   configured (4 microbatches, remat full, fp32 moments, capacity factor
+   1.25: 120 slots an expert at 2 x 512 tokens), on ``SyntheticLM`` 8 x
+   512:
+   - step 0's loss and gradients on a cut of 2 layers (1.8 B params)
+     against the plain paths within twice the plain bf16 floor, as 5i
+     holds its cuts, with the kernel path's top-k choices pinned into
+     every path (``PinnedRouting``: a random router turns the paths'
+     roundings into other experts at near-ties); the choices the
+     unpinned plain bf16 and fp32 paths would have made otherwise
+     (``router_flips``) and the slots each microbatch drops are logged;
+     the same step twice from one state on the cut: the same bits (the
+     MoE's backward sums in a fixed order);
+   - 8 steps at 4 of 48 layers (2.95 B params), exactly 32 / 16 / 68 /
+     36 launches of flash_attention / flash_attention_bwd / rmsnorm /
+     rmsnorm_bwd a step, a falling finite loss, step ms and peak GiB, one
+     traced step ("moe dispatch" and "matmul fp32", the gate product's
+     backward, apart);
+   - ``python -m repro_torch.launch.train --arch moonshot-v1-16b-a3b
+     --steps 10`` and ``python -m repro_torch.launch.sweep --arch
+     moonshot-v1-16b-a3b --members 4 --steps 2`` in subprocesses, then two
+     reduced moonshot member steps from one state in process: the same
+     bits.
+   Before it, phase 4 holds this path's regimes: the bf16 flash forward
+   and backward at B=2 T=S=512 H=KV=16 hd=128 causal (the backward's
+   first MHA regime at hd 128; per row, twice for the same bits) and the
+   bf16 rmsnorm forward and backward at 1024 x 2048, each timed beside
+   SDPA or ``F.rms_norm`` and the bound.
 5e. The paper's launch layer on the card's host, with no JAX (no kernel
    runs here: the counts, set to 0 just before, must still be 0 after):
    - the discrete-event reproduction of TX-Green through the port's
@@ -331,7 +361,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    as two rows, the ordered walk with xlstm's launches and the
    chunk-parallel path with zamba2's, serving and phase 5i's; ssd_scan_bwd
    as two rows, xlstm's shape and zamba2's; slstm_scan_bwd with its fp32-r
-   row under ``"regimes"``), the card line, and as the last line
+   row under ``"regimes"``; phase 5j's four rows under the ``"regimes"``
+   of flash_attention, flash_attention_bwd_bf16, rmsnorm and
+   rmsnorm_bwd_bf16, with moonshot's Trainer launches), the card line,
+   and as the last line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and cuDNN, so fp32 comparisons are full fp32.
@@ -395,6 +428,7 @@ from repro_torch.launch.sweep import (build_member_step,  # noqa: E402
                                       loss_and_grads, member_config,
                                       run_sweep, to_batch)
 from repro_torch.models import blocks as model_blocks  # noqa: E402
+from repro_torch.models import mlp as model_mlp  # noqa: E402
 from repro_torch.models.common import (matmul, rms_norm,  # noqa: E402
                                        tree_leaves, tree_map)
 from repro_torch.optim import adamw_init, adamw_update  # noqa: E402
@@ -540,6 +574,11 @@ SPLITK_SHAPES = [      # (model, GEMM, K, N, weight is a transposed [N, K])
     ("xlstm-1.3b", "lm head (tied)", 2048, 50304, True),
 ]
 SPLITK_ROWS = (1000, 4)          # prefill rows; decode rows at 4 slots
+SPLITK_BMM = [   # (model, GEMM, batch, M, K, N): the weight a transposed
+    # [E, N, K]; moonshot's expert products' backward at its microbatch
+    ("moonshot-v1-16b-a3b", "dup @ w_up^T", 64, 120, 1408, 2048),
+    ("moonshot-v1-16b-a3b", "dy @ w_down^T", 64, 120, 2048, 1408),
+]
 
 
 def bf16_ulps(got, want) -> float:
@@ -566,28 +605,35 @@ def check_splitk(gen):
     flags = torch.backends.cuda.matmul
     default = flags.allow_bf16_reduced_precision_reduction
     worst = {True: 0.0, False: 0.0}
+    cases = []
+    for model, name, K, N, tied in SPLITK_SHAPES:
+        w = randn(gen, *((N, K) if tied else (K, N)),
+                  dtype=torch.bfloat16, scale=1 / math.sqrt(K))
+        w = w.T if tied else w
+        cases += [(f"{model} {name} M={M} K={K} N={N}",
+                   randn(gen, M, K, dtype=torch.bfloat16), w)
+                  for M in SPLITK_ROWS]
+    for model, name, E, M, K, N in SPLITK_BMM:
+        w = randn(gen, E, N, K, dtype=torch.bfloat16,
+                  scale=1 / math.sqrt(K)).transpose(1, 2)
+        cases.append((f"{model} {name} E={E} M={M} K={K} N={N} (bmm)",
+                      randn(gen, E, M, K, dtype=torch.bfloat16), w))
     try:
-        for model, name, K, N, tied in SPLITK_SHAPES:
-            w = randn(gen, *((N, K) if tied else (K, N)),
-                      dtype=torch.bfloat16, scale=1 / math.sqrt(K))
-            w = w.T if tied else w
-            for M in SPLITK_ROWS:
-                x = randn(gen, M, K, dtype=torch.bfloat16)
-                want = (x.float() @ w.float()).to(torch.bfloat16)
-                cells, outs = [], []
-                for setting in (True, False):
-                    flags.allow_bf16_reduced_precision_reduction = setting
-                    got = torch.matmul(x, w)
-                    ulps = bf16_ulps(got, want)
-                    worst[setting] = max(worst[setting], ulps)
-                    outs.append(got)
-                    cells.append(
-                        f"{setting}: {ulps:.2f} ulp, "
-                        f"{float((got != want).float().mean()):.3%} differ, "
-                        f"{device_ms(lambda: torch.matmul(x, w), 10):.4f} ms")
-                log(f"splitk {model} {name} M={M} K={K} N={N}: "
-                    + "; ".join(cells) + "; same bits at both settings: "
-                    + str(torch.equal(*outs)))
+        for label, x, w in cases:
+            want = (x.float() @ w.float()).to(torch.bfloat16)
+            cells, outs = [], []
+            for setting in (True, False):
+                flags.allow_bf16_reduced_precision_reduction = setting
+                got = torch.matmul(x, w)
+                ulps = bf16_ulps(got, want)
+                worst[setting] = max(worst[setting], ulps)
+                outs.append(got)
+                cells.append(
+                    f"{setting}: {ulps:.2f} ulp, "
+                    f"{float((got != want).float().mean()):.3%} differ, "
+                    f"{device_ms(lambda: torch.matmul(x, w), 10):.4f} ms")
+            log(f"splitk {label}: " + "; ".join(cells)
+                + "; same bits at both settings: " + str(torch.equal(*outs)))
     finally:
         flags.allow_bf16_reduced_precision_reduction = default
     log(f"splitk: default allow_bf16_reduced_precision_reduction={default}; "
@@ -2120,6 +2166,55 @@ def time_slstm_bwd(wx, r, b, dhs, trace, err):
     return row
 
 
+def hold_flash_bwd_bf16(gen, B, T, H, KV, hd, window=0):
+    """One causal T = S case of the bf16 backward kernels held per row
+    against the plain version (``flash_bwd_rows_ok``; the rounded plain
+    version's rows logged), then called twice for the same bits. Returns
+    (q, k, v, do, o, lse, err) for timing."""
+    kw = dict(causal=True, window=window, q_offset=0)
+    q, k, v, do, o, lse = flash_bwd_bf16_inputs(gen, B, T, T, H, KV, hd, kw)
+    name = (f"B={B} T=S={T} H={H} KV={KV} hd={hd} bf16 causal "
+            f"window={window}")
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_ref(q.float(), k.float(), v.float(), o.float(),
+                                   lse, do.float(), **kw)
+    worst, err = flash_bwd_rows_ok(
+        "flash_attention_bwd_bf16", name, got, want,
+        flash_bwd_operand_bounds(q, k, v, o, lse, do, **kw))
+    require(worst <= 1.0, f"flash_attention_bwd bf16 off its plain version: "
+            f"{name}")
+    log_rounded_rows(got, flash_attention_bwd_ref(
+        q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+        bf16_operands=True, **kw), name)
+    again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    same = [torch.equal(a, b) for a, b in zip(got, again)]
+    log(f"flash_attention_bwd {name}: two calls bit-identical in dq, dk, "
+        f"dv: {same}")
+    require(all(same), f"flash_attention_bwd is not deterministic: {name}")
+    return q, k, v, do, o, lse, err
+
+
+def hold_rmsnorm_bwd_bf16(gen, rows, d):
+    """The bf16 rmsnorm backward at rows x d per row against its plain
+    version (``bf16_rows_ok``), twice the same bits, then timed. Returns
+    the timed row."""
+    x = randn(gen, rows, d, dtype=torch.bfloat16)
+    g = (1 + 0.1 * randn(gen, d)).to(torch.bfloat16)
+    dy = randn(gen, rows, d, dtype=torch.bfloat16)
+    name = f"rows={rows} d={d} bfloat16"
+    got, again = rmsnorm_bwd(x, g, dy), rmsnorm_bwd(x, g, dy)
+    torch.cuda.synchronize()
+    worst, err = bf16_rows_ok("rmsnorm_bwd_bf16", name, got,
+                              rmsnorm_bwd_ref(x.float(), g.float(),
+                                              dy.float()))
+    require(worst <= 1.0 and all(torch.equal(a, c) for a, c in
+                                 zip(got, again)),
+            f"rmsnorm_bwd bf16 off its plain version or not the same bits "
+            f"twice: {name}")
+    return time_rmsnorm_bwd(name, x, g, dy, err)
+
+
 def check_recurrent_bwd_kernels(gen):
     """Phase 4's rows for phase 5i's paths: the two scan backwards, the
     bf16 flash backward at hd 80 (zamba2's shared block) and the bf16
@@ -2127,45 +2222,12 @@ def check_recurrent_bwd_kernels(gen):
     ssd_rows = check_ssd_bwd(gen)
     slstm_rows = check_slstm_bwd(gen)
     B, T, H, KV, hd = FLASH_BWD_ZAMBA
-    for shape, window in FLASH_BWD_80_CASES + [((B, T, T, H, KV, hd), 0)]:
-        kw = dict(causal=True, window=window, q_offset=0)
-        q, k, v, do, o, lse = flash_bwd_bf16_inputs(gen, *shape, kw)
-        name = (f"B={shape[0]} T=S={shape[1]} H={shape[3]} KV={shape[4]} "
-                f"hd={hd} bf16 causal window={window}")
-        got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
-        torch.cuda.synchronize()
-        want = flash_attention_bwd_ref(q.float(), k.float(), v.float(),
-                                       o.float(), lse, do.float(), **kw)
-        worst, err = flash_bwd_rows_ok(
-            "flash_attention_bwd_bf16", name, got, want,
-            flash_bwd_operand_bounds(q, k, v, o, lse, do, **kw))
-        require(worst <= 1.0, f"flash_attention_bwd bf16 off its plain "
-                f"version: {name}")
-        log_rounded_rows(got, flash_attention_bwd_ref(
-            q.float(), k.float(), v.float(), o.float(), lse, do.float(),
-            bf16_operands=True, **kw), name)
-        again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
-        same = [torch.equal(a, b) for a, b in zip(got, again)]
-        log(f"flash_attention_bwd {name}: two calls bit-identical in dq, dk, "
-            f"dv: {same}")
-        require(all(same), f"flash_attention_bwd is not deterministic: {name}")
-    flash_row = time_flash_bwd_bf16(q, k, v, do, o, lse, err)
-    rms_rows = {}
-    for rows, d in RMS_BWD_RECURRENT:
-        x = randn(gen, rows, d, dtype=torch.bfloat16)
-        g = (1 + 0.1 * randn(gen, d)).to(torch.bfloat16)
-        dy = randn(gen, rows, d, dtype=torch.bfloat16)
-        name = f"rows={rows} d={d} bfloat16"
-        got, again = rmsnorm_bwd(x, g, dy), rmsnorm_bwd(x, g, dy)
-        torch.cuda.synchronize()
-        worst, err = bf16_rows_ok("rmsnorm_bwd_bf16", name, got,
-                                  rmsnorm_bwd_ref(x.float(), g.float(),
-                                                  dy.float()))
-        require(worst <= 1.0 and all(torch.equal(a, c) for a, c in
-                                     zip(got, again)),
-                f"rmsnorm_bwd bf16 off its plain version or not the same "
-                f"bits twice: {name}")
-        rms_rows[d] = time_rmsnorm_bwd(name, x, g, dy, err)
+    for (b, t, _, h, kv, _), window in (FLASH_BWD_80_CASES
+                                       + [((B, T, T, H, KV, hd), 0)]):
+        held = hold_flash_bwd_bf16(gen, b, t, h, kv, hd, window)
+    flash_row = time_flash_bwd_bf16(*held)
+    rms_rows = {d: hold_rmsnorm_bwd_bf16(gen, rows, d)
+                for rows, d in RMS_BWD_RECURRENT}
     return ssd_rows, slstm_rows, flash_row, rms_rows
 
 
@@ -3148,14 +3210,21 @@ def check_train_step_vs_plain(label, cfg, base, batch):
     require(gn_err <= GNORM_RTOL, "grad norm disagrees with the plain run")
 
 
-def profile_train_step(step_once, expect):
+FP32_GEMM = ("sgemm", "f32f32_f32f32", "nvjet_sss", "gemm_f32")  # names
+# of fp32-operand GEMMs (TF32 is off); the bf16 ones with an fp32 output
+# stay in "matmul"
+TRAIN_MOE_KERNELS = MOE_KERNELS + ("gather", "index", "catarray")
+
+
+def profile_train_step(step_once, expect, moe=False):
     """Trace one training step (``step_once()`` runs one and returns its
     loss): device busy share and device ms by group, the card's activity
     only, as ``profile_serving`` traces it. The tracer runs through
     a warm-up step first and records only the second step, so no kernel
     launched while it starts is missed; the log says whether the recorded
     step holds the kernel launches ``expect`` counts ({name prefix: count},
-    a flash forward and the backward's dq kernel)."""
+    a flash forward and the backward's dq kernel). ``moe`` keeps the
+    dispatch's gathers, sorts and top-k in a group of their own."""
     from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA],
@@ -3177,18 +3246,22 @@ def profile_train_step(step_once, expect):
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     groups = dict.fromkeys(("flash fwd", "flash bwd", "rmsnorm fwd",
                             "rmsnorm bwd", "scan fwd", "scan bwd", "matmul",
-                            "other"), 0.0)
+                            "matmul fp32", "other")
+                           + (("moe dispatch",) if moe else ()), 0.0)
     for e in kernels:
         name = e.key.lower()
+        gemm = any(w in name for w in ("gemm", "cutlass", "xmma", "sm90_",
+                                       "nvjet"))
         group = ("scan bwd" if "ssd_bwd" in name or "slstm_bwd" in name else
                  "scan fwd" if "ssd_scan" in name or "slstm_scan" in name else
                  "flash fwd" if "flash_fwd" in name else
                  "flash bwd" if "flash_bwd" in name else
                  "rmsnorm bwd" if "rmsnorm_bwd" in name else
                  "rmsnorm fwd" if "rmsnorm_kernel" in name else
-                 "matmul" if any(w in name for w in ("gemm", "cutlass",
-                                                      "xmma", "sm90_",
-                                                      "nvjet"))
+                 "matmul fp32" if gemm and any(w in name for w in FP32_GEMM)
+                 else "matmul" if gemm
+                 else "moe dispatch" if moe and any(
+                     w in name for w in TRAIN_MOE_KERNELS)
                  else "other")
         groups[group] += e.self_device_time_total / 1e3
     require(kernels, "the traced step shows no device time")
@@ -3525,13 +3598,16 @@ RESUME_RTOL = 1e-5                          # tests/test_trainer.py's
 
 
 def trainer_launches(cfg) -> dict:
-    """One Trainer step's launches: per microbatch, every block's flash and
-    norm forwards twice under remat full (the forward and the recompute in
-    the backward), final_norm's once, and each backward once."""
+    """One Trainer step's launches on an ATTN or MOE stack: per
+    microbatch, every block's flash and norm forwards twice under remat
+    full (the forward and the recompute in the backward), final_norm's
+    once, and each backward once; a block's norms are ln1 and ln2, and
+    q_norm and k_norm with qk-norm."""
     L, k = cfg.n_layers, cfg.microbatches
     fwd = 2 if cfg.remat == "full" else 1
+    n = 2 + 2 * cfg.qk_norm
     return {"flash_attention": k * fwd * L, "flash_attention_bwd": k * L,
-            "rmsnorm": k * (fwd * 4 * L + 1), "rmsnorm_bwd": k * (4 * L + 1)}
+            "rmsnorm": k * (fwd * n * L + 1), "rmsnorm_bwd": k * (n * L + 1)}
 
 
 def token_nll(params, cfg, tokens):
@@ -3543,7 +3619,8 @@ def token_nll(params, cfg, tokens):
         return torch.logsumexp(logits, dim=-1) - tgt
 
 
-def check_trainer_step0(cfg, params, batch, against_design=False):
+def check_trainer_step0(cfg, params, batch, against_design=False,
+                        routing=None):
     """Step 0's loss and gradients through the kernels against the same
     through the plain versions on the card, in bf16, held to the bf16 noise
     floor of the plain bf16 path against the plain fp32 one (fp32 params):
@@ -3556,21 +3633,31 @@ def check_trainer_step0(cfg, params, batch, against_design=False):
     (``DesignAttention``): a leaf fed by many heads' dq, dk and dv, such
     as A_log, is moved by D from the bf16 output as well as by the plain
     path's own bf16 rounding, and the path that rounds as the kernels do
-    should be the nearer one. Returns the step's launches."""
+    should be the nearer one. With ``routing`` (a ``PinnedRouting``) the
+    kernel path's top-k choices are every path's. Returns the step's
+    launches."""
     k = cfg.microbatches
+    run = (routing.run if routing else
+           lambda *a, **kw: contextlib.nullcontext())
     LAUNCHES.clear()
-    loss_k, grads_k = microbatch_grads(params, cfg, batch, k)
+    with run("grads", record=True):
+        loss_k, grads_k = microbatch_grads(params, cfg, batch, k)
     torch.cuda.synchronize()
     grad_launches = dict(LAUNCHES)
     tokens = batch["tokens"]
-    nll_k = token_nll(params, cfg, tokens)
+    with run("nll", record=True):
+        nll_k = token_nll(params, cfg, tokens)
     mid = dict(LAUNCHES)
     params32 = tree_map(lambda t: t.float(), params)
     with plain_versions():
-        loss_p, grads_p = microbatch_grads(params, cfg, batch, k)
-        loss_32, grads_32 = microbatch_grads(params32, cfg, batch, k)
-        nll_p = token_nll(params, cfg, tokens)
-        nll_32 = token_nll(params32, cfg, tokens)
+        with run("grads", label="plain bf16"):
+            loss_p, grads_p = microbatch_grads(params, cfg, batch, k)
+        with run("grads", label="plain fp32"):
+            loss_32, grads_32 = microbatch_grads(params32, cfg, batch, k)
+        with run("nll", label="plain bf16"):
+            nll_p = token_nll(params, cfg, tokens)
+        with run("nll", label="plain fp32"):
+            nll_32 = token_nll(params32, cfg, tokens)
         grads_d = grads_32
         if against_design:
             ops.attention = design_attention
@@ -3812,17 +3899,22 @@ def check_step_repeats(cfg, params, batch):
     a fixed order, zamba2's shared block's nine gradients too)."""
     step = make_train_step(cfg, peak_lr=TRAINER_LR, warmup=TRAINER_WARMUP,
                            total_steps=100, device="cuda")
-    opt = adamw_init(params, cfg.opt_state_dtype)
     runs = []
+    # each run from a clone of the params and fresh moments, its results
+    # kept on the host: one run's state at a time on the card
     for _ in range(2):
-        p, o, m = step(clone_tree(params), clone_tree(opt), batch, 1)
-        runs.append((tree_leaves(p) + tree_leaves(o),
-                     [m["loss"], m["grad_norm"]]))
-    same = all(torch.equal(a, b) for a, b in zip(*(r[0] + r[1] for r in runs)))
+        p, o, m = step(clone_tree(params),
+                       adamw_init(params, cfg.opt_state_dtype), batch, 1)
+        runs.append([t.cpu() for t in tree_leaves(p) + tree_leaves(o)
+                     + [m["loss"], m["grad_norm"]]])
+        del p, o, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
     log(f"trainer {cfg.name} at {cfg.n_layers} layers: one step twice from "
         f"the same state: {'the same bits' if same else 'DIFFERENT bits'} "
-        f"(loss {float(runs[0][1][0]):.6f}, grad norm "
-        f"{float(runs[0][1][1]):.6f})")
+        f"(loss {float(runs[0][-2]):.6f}, grad norm "
+        f"{float(runs[0][-1]):.6f})")
     require(same, f"{cfg.name}: a repeated step changed bits")
 
 
@@ -3960,6 +4052,270 @@ def train_recurrent_archs(card: str) -> dict:
         sweep_cli_arch(arch)
     log(f"phase 5i: {time.perf_counter() - t0:.1f} s ({card})")
     return out
+
+
+# --------------------------------------------------------------------------
+# phase 5j: the Trainer on an MoE arch (moonshot-v1-16b-a3b), in bf16
+# --------------------------------------------------------------------------
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_CUT, MOE_DEPTH = 2, 4                   # the step-0 cut; layers trained
+MOE_STEPS, MOE_CLI_STEPS = 8, 10
+MOE_FLASH = (2, 512, 16, 16, 128)           # B, T=S, H, KV, hd a microbatch
+MOE_RMS = (1024, 2048)                      # rows, d: ln1 / ln2 / final_norm
+
+
+def check_moe_train_kernels(gen):
+    """Phase 4's rows for phase 5j's path: the bf16 flash forward and
+    backward at moonshot's microbatch (B=2 T=S=512 H=KV=16 hd=128 causal,
+    the backward's first MHA regime at hd 128), per row against the plain
+    version and each called twice for the same bits; the bf16 rmsnorm
+    forward and backward at 1024 x 2048. Each timed beside its library
+    call and bound. Returns (flash fwd, flash bwd, rmsnorm, rmsnorm bwd)
+    rows."""
+    B, T, H, KV, hd = MOE_FLASH
+    q, k, v, got, err, name = hold_flash(gen, B, T, T, H, KV, hd,
+                                         torch.bfloat16, True)
+    check_flash_rows(q, k, v, got, name)
+    require(torch.equal(got, flash_attention(q, k, v, causal=True)),
+            f"two flash_attention calls differ: {name}")
+    fwd_row = time_flash(q, k, v, err)
+    bwd_row = time_flash_bwd_bf16(*hold_flash_bwd_bf16(gen, B, T, H, KV, hd))
+    rows, d = MOE_RMS
+    x = randn(gen, rows, d, dtype=torch.bfloat16)
+    g = (1 + 0.1 * randn(gen, d)).to(torch.bfloat16)
+    name = f"rows={rows} d={d} bfloat16"
+    err = hold_rmsnorm(name, x, g)
+    require(torch.equal(rmsnorm(x, g, eps=1e-6), rmsnorm(x, g, eps=1e-6)),
+            f"two rmsnorm calls differ: {name}")
+    rms_row = time_rmsnorm(name, x, g, err)
+    return fwd_row, bwd_row, rms_row, hold_rmsnorm_bwd_bf16(gen, rows, d)
+
+
+class _PinnedTopk:
+    """``torch`` as ``models/mlp.py`` sees it during one pinned
+    ``moe_forward`` call: ``topk`` returns the pinned experts (and their
+    probabilities); everything else is torch's."""
+
+    def __init__(self, top_e):
+        self.top_e = top_e
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def topk(self, probs, k, dim=-1):
+        return torch.gather(probs, dim, self.top_e), self.top_e
+
+
+class PinnedRouting:
+    """The kernel path's top-k choices made every path's, without a change
+    to the model: a wrapper around ``model_blocks.moe_forward`` that, in a
+    recording run, keeps each call's router input and top-k experts (the
+    choices ``moe_forward`` makes, taken with its own ops), and in a
+    replaying run hands the same call of the same run its recorded
+    experts through ``torch.topk`` as ``models/mlp.py`` sees it. The calls
+    of a run come in a fixed order (per microbatch the blocks' forwards,
+    then the backward's recomputes in reverse), so a call's index names
+    it. A replay also counts the choices its own router would have made
+    otherwise (``router_flips`` against the kernel path's input), and a
+    recording the slots each call drops past the capacity."""
+
+    def __init__(self, cfg):
+        self.cfg, self.calls, self.flips, self.drops = cfg, {}, {}, {}
+
+    @contextlib.contextmanager
+    def run(self, name, record=False, label=None):
+        calls = self.calls.setdefault(name, []) if record else self.calls[name]
+        seen = iter(range(len(calls))) if not record else None
+        saved, saved_torch = model_blocks.moe_forward, model_mlp.torch
+
+        def pinned(p, cfg, x, inference=False):
+            xf = x.reshape(-1, x.shape[-1]).detach()
+            if record:
+                with torch.no_grad():
+                    logits = matmul(xf, p["router"].to(xf.dtype),
+                                    out_dtype=torch.float32)
+                top_e = torch.topk(torch.softmax(logits, dim=-1), cfg.top_k,
+                                   dim=-1)[1]
+                calls.append((x.detach(), top_e))
+                counts = torch.bincount(top_e.reshape(-1),
+                                        minlength=cfg.n_experts)
+                C = model_mlp.capacity(cfg, xf.shape[0], inference)
+                self.drops.setdefault(name, []).append(
+                    int((counts - C).clamp_min(0).sum()))
+                return saved(p, cfg, x, inference=inference)
+            x_k, top_e = calls[next(seen)]
+            require(x_k.shape == x.shape, f"pinned routing: call of shape "
+                    f"{tuple(x.shape)} replays one of {tuple(x_k.shape)}")
+            with torch.no_grad():
+                n, total, _, _ = router_flips(p["router"], cfg, x_k,
+                                              x.detach(), x.detach())
+            tally = self.flips.setdefault((name, label), [0, 0])
+            tally[0], tally[1] = tally[0] + n, tally[1] + total
+            model_mlp.torch = _PinnedTopk(top_e)
+            try:
+                return saved(p, cfg, x, inference=inference)
+            finally:
+                model_mlp.torch = saved_torch
+
+        model_blocks.moe_forward = pinned
+        try:
+            yield
+            require(record or next(seen, None) is None,
+                    f"pinned routing: {label} made fewer calls of {name}")
+        finally:
+            model_blocks.moe_forward = saved
+            model_mlp.torch = saved_torch
+
+    def log(self, cfg):
+        L, k = cfg.n_layers, cfg.microbatches
+        drops = self.drops["grads"]
+        per_mb = [drops[i * 2 * L:i * 2 * L + L] for i in range(k)]
+        C = model_mlp.capacity(cfg, len(self.calls["grads"][0][1]), False)
+        log(f"{cfg.name} step 0 routing pinned to the kernel path's choices "
+            f"(top {cfg.top_k} of {cfg.n_experts}, C = {C} slots an expert "
+            f"at {self.calls['grads'][0][1].shape[0]} tokens): slots dropped "
+            f"past capacity per microbatch and layer {per_mb} (of "
+            f"{self.calls['grads'][0][1].numel()} choices); unpinned, the "
+            f"plain paths would have chosen otherwise in "
+            + "; ".join(f"{label} {name}: {n} of {total} choices"
+                        for (name, label), (n, total) in self.flips.items()))
+
+
+def moe_member_repeats():
+    """Two steps of the reduced moonshot sweep member (``member_config``:
+    fp32, remat none) from clones of one state on the card: params,
+    moments and loss the same bits."""
+    cfg = member_config(MOE_ARCH)
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                         device="cuda")
+    opt = adamw_init(params, "float32")
+    src = SyntheticLM(cfg.vocab_size, 32, 8, seed=0)    # launch/sweep.py's
+    step = build_member_step(cfg, "cuda")
+    runs = []
+    for _ in range(2):
+        p, o, loss = step(clone_tree(params), clone_tree(opt), src.batch(0),
+                          TRAIN_LR)
+        runs.append(tree_leaves(p) + tree_leaves(o) + [loss])
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    log(f"sweep member {cfg.name} ({cfg.n_layers} layers, fp32): one step "
+        f"twice from the same state: {'the same bits' if same else 'DIFFERENT bits'} "
+        f"(loss {float(runs[0][-1]):.6f})")
+    require(same, f"{cfg.name}: a repeated member step changed bits")
+
+
+def train_moe(card: str):
+    """Phase 5j: ``Trainer`` on moonshot-v1-16b-a3b as configured (bf16
+    params, fp32 moments, 4 microbatches, remat full, capacity factor 1.25)
+    at full width on ``SyntheticLM`` 8 x 512: step 0 on a cut of
+    ``MOE_CUT`` layers against the plain paths with the routing pinned,
+    one step twice from one state on the cut, ``MOE_STEPS`` steps at
+    ``MOE_DEPTH`` layers with exact launch counts and a falling loss, one
+    traced step, the two CLIs and two member steps. Returns
+    (launches of the steps, metrics)."""
+    t_phase = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    require(cfg.param_dtype == "bfloat16" and cfg.opt_state_dtype ==
+            "float32" and cfg.microbatches == 4 and cfg.remat == "full"
+            and cfg.capacity_factor == 1.25 and (
+                cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.n_experts,
+                cfg.top_k, cfg.d_ff_expert, cfg.vocab_size) == (
+                2048, 16, 128, 64, 6, 1408, 163840),
+            f"{MOE_ARCH} is not configured as assumed")
+    src = SyntheticLM(cfg.vocab_size, TRAINER_BATCH[1], TRAINER_BATCH[0],
+                      seed=0)
+    batch = to_batch(src.batch(0), "cuda")
+    cut = dataclasses.replace(cfg, n_layers=MOE_CUT, block_pattern=())
+    params = init_params(cut, torch.Generator("cuda").manual_seed(0),
+                         device="cuda")
+    n_cut = sum(t.numel() for t in tree_leaves(params))
+    log(f"trainer: {MOE_ARCH} in bf16 ({cfg.n_layers} layers configured, "
+        f"{MOE_DEPTH} trained; microbatches {cfg.microbatches}, remat "
+        f"{cfg.remat}, moments {cfg.opt_state_dtype}, capacity factor "
+        f"{cfg.capacity_factor}); SyntheticLM {TRAINER_BATCH[0]}x"
+        f"{TRAINER_BATCH[1]}; step 0 checked on a cut of {MOE_CUT} layers "
+        f"({n_cut / 1e9:.3f} B params)")
+    routing = PinnedRouting(cut)
+    got = check_trainer_step0(cut, params, batch, routing=routing)
+    routing.log(cut)
+    want_cut = trainer_launches(cut)
+    require(got == want_cut, f"{MOE_ARCH} step 0 at {MOE_CUT} layers "
+            f"launched {got}, not {want_cut}")
+    del routing
+    check_step_repeats(cut, params, batch)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    run_cfg = dataclasses.replace(cfg, n_layers=MOE_DEPTH, block_pattern=())
+    workdir = tempfile.mkdtemp(prefix="trainer_moe_")
+    tc = TrainerConfig(ckpt_dir=workdir, ckpt_every=10**9,
+                       peak_lr=TRAINER_LR, warmup=TRAINER_WARMUP,
+                       total_steps=100, log_every=1)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(run_cfg, src.batch, tc, device="cuda", log=log)
+        n_params = sum(t.numel() for t in tree_leaves(tr.params))
+        state_gib = sum(t.numel() * t.element_size() for t in
+                        tree_leaves(tr.params) + tree_leaves(tr.opt_state)
+                        if torch.is_tensor(t)) / 2**30
+        log(f"trainer {MOE_ARCH} at {MOE_DEPTH} of {cfg.n_layers} layers: "
+            f"{n_params / 1e9:.3f} B params, params and moments "
+            f"{state_gib:.2f} GiB")
+        want = trainer_launches(run_cfg)
+        calls, step_ms = [], []
+        step_fn = tr.step_fn
+
+        def counted(*a):
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            out = step_fn(*a)
+            float(out[2]["loss"])
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            calls.append(dict(LAUNCHES))
+            return out
+
+        tr.step_fn = counted
+        out = tr.run(MOE_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = out["losses"]
+        require(out["step"] == MOE_STEPS and len(calls) == MOE_STEPS,
+                f"{MOE_ARCH}: {len(calls)} step calls for {MOE_STEPS} steps")
+        launches = Counter()
+        for i, got in enumerate(calls):
+            require(got == want, f"{MOE_ARCH} trainer step {i} launched "
+                    f"{got}, not {want}")
+            launches.update(got)
+        require(all(math.isfinite(x) for x in losses), "non-finite loss")
+        require(losses[-1] < losses[0], f"{MOE_ARCH} trainer loss did not "
+                f"fall: {losses[0]:.4f} -> {losses[-1]:.4f}")
+        tr.step_fn = step_fn
+
+        def step_once():
+            tr.params, tr.opt_state, m = tr.step_fn(
+                tr.params, tr.opt_state, batch, MOE_STEPS)
+            return m["loss"]
+        profile = profile_train_step(step_once, {
+            "flash_fwd_sm90_kernel<": want["flash_attention"],
+            "flash_bwd_dq_sm90_kernel<": want["flash_attention_bwd"]},
+            moe=True)
+        del tr
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    metrics = {"params_b": n_params / 1e9, "state_gib": state_gib,
+               "loss_first": losses[0], "loss_last": losses[-1],
+               "losses": losses, "step0_ms": step_ms[0],
+               "step_ms_median": float(np.median(step_ms[1:])),
+               "step_ms": step_ms, "peak_mem_gib": peak,
+               "launches_per_step": want, **profile}
+    log(f"trainer metrics {MOE_ARCH} bf16 full width, {MOE_DEPTH} layers: "
+        + json.dumps(metrics))
+    trainer_cli(MOE_ARCH, MOE_CLI_STEPS)
+    sweep_cli_arch(MOE_ARCH)
+    moe_member_repeats()
+    log(f"phase 5j: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return dict(launches), metrics
 
 
 # --------------------------------------------------------------------------
@@ -4228,13 +4584,20 @@ def main():
         check_recurrent_bwd_kernels(torch.Generator("cuda").manual_seed(33))
     torch.cuda.empty_cache()
     recurrent = train_recurrent_archs(card)                  # phase 5i
+    torch.cuda.empty_cache()
+    flash_5j_row, flash_bwd_5j_row, rms_5j_row, rms_bwd_5j_row = \
+        check_moe_train_kernels(torch.Generator("cuda").manual_seed(34))
+    torch.cuda.empty_cache()
+    moe_train, _ = train_moe(card)                           # phase 5j
 
     launch_layer(card)                                       # phase 5e
 
     serving = {"qwen3-0.6b serve": qwen, "xlstm-1.3b serve": xlstm,
                "zamba2-2.7b serve": zamba, **archs, **modal, **nemotron}
     bf16_training = {"qwen3-0.6b Trainer (bf16, full width)": trainer,
-                     **recurrent}
+                     **recurrent,
+                     f"{MOE_ARCH} Trainer (bf16, {MOE_DEPTH} layers)":
+                         moe_train}
     xlstm_train = {k: v for k, v in recurrent.items() if "xlstm" in k}
     zamba_train = {k: v for k, v in recurrent.items() if "zamba2" in k}
     training = {"qwen3-0.6b train (fp32, full width)": train,
@@ -4256,7 +4619,7 @@ def main():
          **launches("flash_attention", {
              k: v for k, v in {**serving, **bf16_training}.items()
              if k not in nemotron}),
-         **flash_rows[REPORT_T], "regimes": flash_5g_rows},
+         **flash_rows[REPORT_T], "regimes": flash_5g_rows + [flash_5j_row]},
         {"name": "flash_attention_hd192", "route": "cuda",
          "source": csrc + "flash_attention_sm90.cu", "replaces": flash_tpu,
          "kernel": "flash_fwd_sm90_hd192_kernel<192> (64-row blocks, three "
@@ -4273,7 +4636,7 @@ def main():
          "source": csrc + "flash_attention_bwd_sm90.cu", "replaces": flash_tpu,
          **launches("flash_attention_bwd", {
              k: v for k, v in bf16_training.items() if k not in zamba_train}),
-         **flash_bwd_bf16_row},
+         **flash_bwd_bf16_row, "regimes": [flash_bwd_5j_row]},
         {"name": "flash_attention_bwd_bf16_hd80", "route": "cuda",
          "source": csrc + "flash_attention_bwd_sm90.cu", "replaces": flash_tpu,
          "kernel": "flash_bwd_dkdv_sm90_kernel_one_wg<80>, "
@@ -4283,7 +4646,7 @@ def main():
          "replaces": rms_tpu,
          **launches("rmsnorm", {**serving, **training, **bf16_training}),
          **rms_rows[REPORT_RMS],
-         "regimes": rms_5g_rows + [rms_5h_row]},
+         "regimes": rms_5g_rows + [rms_5h_row, rms_5j_row]},
         {"name": "rmsnorm_bwd", "route": "cuda",
          "source": csrc + "rmsnorm_bwd.cu", "replaces": rms_tpu,
          **launches("rmsnorm_bwd", training),
@@ -4292,7 +4655,7 @@ def main():
          "source": csrc + "rmsnorm_bwd_sm90.cu", "replaces": rms_tpu,
          **launches("rmsnorm_bwd", bf16_training),
          **rms_bwd_bf16_rows[RMS_BWD_BF16_REPORT],
-         "regimes": list(rms_5i_rows.values())},
+         "regimes": list(rms_5i_rows.values()) + [rms_bwd_5j_row]},
         {"name": "ssd_scan", "route": "cuda", "source": csrc + "ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:82",
          **launches("ssd_scan", {"xlstm-1.3b serve": xlstm, **xlstm_train}),
