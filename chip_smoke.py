@@ -80,10 +80,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    rounding: flash_attention_bwd (the tensor-core kernels) at B=4 T=512
    H=16 KV=8 hd=128 (the trainer's microbatch), T=137 with a window, hd
    32 (the reduced config's), hd 64, a q_offset and a non-causal window
-   with S > T, with the bf16 forward's lse against the plain lse in each
-   case and the error against the plain version with the kernels' own
+   with S > T, fed o, lse and o rounding residual o_lo as training feeds
+   them (D reads o + o_lo), with the bf16 forward's lse against the plain
+   lse and its o_lo within half a bf16 unit of o in each case and the
+   error against the plain version with the kernels' own
    rounding (P and dS in bf16) logged, two calls the same bits and a run
-   without the first key tile failing the check; rmsnorm_bwd (dx and dg,
+   without the first key tile failing the check; at each regime, on
+   inputs whose P is exactly 1 (``check_flash_residual``), o + o_lo
+   within 2^-16 of the exact output and the backward fed the forward's
+   own o, lse and o_lo held to the exact gradient, a zeroed o_lo failing
+   both; rmsnorm_bwd (dx and dg,
    the kernels of ``rmsnorm_bwd_sm90.cu``) at every training norm shape,
    at qwen3-14b's d = 5120 and on a view 2 bytes off alignment, two calls
    the same bits at each, its layout (``bwd_plan``) logged; the bf16
@@ -253,9 +259,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    1e-5, bit-equality logged); step ms, peak memory, the async save's,
    write's and restore's seconds and one traced step's device ms by group
    logged, its "rmsnorm bwd" group beside phase 4's sum over a step.
-   Then ``python -m repro_torch.launch.train --arch qwen3-0.6b --steps
-   20`` in a subprocess (the reduced config, hd 32): exit 0 and ``done at
-   step 20``.
+   ``python -m repro_torch.launch.train --arch qwen3-0.6b --steps 20``
+   (the reduced config, hd 32: exit 0 and ``done at step 20``) runs with
+   phase 5j's CLIs.
 5i. The Trainer on the recurrent archs at full width in bf16, one model on
    the card at a time, as configured (2 microbatches, remat full; xlstm
    bf16 moments, zamba2 fp32), on ``SyntheticLM`` 8 x 512, peak lr 1e-3:
@@ -266,17 +272,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      also to the plain path with the flash backward's rounding by
      design, within the same 2x), with the cut's exact launch counts; the same step twice from one state on the
      cut: the same bits;
-   - 8 steps at full depth (xlstm 42 mLSTM + 6 sLSTM, 3.0 B params;
+   - 4 steps at full depth (xlstm 42 mLSTM + 6 sLSTM, 3.0 B params;
      zamba2 54 Mamba-2 layers + the shared block 9 times, 2.4 B), exactly
      ``recurrent_launches`` a step: per microbatch every scan and stage
      norm forward twice (remat), each backward once (ssd_scan_bwd,
      slstm_scan_bwd; zamba2's flash_attention_bwd at hd 80), a falling
      loss; one traced step (busy share, device ms by group, "scan fwd" and
      "scan bwd" among them);
-   - ``python -m repro_torch.launch.train --arch <arch> --steps 10`` and
-     ``python -m repro_torch.launch.sweep --arch <arch> --members 4
-     --steps 2`` in subprocesses for both: ``done at step 10``, ``launched
-     4/4 members``.
+   - their CLIs run with phase 5j's.
    Before it, phase 4's checks of these paths' new kernels run (after the
    serving phases, so their streams' cuBLAS workspaces do not take from
    the memory beside the fp32 depth cuts), at the Trainer's microbatch (B.T = 4 x 512): ``ssd_scan_bwd`` (csrc/ssd_scan_bwd.cu) at
@@ -301,8 +304,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    configured (4 microbatches, remat full, fp32 moments, capacity factor
    1.25: 120 slots an expert at 2 x 512 tokens), on ``SyntheticLM`` 8 x
    512:
-   - step 0's loss and gradients on a cut of 2 layers (1.8 B params)
-     against the plain paths within twice the plain bf16 floor, as 5i
+   - through ``train_arch``, as phase 5k's archs: step 0's loss and
+     gradients on a cut of 2 layers (1.8 B params) against the plain
+     paths within twice the plain bf16 floor, as 5i
      holds its cuts, with the kernel path's top-k choices pinned into
      every path (``PinnedRouting``: a random router turns the paths'
      roundings into other experts at near-ties); the choices the
@@ -315,16 +319,40 @@ Phases, in order; any failure raises and the script exits non-zero:
      rmsnorm_bwd a step, a falling finite loss, step ms and peak GiB, one
      traced step ("moe dispatch" and "matmul fp32", the gate product's
      backward, apart);
-   - ``python -m repro_torch.launch.train --arch moonshot-v1-16b-a3b
-     --steps 10`` and ``python -m repro_torch.launch.sweep --arch
-     moonshot-v1-16b-a3b --members 4 --steps 2`` in subprocesses, then two
-     reduced moonshot member steps from one state in process: the same
-     bits.
+   - two reduced moonshot member steps from one state in process: the
+     same bits;
+   - the training CLIs of phases 5d, 5i and 5j, seven processes at once
+     (``arch_clis``): ``python -m repro_torch.launch.train --arch <arch>``
+     for qwen3-0.6b (20 steps), xlstm-1.3b, zamba2-2.7b and moonshot (10
+     steps): ``done at step N``; ``python -m repro_torch.launch.sweep
+     --arch <arch> --members 4 --steps 2`` for the last three:
+     ``launched 4/4 members``.
    Before it, phase 4 holds this path's regimes: the bf16 flash forward
    and backward at B=2 T=S=512 H=KV=16 hd=128 causal (the backward's
    first MHA regime at hd 128; per row, twice for the same bits) and the
    bf16 rmsnorm forward and backward at 1024 x 2048, each timed beside
    SDPA or ``F.rms_norm`` and the bound.
+5k. The Trainer on whisper-small (12 encoder + 12 decoder layers, 0.28 B
+   params, 1 microbatch of 8 x 512 with frames [8, 512, 768] drawn per
+   step), qwen2-vl-7b (4 of 28 layers, 2.02 B params, 4 microbatches of 2
+   x 512, an 8 x 8 grid of patches at 8-71 with M-RoPE ids) and
+   mixtral-8x22b (1 of 56 layers, 2.91 B params, 8 microbatches of 1 x
+   4096 through the 4096-key window, step 0 with the routing pinned) in
+   bf16 at full width, each as configured, through ``train_arch``: step 0
+   on the trained depth against the plain paths within twice the plain
+   bf16 floor, the same step twice for the same bits, 8 steps with
+   exactly ``trainer_launches`` a step (whisper: one flash an encoder
+   layer, self and cross a decoder layer; ln1 / ln2, ln1 / ln_x / ln2,
+   enc_norm and final_norm) and a falling loss, one traced step, the
+   peaks of the step-0 checks and of the steps. Before it, phase 4 holds
+   the flash forward (with its lse and rounding residual) and backward
+   at B=8 T=S=512 H=KV=12 hd 64 non-causal and causal, B=2 T=S=512 H=28
+   KV=4 (GQA 7) and H=48 KV=8 under the 4096-key window at B=1 T=S=4096
+   (forward and backward the bits of plain causal: key 0 is in every
+   row's window) and T=S=5000 (the window binds), each per row, twice the
+   same bits, a run without the first key tile failing, timed beside
+   SDPA; and the bf16 rmsnorm forward and backward at 4096 x 768, 1024 x
+   3584 and 4096 x 6144, timed.
 5e. The paper's launch layer on the card's host, with no JAX (no kernel
    runs here: the counts, set to 0 just before, must still be 0 after):
    - the discrete-event reproduction of TX-Green through the port's
@@ -361,9 +389,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    as two rows, the ordered walk with xlstm's launches and the
    chunk-parallel path with zamba2's, serving and phase 5i's; ssd_scan_bwd
    as two rows, xlstm's shape and zamba2's; slstm_scan_bwd with its fp32-r
-   row under ``"regimes"``; phase 5j's four rows under the ``"regimes"``
-   of flash_attention, flash_attention_bwd_bf16, rmsnorm and
-   rmsnorm_bwd_bf16, with moonshot's Trainer launches), the card line,
+   row under ``"regimes"``; phase 5j's and 5k's rows under the
+   ``"regimes"`` of flash_attention, flash_attention_bwd_bf16, rmsnorm and
+   rmsnorm_bwd_bf16, with their Trainers' launches under ``"<arch>
+   train"``), the card line,
    and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -385,6 +414,7 @@ import tempfile
 import time
 from collections import Counter
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -394,7 +424,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import SHAPES  # noqa: E402
+from repro_torch.configs.base import SHAPES, ShapeConfig  # noqa: E402
 from repro_torch.core import SweepSupervisor  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels import (LAUNCHES, build, flash_attention,  # noqa: E402
@@ -422,8 +452,9 @@ from repro_torch.exec import (FAULT, KILL_LAUNCHER, LOST,  # noqa: E402
                               FaultPlan, get_backend, validate_trace)
 from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
 from repro_torch.models.blocks import block_forward  # noqa: E402
-from repro_torch.models.model import (embed_tokens, forward_hidden,  # noqa: E402
-                                      lm_logits, n_shared_applications)
+from repro_torch.models.model import (embed_tokens, encode,  # noqa: E402
+                                      forward_hidden, lm_logits,
+                                      n_shared_applications)
 from repro_torch.launch.sweep import (build_member_step,  # noqa: E402
                                       loss_and_grads, member_config,
                                       run_sweep, to_batch)
@@ -435,8 +466,9 @@ from repro_torch.optim import adamw_init, adamw_update  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.taskarray import RetryPolicy, TaskGraph  # noqa: E402
 from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
-from repro_torch.train.step import (make_train_step,  # noqa: E402
-                                    microbatch_grads)
+from repro_torch.train.step import (_microbatch_stack,  # noqa: E402
+                                    make_train_step,
+                                    microbatch_grads, shaped_batch)
 
 # Published dense peaks of one H100 SXM at its 700 W limit.
 PEAK_BF16 = 989e12          # tensor cores, bf16 FLOP/s
@@ -478,21 +510,56 @@ def card_line() -> str:
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def run_module(args, tag: str, timeout: float):
-    """``python -m <args>`` from the checkout's root in a fresh process
-    that finds the port (and phase 2's library) through ``PYTHONPATH``;
-    its output logged line by line. Returns the process and its wall s."""
+def run_modules(runs, timeout: float):
+    """``python -m <args>`` for each (args, tag) of ``runs``, all started at
+    once from the checkout's root, each a fresh process that finds the port
+    (and phase 2's library) through ``PYTHONPATH``, its output to a file of
+    its own; each one's output logged line by line under its tag. Past
+    ``timeout`` s every process still running is killed and the call
+    raises. Returns [(completed process, its wall s)] in ``runs``' order."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
                                else []))
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=timeout)
-    wall = time.perf_counter() - t0
-    for line in (proc.stdout + proc.stderr).splitlines():
-        log(f"  {tag}| {line}")
-    return proc, wall
+    with contextlib.ExitStack() as stack:
+        files = [(stack.enter_context(tempfile.TemporaryFile("w+")),
+                  stack.enter_context(tempfile.TemporaryFile("w+")))
+                 for _ in runs]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT,
+                                  env=env, stdout=out, stderr=err, text=True)
+                 for (args, _), (out, err) in zip(runs, files)]
+        walls = [None] * len(procs)
+        try:
+            while None in walls:
+                for i, proc in enumerate(procs):
+                    if walls[i] is None and proc.poll() is not None:
+                        walls[i] = time.perf_counter() - t0
+                if time.perf_counter() - t0 > timeout:
+                    raise subprocess.TimeoutExpired(
+                        [r[0] for r in runs], timeout)
+                time.sleep(0.05)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+        done = []
+        for proc, (_, tag), (out, err), wall in zip(procs, runs, files,
+                                                    walls):
+            out.seek(0)
+            err.seek(0)
+            stdout, stderr = out.read(), err.read()
+            for line in (stdout + stderr).splitlines():
+                log(f"  {tag}| {line}")
+            done.append((subprocess.CompletedProcess(
+                proc.args, proc.returncode, stdout, stderr), wall))
+    return done
+
+
+def run_module(args, tag: str, timeout: float):
+    """``run_modules`` of one run: (the process, its wall s)."""
+    return run_modules([(args, tag)], timeout)[0]
 
 
 def host_ms(fn, iters: int) -> float:
@@ -791,10 +858,7 @@ def time_flash(q, k, v, err, window: int = 0, causal: bool = True):
     pairs."""
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
-    W = window or T
-    pairs = (sum(min(t + 1, W) for t in range(T)) if causal
-             else T * S)                             # visible (t, s) pairs
-    flops = 4 * B * H * hd * pairs
+    flops = 4 * B * H * hd * visible_pairs(T, S, causal, window)
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
     bound = {"operations": flops / PEAK_BF16 * 1e3,
              "bytes": nbytes / HBM * 1e3}
@@ -1096,11 +1160,23 @@ def check_flash_bwd(gen):
 
 
 def check_flash_lse(q, k, v, kw, name):
-    """The fp32 forward's lse against the plain version's: rows with a
-    visible key within ``LSE_TOL``, the rows without one +inf in both.
-    Returns the number of +inf rows."""
-    _, got = flash_forward(q, k, v, kw["causal"], kw["window"],
-                           kw["q_offset"], with_lse=True)
+    """The forward's lse against the plain version's: rows with a visible
+    key within ``LSE_TOL``, the rows without one +inf in both. In bf16 at a
+    head dim the backward takes, the forward also writes its output's
+    rounding residual o_lo, which must be finite and within half a bf16
+    unit of each output element (2^-8 of it, the residual's own rounding
+    allowed for). Returns the number of +inf rows."""
+    out, got, out_lo = flash_forward(q, k, v, kw["causal"], kw["window"],
+                                     kw["q_offset"], with_lse=True)
+    if out_lo is not None:
+        lo, hi = out_lo.float().abs(), out.float().abs()
+        ok = bool(torch.isfinite(lo).all()) and bool(
+            (lo <= 2.0 ** -8 * (1 + 2.0 ** -7) * hi).all())
+        log(f"flash_attention {name}, the output's rounding residual: "
+            f"largest |o_lo| / |o| {float((lo / hi.clamp_min(1e-30)).max()):.3e} "
+            f"(bound {2.0 ** -8 * (1 + 2.0 ** -7):.3e}) {'ok' if ok else 'FAIL'}")
+        require(ok, f"flash_attention's o_lo is not o's rounding residual: "
+                f"{name}")
     _, want = flash_attention_ref(q, k, v, with_lse=True, **kw)
     inf = torch.isinf(want)
     same_inf = torch.equal(got[inf], want[inf])
@@ -1117,36 +1193,43 @@ def check_flash_lse(q, k, v, kw, name):
     return int(inf.sum())
 
 
-def check_flash_fwd_repeats(q, k, v, name):
-    """Two calls of the fp32 forward on the same inputs give the same bits
-    in the output and the lse (every sum runs in a fixed order)."""
-    first = flash_forward(q, k, v, True, 0, 0, with_lse=True)
-    second = flash_forward(q, k, v, True, 0, 0, with_lse=True)
-    same = [torch.equal(a, b) for a, b in zip(first, second)]
+def check_flash_fwd_repeats(q, k, v, name, causal=True, window=0,
+                            q_offset=0):
+    """Two calls of the forward with lse on the same inputs give the same
+    bits in the output, the lse and (bf16) the output's rounding residual
+    (every sum runs in a fixed order)."""
+    first, second = (flash_forward(q, k, v, causal, window, q_offset,
+                                   with_lse=True) for _ in range(2))
+    same = [a is b is None or torch.equal(a, b)
+            for a, b in zip(first, second)]
     log(f"flash_attention {name}: two forward calls bit-identical in out, "
-        f"lse: {same}")
-    require(all(same), f"the fp32 flash forward is not deterministic: {name}")
+        f"lse, o_lo: {same}")
+    require(all(same), f"the flash forward is not deterministic: {name}")
 
 
 def check_flash_bwd_repeats(q, k, v, do, name):
     """Two calls of the backward kernels on the same inputs give the same
-    bits: every gradient element is summed in a fixed order."""
-    o, lse = flash_attention_ref(q, k, v, with_lse=True)
+    bits: every gradient element is summed in a fixed order (in bf16 with
+    the forward's rounding residual, as training calls them)."""
+    o, lse, o_lo = flash_attention_ref(q, k, v, with_lse=True,
+                                       with_residual=True)
     o = o.contiguous()
-    first = flash_attention_bwd(q, k, v, o, lse, do)
-    second = flash_attention_bwd(q, k, v, o, lse, do)
+    o_lo = o_lo.contiguous() if q.dtype == torch.bfloat16 else None
+    first = flash_attention_bwd(q, k, v, o, lse, do, o_lo=o_lo)
+    second = flash_attention_bwd(q, k, v, o, lse, do, o_lo=o_lo)
     same = [torch.equal(a, b) for a, b in zip(first, second)]
     log(f"flash_attention_bwd {name}: two calls bit-identical in dq, dk, dv: "
         f"{same}")
     require(all(same), f"flash_attention_bwd is not deterministic: {name}")
 
 
-def device_ms_by_kernel(fn, iters: int) -> dict:
+def device_ms_by_kernel(fn, iters: int, kept: dict | None = None) -> dict:
     """Device ms per call of each kernel ``fn`` launches, by name, from a
     profiler trace of ``iters`` calls after three warm-up calls: each
     name's mean per launch times its launches per call. The trace can miss
     the first calls' launches (it once kept 11 of 20), so a name's total
-    over ``iters`` would undercount; a missed launch is logged."""
+    over ``iters`` would undercount; a missed launch is logged. ``kept``,
+    where given, gets each name's launches in the trace."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -1161,6 +1244,8 @@ def device_ms_by_kernel(fn, iters: int) -> dict:
             per_call = max(1, round(e.count / iters))
             if e.count != per_call * iters:
                 missed[e.key[:60]] = f"{e.count} of {per_call * iters}"
+            if kept is not None:
+                kept[e.key] = kept.get(e.key, 0) + e.count
             times[e.key] += e.self_device_time_total / 1e3 / e.count * per_call
     if missed:
         log(f"  the trace kept fewer launches than were made: {missed}")
@@ -1407,17 +1492,24 @@ def bf16_rows_ok(kernel, name, got, want32):
 BF16_ULP = 2.0 ** -7     # one unit in bf16's last place, relative: 8 bits
 
 
-def flash_bwd_operand_bounds(q, k, v, o, lse, do, **kw):
+def flash_bwd_operand_bounds(q, k, v, o, lse, do, o_lo=None, d_err=None,
+                             **kw):
     """Per element of (dq, dk, dv), fp32: u scale (|dS| |K|), u scale
     (|dS|^T |Q|) and u (|P|^T |dO|) with u = ``BF16_ULP``, from the plain
     backward's fp32 P and dS on these inputs (``bwd_operands``), dk and dv
     summed over each KV head's query heads: what rounding each element of
     P and dS to bf16 once, to either neighbour, can move each gradient
-    element (``flash_bwd_rows_ok``)."""
-    qf, kf, dof, p, ds, scale = bwd_operands(q, k, v, o, lse, do, **kw)
-    p, ds = p.abs(), ds.abs()
-    dq = torch.matmul(ds, kf.abs()) * (BF16_ULP * scale)
-    dk = torch.matmul(ds.transpose(-1, -2), qf.abs()) * (BF16_ULP * scale)
+    element (``flash_bwd_rows_ok``). ``d_err`` [B,H,T], where given, is an
+    error allowed in each row's D (and in each dP of the row): it moves dS
+    by up to P d_err, which adds scale (P d_err) |K| to dq and scale
+    (P d_err)^T |Q| to dk."""
+    qf, kf, dof, p, ds, scale = bwd_operands(q, k, v, o, lse, do, o_lo=o_lo,
+                                             **kw)
+    p, ds = p.abs(), ds.abs() * BF16_ULP
+    if d_err is not None:
+        ds = ds + p * d_err[..., None]
+    dq = torch.matmul(ds, kf.abs()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf.abs()) * scale
     dv = torch.matmul(p.transpose(-1, -2), dof.abs()) * BF16_ULP
     KV = k.shape[2]
     return dq.transpose(1, 2), per_kv_head(dk, KV), per_kv_head(dv, KV)
@@ -1475,11 +1567,14 @@ def flash_bwd_rows_ok(kernel, name, got, want32, bounds):
 
 
 def flash_bwd_bf16_inputs(gen, B, T, S, H, KV, hd, kw):
-    """bf16 q, k, v, do, and the plain forward's bf16 o and fp32 lse."""
+    """bf16 q, k, v, do, and the plain forward's bf16 o, fp32 lse and bf16
+    rounding residual o_lo (the backward's D reads o + o_lo, as in
+    training)."""
     q, do = (randn(gen, B, T, H, hd, dtype=torch.bfloat16) for _ in range(2))
     k, v = (randn(gen, B, S, KV, hd, dtype=torch.bfloat16) for _ in range(2))
-    o, lse = flash_attention_ref(q, k, v, with_lse=True, **kw)
-    return q, k, v, do, o.contiguous(), lse
+    o, lse, o_lo = flash_attention_ref(q, k, v, with_lse=True,
+                                       with_residual=True, **kw)
+    return q, k, v, do, o.contiguous(), lse, o_lo.contiguous()
 
 
 def check_flash_bwd_bf16(gen):
@@ -1492,29 +1587,32 @@ def check_flash_bwd_bf16(gen):
     row = None
     for B, T, S, H, KV, hd, window, off, causal in FLASH_BWD_BF16_CASES:
         kw = dict(causal=causal, window=window, q_offset=off)
-        q, k, v, do, o, lse = flash_bwd_bf16_inputs(gen, B, T, S, H, KV, hd, kw)
+        q, k, v, do, o, lse, o_lo = flash_bwd_bf16_inputs(gen, B, T, S, H,
+                                                          KV, hd, kw)
         name = (f"B={B} T={T} S={S} H={H} KV={KV} hd={hd} bf16 "
                 f"{'causal' if causal else 'non-causal'} window={window} "
                 f"q_offset={off}")
         check_flash_lse(q, k, v, kw, name)
-        got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        got = flash_attention_bwd(q, k, v, o, lse, do, o_lo=o_lo, **kw)
         torch.cuda.synchronize()
         want = flash_attention_bwd_ref(q.float(), k.float(), v.float(),
-                                       o.float(), lse, do.float(), **kw)
-        bounds = flash_bwd_operand_bounds(q, k, v, o, lse, do, **kw)
+                                       o.float(), lse, do.float(), o_lo=o_lo,
+                                       **kw)
+        bounds = flash_bwd_operand_bounds(q, k, v, o, lse, do, o_lo, **kw)
         worst, err = flash_bwd_rows_ok("flash_attention_bwd_bf16", name, got,
                                        want, bounds)
         require(worst <= 1.0, f"flash_attention_bwd bf16 off its plain "
                 f"version: {name}")
         log_rounded_rows(got, flash_attention_bwd_ref(
             q.float(), k.float(), v.float(), o.float(), lse, do.float(),
-            bf16_operands=True, **kw), name)
+            bf16_operands=True, o_lo=o_lo, **kw), name)
+        check_flash_residual(gen, B, T, S, H, KV, hd, kw, name)
         if (B, T, hd) == FLASH_BWD_BF16_DROPPED:
             check_flash_bwd_repeats(q, k, v, do, name)
             check_flash_bwd_bf16_dropped_tile(q, k, v, do, want, bounds)
         if (B, T, H, KV, hd) == FLASH_BWD_REPORT:
             check_flash_bwd_repeats(q, k, v, do, name)
-            row = time_flash_bwd_bf16(q, k, v, do, o, lse, err)
+            row = time_flash_bwd_bf16(q, k, v, do, o, lse, err, o_lo)
     for B, T, H, KV, hd in FWD_LSE_TIMED:
         q = randn(gen, B, T, H, hd, dtype=torch.bfloat16)
         k, v = (randn(gen, B, T, KV, hd, dtype=torch.bfloat16)
@@ -1524,7 +1622,7 @@ def check_flash_bwd_bf16(gen):
                              20)
         log(f"  flash_attention bf16 forward B={B} T=S={T} H={H} KV={KV} "
             f"hd={hd} causal: {plain:.4f} ms without lse (serving), "
-            f"{with_lse:.4f} ms with lse (training), "
+            f"{with_lse:.4f} ms with lse and o_lo (training), "
             f"{with_lse / plain - 1:+.1%}")
     return row
 
@@ -1544,19 +1642,24 @@ def log_rounded_rows(got, want, name):
         f"{', '.join(parts)}")
 
 
-def check_flash_bwd_bf16_dropped_tile(q, k, v, do, want, bounds):
-    """The bf16 kernels run without the first 64 keys (q_offset -64: rows
-    0..63 see no key, their lse is +inf) must fail the per-row check
-    (``flash_bwd_rows_ok`` with the whole run's ``bounds``)."""
+def check_flash_bwd_bf16_dropped_tile(q, k, v, do, want, bounds,
+                                      causal=True, window=0):
+    """The bf16 kernels run without the first 64 keys must fail the per-row
+    check (``flash_bwd_rows_ok`` with the whole run's ``bounds``). Causal
+    (with or without a window): keys from 64 on at q_offset -64, so each
+    row sees its own keys but the first 64, and rows 0..63 see none (their
+    lse is +inf); non-causal: every row without the first 64 keys."""
     T = q.shape[1]
     k64, v64 = k[:, 64:].contiguous(), v[:, 64:].contiguous()
-    kw = dict(causal=True, window=0, q_offset=-64)
+    kw = dict(causal=causal, window=window, q_offset=-64 if causal else 0)
     n_inf = check_flash_lse(q, k64, v64, kw, f"T={T} bf16, first key tile "
-                            "dropped, q_offset -64")
-    require(n_inf == q.shape[0] * q.shape[2] * 64,
+                            f"dropped, q_offset {kw['q_offset']}")
+    require(n_inf == (q.shape[0] * q.shape[2] * 64 if causal else 0),
             "the rows without a visible key are not the first 64")
-    o, lse = flash_attention_ref(q, k64, v64, with_lse=True, **kw)
-    dq, dk, dv = flash_attention_bwd(q, k64, v64, o.contiguous(), lse, do, **kw)
+    o, lse, o_lo = flash_attention_ref(q, k64, v64, with_lse=True,
+                                       with_residual=True, **kw)
+    dq, dk, dv = flash_attention_bwd(q, k64, v64, o.contiguous(), lse, do,
+                                     o_lo=o_lo.contiguous(), **kw)
     pad = lambda t: F.pad(t, (0, 0, 0, 0, 64, 0))
     worst, _ = flash_bwd_rows_ok("flash_attention_bwd_bf16", f"T={T}, first "
                                  "key tile dropped", (dq, pad(dk), pad(dv)),
@@ -1567,37 +1670,178 @@ def check_flash_bwd_bf16_dropped_tile(q, k, v, do, want, bounds):
         f"fails the check, as it must ({worst:.1f}x the limit)")
 
 
-def time_flash_bwd_bf16(q, k, v, do, o, lse, err):
+RESIDUAL_TOL = 2.0 ** -16   # o + o_lo against the exact output, relative
+D_TOL = 2.0 ** -14          # D and dP, relative to sum |do| |o| of the row
+
+
+def residual_inputs(gen, B, T, S, H, KV, hd, device="cuda"):
+    """bf16 q, k, v and do whose attention the kernels compute exactly up
+    to the output's rounding: q lives on the first half of the head dims
+    and k on the second, so every score is exactly 0 and P exactly 1 in
+    the bf16 forward; v lies on bf16's 2^-7 grid in [1, 2), so the fp32
+    sum P V over up to 2^13 keys is exact, and each column's chance of the
+    upper of its two values is drawn anew, so the visible means fill the
+    bf16 unit and their rounding is not 0. k has a common part (a bias
+    gives one), through which an error in D moves dq: with sum_s dS = 0,
+    dq's error is scale D's error times the row's mean key."""
+    half = hd // 2
+    draw = lambda draw_fn, *shape: draw_fn(*shape, generator=gen,
+                                           device=device)
+    q = torch.zeros(B, T, H, hd, dtype=torch.bfloat16, device=device)
+    q[..., :half] = draw(torch.randn, B, T, H, half)
+    k = torch.zeros(B, S, KV, hd, dtype=torch.bfloat16, device=device)
+    k[..., half:] = (draw(torch.randn, B, S, KV, hd - half) + 4)
+    base = torch.randint(0, 127, (B, 1, KV, hd), generator=gen, device=device)
+    upper = draw(torch.rand, B, S, KV, hd) < draw(torch.rand, B, 1, KV, hd)
+    v = (1 + (base + upper) / 128).to(torch.bfloat16)
+    do = draw(torch.randn, B, T, H, hd).to(torch.bfloat16)
+    return q, k, v, do
+
+
+def check_flash_residual(gen, B, T, S, H, KV, hd, kw, name):
+    """The bf16 forward's rounding residual and the backward's use of it,
+    on ``residual_inputs``, whose exact output o is the mean of each row's
+    visible v (computed in fp64) and whose lse is log of their count:
+
+    - o + o_lo within ``RESIDUAL_TOL`` of o elementwise (the fp32 output is
+      exact but for 1/l, and o_lo keeps all but 2^-9 of the rest of it),
+      where o alone must fail that (a zero o_lo fails);
+    - two forward calls the same bits in o, lse and o_lo;
+    - the backward fed the kernel forward's own o, lse and o_lo, held per
+      row (``flash_bwd_rows_ok``) against the plain backward fed the exact
+      o and lse, its bound widened by a D held to ``D_TOL`` of each row's
+      sum |do| |o| (o + o_lo's own 2^-16, the delta kernel's and the plain
+      version's fp32 sums of hd <= 128 terms, 2^-17 each, and dP's fp32
+      sums in both, 2^-16: each within sum |do| |v| <= 2 sum |do| |o|);
+    - the same backward fed a zero o_lo must fail that check, by D's error
+      alone (the bf16 rounding of o is 2^-8 of it where D_TOL allows 2^-14).
+    """
+    q, k, v, do = residual_inputs(gen, B, T, S, H, KV, hd, gen.device)
+    causal, window, off = kw["causal"], kw["window"], kw["q_offset"]
+    vis = visible(T, S, off, causal, window, q.device).double()
+    n = vis.sum(-1)                                               # [T]
+    exact = (torch.einsum("ts,bskd->btkd", vis, v.double())
+             / n.clamp_min(1)[None, :, None, None]).repeat_interleave(
+        H // KV, dim=2)                                           # [B,T,H,hd]
+    lse_exact = torch.where(n > 0, n.log(), math.inf).float()[None, None]
+    lse_exact = lse_exact.expand(B, H, T).contiguous()
+    o, lse, o_lo = flash_forward(q, k, v, causal, window, off, with_lse=True)
+    check_flash_fwd_repeats(q, k, v, name + ", residual inputs", causal,
+                            window, off)
+    tol = RESIDUAL_TOL * exact.abs()
+    err = (o.double() + o_lo.double() - exact).abs()
+    err_hi = (o.double() - exact).abs()
+    rel = lambda e: float((e / exact.abs().clamp_min(1e-30)).max())
+    lse_err = (lse - lse_exact).nan_to_num().abs()     # inf - inf: no key
+    ok = (bool((err <= tol).all()) and bool((err_hi > tol).any())
+          and torch.equal(torch.isinf(lse), torch.isinf(lse_exact))
+          and bool((lse_err <= LSE_TOL * (1 + lse_exact.nan_to_num(
+              posinf=0).abs())).all()))
+    log(f"flash_attention {name}, residual inputs (P exactly 1): largest "
+        f"|o + o_lo - exact| / |exact| {rel(err):.3e}, of o alone "
+        f"{rel(err_hi):.3e} (tol {RESIDUAL_TOL:.3e}, o alone must exceed "
+        f"it); lse off log(keys) by {float(lse_err.max()):.1e} "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, f"flash_attention's o + o_lo is not the output to 16 bits, "
+            f"or its lse not log(keys): {name}")
+    got = flash_attention_bwd(q, k, v, o, lse, do, o_lo=o_lo, **kw)
+    zero = flash_attention_bwd(q, k, v, o, lse, do,
+                               o_lo=torch.zeros_like(o_lo), **kw)
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                   exact.float(), lse_exact, do.float(), **kw)
+    d_err = D_TOL * (do.double().abs() * exact.abs()).sum(-1).float()
+    bounds = flash_bwd_operand_bounds(q, k, v, exact.float(), lse_exact, do,
+                                      d_err=d_err.transpose(1, 2), **kw)
+    label = f"{name}, residual inputs, the forward's own o, lse and o_lo"
+    worst, _ = flash_bwd_rows_ok("flash_attention_bwd_bf16", label, got, want,
+                                 bounds)
+    require(worst <= 1.0, f"flash_attention_bwd bf16 fed the forward's o_lo "
+            f"off the exact gradient: {name}")
+    worst0, _ = flash_bwd_rows_ok("flash_attention_bwd_bf16",
+                                  f"{name}, residual inputs, o_lo zeroed",
+                                  zero, want, bounds)
+    require(worst0 > 1.0, f"the bf16 gradient check cannot see a backward "
+            f"that drops o_lo: {name}")
+    log(f"flash_attention_bwd_bf16 {name}: without o_lo the check fails, as "
+        f"it must ({worst0:.1f}x the limit; with it {worst:.3f}x)")
+
+
+def visible_pairs(T: int, S: int, causal: bool, window: int) -> int:
+    """The (t, s) pairs a query row sees at q_offset 0: T = S under causal
+    masking (with ``window``, at most ``window`` keys a row), else T * S."""
+    if not causal:
+        return T * S
+    W = window or T
+    return sum(min(t + 1, W) for t in range(T))
+
+
+def visible_tiles(T: int, S: int, causal: bool, window: int) -> int:
+    """The (64-row query tile, 64-key tile) pairs with a visible element:
+    the tile products each backward kernel runs."""
+    ok = visible(T, S, 0, causal, window, "cuda")
+    ok = F.pad(ok, (0, -S % 64, 0, -T % 64))
+    return int(ok.reshape(-(-T // 64), 64, -(-S // 64), 64).any(3).any(1)
+               .sum())
+
+
+def time_flash_bwd_bf16(q, k, v, do, o, lse, err, o_lo=None, causal=True,
+                        window=0):
+    """The bf16 backward (T = S; causal, windowed or non-causal; with the
+    forward's rounding residual where given, as training calls it) beside
+    its plain version, SDPA's backward (with a window: on the window's
+    boolean mask, k and v repeated to every head) and the bound over the
+    visible pairs."""
     B, T, H, hd = q.shape
     KV = k.shape[2]
-    flops = 2.5 * 4 * B * H * hd * (T * (T + 1) // 2)
-    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    mask = dict(causal=causal, window=window)
+    flops = 2.5 * 4 * B * H * hd * visible_pairs(T, T, causal, window)
+    nbytes = (2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+              + (0 if o_lo is None else 2 * o_lo.numel()))
     bound = {"operations": flops / PEAK_BF16 * 1e3,
              "bytes": nbytes / HBM * 1e3}
-    kernel = lambda: flash_attention_bwd(q, k, v, o, lse, do)
+    kernel = lambda: flash_attention_bwd(q, k, v, o, lse, do, o_lo=o_lo,
+                                         **mask)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
-    sdpa = lambda q_, k_, v_: F.scaled_dot_product_attention(
-        q_, k_, v_, is_causal=True, enable_gqa=True)
+    if window:
+        attn_mask = visible(T, T, 0, True, window, q.device)
+        sdpa = lambda q_, k_, v_: F.scaled_dot_product_attention(
+            q_, k_.repeat_interleave(H // KV, dim=1),
+            v_.repeat_interleave(H // KV, dim=1), attn_mask=attn_mask)
+    else:
+        sdpa = lambda q_, k_, v_: F.scaled_dot_product_attention(
+            q_, k_, v_, is_causal=causal, enable_gqa=True)
     row = {
         "max_abs_err": err,
         "ms": device_ms(kernel, 5),
-        "plain_ms": device_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse,
-                                                              do), 2),
+        "plain_ms": device_ms(lambda: flash_attention_bwd_ref(
+            q, k, v, o, lse, do, o_lo=o_lo, **mask), 2),
         "library_ms": grad_device_ms(sdpa, (qt, kt, vt), do.transpose(1, 2),
                                      5),
         "bound_by": max(bound, key=bound.get),
         "bound_ms": max(bound.values()),
-        "shape": f"B={B} T=S={T} H={H} KV={KV} hd={hd} bf16 causal",
+        "shape": (f"B={B} T=S={T} H={H} KV={KV} hd={hd} bf16 "
+                  + ("causal" if causal else "non-causal")
+                  + (f" window={window}" if window else "")),
     }
-    by_name = device_ms_by_kernel(kernel, 20)
-    row["split_ms"] = {part: sum(ms for key, ms in by_name.items()
-                                 if name in key)
-                       for part, name in BF16_BWD_KERNELS.items()}
+    for tries in range(1, 4):   # a trace has dropped every launch of a kernel
+        kept = {}
+        by_name = device_ms_by_kernel(kernel, 20, kept)
+        row["split_ms"] = {part: sum(ms for key, ms in by_name.items()
+                                     if name in key)
+                           for part, name in BF16_BWD_KERNELS.items()}
+        if all(ms > 0 for ms in row["split_ms"].values()):
+            break
+    log(f"  bf16 backward split read from trace {tries} of at most 3; "
+        f"launches each kernel kept in it, of 20: " + ", ".join(
+            f"{part} {sum(n for key, n in kept.items() if name in key)}"
+            for part, name in BF16_BWD_KERNELS.items()))
     split = row["split_ms"]
     # 64 x 64 tile products per visible tile pair: 4 in dk/dv, 3 in dq
-    n = -(-T // 64)
-    tile_flops = 2 * 64 * 64 * hd * n * (n + 1) // 2 * B * H
+    tile_flops = 2 * 64 * 64 * hd * visible_tiles(T, T, causal, window) * B * H
+    require(all(ms > 0 for ms in split.values()),
+            f"a bf16 backward kernel is missing from the trace: {dict(by_name)}")
     log(f"  bf16 backward kernels apart, device ms per call (profiler, 20 "
         f"calls): delta {split['delta']:.4f}, dk/dv {split['dkdv']:.4f} "
         f"({4 * tile_flops / split['dkdv'] / 1e9:.1f} TFLOP/s on its tile "
@@ -1605,8 +1849,6 @@ def time_flash_bwd_bf16(q, k, v, do, o, lse, err):
         f"({3 * tile_flops / split['dq'] / 1e9:.1f} TFLOP/s); sum "
         f"{sum(split.values()):.4f}; all kernels of the call "
         f"{sum(by_name.values()):.4f}")
-    require(all(ms > 0 for ms in split.values()),
-            f"a bf16 backward kernel is missing from the trace: {dict(by_name)}")
     log(f"  device time {row['shape']}: backward kernels {row['ms']:.4f} ms, "
         f"plain {row['plain_ms']:.4f} ms, SDPA backward (bf16, GQA) "
         f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
@@ -2166,33 +2408,40 @@ def time_slstm_bwd(wx, r, b, dhs, trace, err):
     return row
 
 
-def hold_flash_bwd_bf16(gen, B, T, H, KV, hd, window=0):
-    """One causal T = S case of the bf16 backward kernels held per row
-    against the plain version (``flash_bwd_rows_ok``; the rounded plain
-    version's rows logged), then called twice for the same bits. Returns
-    (q, k, v, do, o, lse, err) for timing."""
-    kw = dict(causal=True, window=window, q_offset=0)
-    q, k, v, do, o, lse = flash_bwd_bf16_inputs(gen, B, T, T, H, KV, hd, kw)
-    name = (f"B={B} T=S={T} H={H} KV={KV} hd={hd} bf16 causal "
-            f"window={window}")
-    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+def hold_flash_bwd_bf16(gen, B, T, H, KV, hd, window=0, causal=True):
+    """One T = S case of the bf16 backward kernels (with the forward's
+    rounding residual, as training calls them) held per row against the
+    plain version (``flash_bwd_rows_ok``; the rounded plain version's rows
+    logged), then called twice for the same bits; a run without the first
+    key tile must fail the check. Returns ``time_flash_bwd_bf16``'s
+    arguments."""
+    kw = dict(causal=causal, window=window, q_offset=0)
+    q, k, v, do, o, lse, o_lo = flash_bwd_bf16_inputs(gen, B, T, T, H, KV,
+                                                      hd, kw)
+    name = (f"B={B} T=S={T} H={H} KV={KV} hd={hd} bf16 "
+            f"{'causal' if causal else 'non-causal'} window={window}")
+    got = flash_attention_bwd(q, k, v, o, lse, do, o_lo=o_lo, **kw)
     torch.cuda.synchronize()
     want = flash_attention_bwd_ref(q.float(), k.float(), v.float(), o.float(),
-                                   lse, do.float(), **kw)
-    worst, err = flash_bwd_rows_ok(
-        "flash_attention_bwd_bf16", name, got, want,
-        flash_bwd_operand_bounds(q, k, v, o, lse, do, **kw))
+                                   lse, do.float(), o_lo=o_lo, **kw)
+    bounds = flash_bwd_operand_bounds(q, k, v, o, lse, do, o_lo, **kw)
+    worst, err = flash_bwd_rows_ok("flash_attention_bwd_bf16", name, got,
+                                   want, bounds)
     require(worst <= 1.0, f"flash_attention_bwd bf16 off its plain version: "
             f"{name}")
     log_rounded_rows(got, flash_attention_bwd_ref(
         q.float(), k.float(), v.float(), o.float(), lse, do.float(),
-        bf16_operands=True, **kw), name)
-    again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        bf16_operands=True, o_lo=o_lo, **kw), name)
+    again = flash_attention_bwd(q, k, v, o, lse, do, o_lo=o_lo, **kw)
     same = [torch.equal(a, b) for a, b in zip(got, again)]
     log(f"flash_attention_bwd {name}: two calls bit-identical in dq, dk, "
         f"dv: {same}")
     require(all(same), f"flash_attention_bwd is not deterministic: {name}")
-    return q, k, v, do, o, lse, err
+    check_flash_bwd_bf16_dropped_tile(q, k, v, do, want, bounds, causal,
+                                      window)
+    check_flash_residual(gen, B, T, T, H, KV, hd, kw, name)
+    return dict(q=q, k=k, v=v, do=do, o=o, lse=lse, err=err, o_lo=o_lo,
+                causal=causal, window=window)
 
 
 def hold_rmsnorm_bwd_bf16(gen, rows, d):
@@ -2225,7 +2474,7 @@ def check_recurrent_bwd_kernels(gen):
     for (b, t, _, h, kv, _), window in (FLASH_BWD_80_CASES
                                        + [((B, T, T, H, KV, hd), 0)]):
         held = hold_flash_bwd_bf16(gen, b, t, h, kv, hd, window)
-    flash_row = time_flash_bwd_bf16(*held)
+    flash_row = time_flash_bwd_bf16(**held)
     rms_rows = {d: hold_rmsnorm_bwd_bf16(gen, rows, d)
                 for rows, d in RMS_BWD_RECURRENT}
     return ssd_rows, slstm_rows, flash_row, rms_rows
@@ -2250,26 +2499,28 @@ def plain_attention(q, k, v, *, causal=True, window=0, q_offset=0):
 class DesignAttention(torch.autograd.Function):
     """Plain attention with the flash backward's rounding by design:
     ``flash_attention_ref`` forward, and ``flash_attention_bwd_ref`` with D
-    = rowsum(do * o) from the forward's output in its dtype and, in bf16, P
-    and dS rounded to bf16 where the kernels hand them to the tensor cores
-    (``bf16_operands``), where autograd of the plain forward sums P * dP in
-    fp32. A reference run on the card; the port never calls it."""
+    = rowsum(do * (o + o_lo)) from the forward's output and its rounding
+    residual and, in bf16, P and dS rounded to bf16 where the kernels hand
+    them to the tensor cores (``bf16_operands``), where autograd of the
+    plain forward sums P * dP in fp32. A reference run on the card; the
+    port never calls it."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset):
-        out, lse = flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       q_offset=q_offset, with_lse=True)
+        out, lse, out_lo = flash_attention_ref(
+            q, k, v, causal=causal, window=window, q_offset=q_offset,
+            with_lse=True, with_residual=True)
         ctx.mask = dict(causal=causal, window=window, q_offset=q_offset)
-        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.save_for_backward(q, k, v, out, lse, out_lo)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, out_lo = ctx.saved_tensors
         return (*flash_attention_bwd_ref(
             q, k, v, out, lse, do.contiguous(),
-            bf16_operands=q.dtype == torch.bfloat16, **ctx.mask),
-            None, None, None)
+            bf16_operands=q.dtype == torch.bfloat16, o_lo=out_lo,
+            **ctx.mask), None, None, None)
 
 
 def design_attention(q, k, v, *, causal=True, window=0, q_offset=0):
@@ -2438,20 +2689,20 @@ MODAL_BATCH, MODAL_BATCHES, MODAL_STEPS = 4, 2, 32
 VLM_GRID, VLM_AT = 16, 8          # one 16 x 16 grid of patches at 8-263
 
 
-def vlm_pos3(B: int, T: int):
+def vlm_pos3(B: int, T: int, grid: int = VLM_GRID):
     """[3, B, T] M-RoPE ids as Qwen2-VL's rope index lays out one image of
-    ``VLM_GRID`` x ``VLM_GRID`` patches at ``VLM_AT``: text before it at
+    ``grid`` x ``grid`` patches at ``VLM_AT``: text before it at
     t = h = w = i, patch (r, c) at (VLM_AT, VLM_AT + r, VLM_AT + c), text
-    after it from VLM_AT + VLM_GRID on."""
-    end = VLM_AT + VLM_GRID * VLM_GRID
+    after it from VLM_AT + grid on."""
+    end = VLM_AT + grid * grid
     ids = torch.empty(3, T, dtype=torch.long)
     ids[:, :VLM_AT] = torch.arange(VLM_AT)
-    patch = torch.arange(VLM_GRID * VLM_GRID)
-    r, c = patch // VLM_GRID, patch % VLM_GRID
+    patch = torch.arange(grid * grid)
+    r, c = patch // grid, patch % grid
     ids[0, VLM_AT:end] = VLM_AT
     ids[1, VLM_AT:end] = VLM_AT + r
     ids[2, VLM_AT:end] = VLM_AT + c
-    ids[:, end:] = VLM_AT + VLM_GRID + torch.arange(T - end)
+    ids[:, end:] = VLM_AT + grid + torch.arange(T - end)
     return ids[:, None].expand(3, B, T).contiguous().cuda()
 
 
@@ -3602,21 +3853,44 @@ def trainer_launches(cfg) -> dict:
     microbatch, every block's flash and norm forwards twice under remat
     full (the forward and the recompute in the backward), final_norm's
     once, and each backward once; a block's norms are ln1 and ln2, and
-    q_norm and k_norm with qk-norm."""
+    q_norm and k_norm with qk-norm. whisper (encoder-decoder) as
+    ``modal_launches`` counts its prefill: one flash an encoder layer
+    (non-causal) and two a decoder layer (self and cross), ln1 and ln2 an
+    encoder layer, ln1, ln_x and ln2 a decoder layer, and enc_norm and
+    final_norm outside the remat wrapper."""
     L, k = cfg.n_layers, cfg.microbatches
     fwd = 2 if cfg.remat == "full" else 1
-    n = 2 + 2 * cfg.qk_norm
-    return {"flash_attention": k * fwd * L, "flash_attention_bwd": k * L,
-            "rmsnorm": k * (fwd * n * L + 1), "rmsnorm_bwd": k * (n * L + 1)}
+    if cfg.enc_dec:
+        E = cfg.n_enc_layers
+        flash, norms, once = E + 2 * L, 2 * E + 3 * L, 2
+    else:
+        flash, norms, once = L, (2 + 2 * cfg.qk_norm) * L, 1
+    return {"flash_attention": k * fwd * flash, "flash_attention_bwd": k * flash,
+            "rmsnorm": k * (fwd * norms + once),
+            "rmsnorm_bwd": k * (norms + once)}
 
 
-def token_nll(params, cfg, tokens):
-    """Per-token next-token losses of ``forward_loss`` (every label valid)."""
+def token_nll(params, cfg, batch):
+    """Per-token next-token losses of ``forward_loss`` on ``batch``'s tokens
+    and modality inputs (every label valid), [B, T-1], a microbatch of the
+    step at a time."""
+    mbs = _microbatch_stack(batch, cfg.microbatches)
+    out = []
     with torch.no_grad():
-        h, _ = forward_hidden(params, cfg, tokens)
-        logits = lm_logits(params, cfg, h)[:, :-1].float()
-        tgt = torch.gather(logits, -1, tokens[:, 1:, None])[..., 0]
-        return torch.logsumexp(logits, dim=-1) - tgt
+        for i in range(cfg.microbatches):
+            mb = {name: x[i] for name, x in mbs.items()}
+            tokens = mb["tokens"]
+            enc_out = (encode(params, cfg, mb["frames"]) if cfg.enc_dec
+                       else None)
+            h, _ = forward_hidden(params, cfg, tokens, pos3=mb.get("pos3"),
+                                  enc_out=enc_out,
+                                  patch_embeds=mb.get("patch_embeds"),
+                                  patch_pos=mb.get("patch_pos"))
+            logits = lm_logits(params, cfg, h)[:, :-1].float()
+            tgt = torch.gather(logits, -1, tokens[:, 1:, None])[..., 0]
+            out.append(torch.logsumexp(logits, dim=-1) - tgt)
+            del h, logits
+    return torch.cat(out)
 
 
 def check_trainer_step0(cfg, params, batch, against_design=False,
@@ -3634,35 +3908,37 @@ def check_trainer_step0(cfg, params, batch, against_design=False,
     as A_log, is moved by D from the bf16 output as well as by the plain
     path's own bf16 rounding, and the path that rounds as the kernels do
     should be the nearer one. With ``routing`` (a ``PinnedRouting``) the
-    kernel path's top-k choices are every path's. Returns the step's
-    launches."""
+    kernel path's top-k choices are every path's. The fp32 path takes the
+    batch's embeddings (frames, patches) in fp32, the same values. Returns
+    the step's launches."""
     k = cfg.microbatches
     run = (routing.run if routing else
            lambda *a, **kw: contextlib.nullcontext())
+    with run("nll", record=True):
+        nll_k = token_nll(params, cfg, batch)
     LAUNCHES.clear()
     with run("grads", record=True):
         loss_k, grads_k = microbatch_grads(params, cfg, batch, k)
     torch.cuda.synchronize()
     grad_launches = dict(LAUNCHES)
-    tokens = batch["tokens"]
-    with run("nll", record=True):
-        nll_k = token_nll(params, cfg, tokens)
-    mid = dict(LAUNCHES)
     params32 = tree_map(lambda t: t.float(), params)
-    with plain_versions():
+    batch32 = {name: t.float() if t.is_floating_point() else t
+               for name, t in batch.items()}
+    with plain_versions():      # the losses first, beside one gradient tree
+        with run("nll", label="plain bf16"):
+            nll_p = token_nll(params, cfg, batch)
+        with run("nll", label="plain fp32"):
+            nll_32 = token_nll(params32, cfg, batch32)
         with run("grads", label="plain bf16"):
             loss_p, grads_p = microbatch_grads(params, cfg, batch, k)
         with run("grads", label="plain fp32"):
-            loss_32, grads_32 = microbatch_grads(params32, cfg, batch, k)
-        with run("nll", label="plain bf16"):
-            nll_p = token_nll(params, cfg, tokens)
-        with run("nll", label="plain fp32"):
-            nll_32 = token_nll(params32, cfg, tokens)
+            loss_32, grads_32 = microbatch_grads(params32, cfg, batch32, k)
         grads_d = grads_32
         if against_design:
             ops.attention = design_attention
             _, grads_d = microbatch_grads(params, cfg, batch, k)
-    require(dict(LAUNCHES) == mid, "the plain step launched a kernel")
+    require(dict(LAUNCHES) == grad_launches, "the plain step launched a "
+            "kernel")
     del params32
     loss_floor = float((nll_p - nll_32).abs().mean())
     gn = {}
@@ -3841,22 +4117,21 @@ def trainer_full_width():
     return dict(launches), metrics
 
 
-def trainer_cli(arch: str = "qwen3-0.6b", steps: int = TRAINER_CLI_STEPS):
-    """``python -m repro_torch.launch.train --arch <arch> --steps <steps>``
-    as a user runs it (the reduced config in bf16, one device), in a fresh
-    process that finds phase 2's library."""
-    with tempfile.TemporaryDirectory(prefix="train_cli_") as ckpt:
-        proc, wall = run_module(
-            ["repro_torch.launch.train", "--arch", arch, "--steps",
-             str(steps), "--ckpt-dir", ckpt], f"train cli {arch}",
-            TRAINER_CLI_TIMEOUT)
+def trainer_cli_run(arch: str, steps: int, ckpt: str):
+    """(args, tag) of ``python -m repro_torch.launch.train --arch <arch>
+    --steps <steps>`` as a user runs it (the reduced config in bf16, one
+    device), checkpointing under ``ckpt``."""
+    return (["repro_torch.launch.train", "--arch", arch, "--steps",
+             str(steps), "--ckpt-dir", ckpt], f"train cli {arch}")
+
+
+def check_trainer_cli(arch: str, steps: int, proc, wall: float):
     require(proc.returncode == 0, f"the train CLI --arch {arch} exited "
             f"{proc.returncode}")
     want = f"done at step {steps}"
     require(want in proc.stdout, f"the train CLI --arch {arch} did not print "
             f"{want!r}")
     log(f"train cli {arch}: process wall {wall:.2f} s")
-    return {"process_wall_s": wall}
 
 
 # --------------------------------------------------------------------------
@@ -3864,7 +4139,7 @@ def trainer_cli(arch: str = "qwen3-0.6b", steps: int = TRAINER_CLI_STEPS):
 # --------------------------------------------------------------------------
 RECURRENT_CUT = {"xlstm-1.3b": 8, "zamba2-2.7b": 12}   # the step-0 check's
 #   depth cut: xlstm 7 mLSTM + 1 sLSTM, zamba2 two shared applications
-RECURRENT_STEPS, RECURRENT_CLI_STEPS = 8, 10
+RECURRENT_STEPS, RECURRENT_CLI_STEPS = 4, 10    # steps: 8 before phase 5k
 RECURRENT_SWEEP = (4, 2)                    # the sweep CLI: members, steps
 LAYER_NORMS = {"mlstm": 1, "slstm": 2, "mamba2": 2}    # ln1 (+ ff_ln / the
 #   Mamba-2 mixer's norm); each shared ATTN application ln1 and ln2
@@ -4023,33 +4298,49 @@ def train_recurrent(arch: str):
     return dict(launches), metrics
 
 
-def sweep_cli_arch(arch: str):
-    """``python -m repro_torch.launch.sweep --arch <arch>`` (the member:
-    the reduced config's layers in fp32, remat none) in a fresh process:
-    exit 0 and every member launched."""
+def arch_clis(card: str):
+    """The training CLIs of phases 5d, 5i and 5j, all at once (each a small
+    reduced config; nothing is timed here but the processes' wall):
+    ``python -m repro_torch.launch.train --arch <arch>`` for qwen3-0.6b
+    (``TRAINER_CLI_STEPS``), the recurrent archs and moonshot (exit 0,
+    "done at step N"), and ``python -m repro_torch.launch.sweep --arch
+    <arch>`` for the last three (the member: the reduced config's layers
+    in fp32, remat none; exit 0 and every member launched)."""
+    t0 = time.perf_counter()
     members, steps = RECURRENT_SWEEP
-    proc, wall = run_module(["repro_torch.launch.sweep", "--arch", arch,
-                             "--members", str(members), "--steps",
-                             str(steps)], f"sweep {arch}", SWEEP_CLI_TIMEOUT)
-    require(proc.returncode == 0, f"the sweep CLI --arch {arch} exited "
-            f"{proc.returncode}")
-    want = f"launched {members}/{members} members"
-    require(want in proc.stdout, f"the sweep CLI --arch {arch} did not print "
-            f"{want!r}")
-    log(f"sweep cli --arch {arch}: process wall {wall:.2f} s")
+    archs = [(arch, RECURRENT_CLI_STEPS) for arch in RECURRENT_CUT]
+    archs.append((MOE_ARCH, MOE_CLI_STEPS))
+    with tempfile.TemporaryDirectory(prefix="train_cli_") as ckpt:
+        runs = [trainer_cli_run("qwen3-0.6b", TRAINER_CLI_STEPS,
+                                os.path.join(ckpt, "qwen3-0.6b"))]
+        for arch, n in archs:
+            runs += [trainer_cli_run(arch, n, os.path.join(ckpt, arch)),
+                     (["repro_torch.launch.sweep", "--arch", arch,
+                       "--members", str(members), "--steps", str(steps)],
+                      f"sweep {arch}")]
+        done = run_modules(runs, max(TRAINER_CLI_TIMEOUT, SWEEP_CLI_TIMEOUT))
+    check_trainer_cli("qwen3-0.6b", TRAINER_CLI_STEPS, *done[0])
+    for (arch, n), (train, train_wall), (sweep, sweep_wall) in zip(
+            archs, done[1::2], done[2::2]):
+        check_trainer_cli(arch, n, train, train_wall)
+        require(sweep.returncode == 0, f"the sweep CLI --arch {arch} exited "
+                f"{sweep.returncode}")
+        want = f"launched {members}/{members} members"
+        require(want in sweep.stdout, f"the sweep CLI --arch {arch} did not "
+                f"print {want!r}")
+        log(f"sweep cli --arch {arch}: process wall {sweep_wall:.2f} s")
+    log(f"the training CLIs of phases 5d, 5i and 5j, {len(runs)} processes "
+        f"at once: {time.perf_counter() - t0:.1f} s ({card})")
 
 
 def train_recurrent_archs(card: str) -> dict:
-    """Phase 5i: both recurrent archs in turn, one on the card at a time,
-    then the training CLIs with ``--arch``. Returns each Trainer's
-    launches under ``"<arch> Trainer (bf16, full width)"``."""
+    """Phase 5i: both recurrent archs in turn, one on the card at a time
+    (their CLIs run at the end of phase 5j, ``arch_clis``). Returns each
+    Trainer's launches under ``"<arch> Trainer (bf16, full width)"``."""
     t0 = time.perf_counter()
     out = {}
     for arch in RECURRENT_CUT:
         out[f"{arch} Trainer (bf16, full width)"], _ = train_recurrent(arch)
-    for arch in RECURRENT_CUT:
-        trainer_cli(arch, RECURRENT_CLI_STEPS)
-        sweep_cli_arch(arch)
     log(f"phase 5i: {time.perf_counter() - t0:.1f} s ({card})")
     return out
 
@@ -4058,8 +4349,7 @@ def train_recurrent_archs(card: str) -> dict:
 # phase 5j: the Trainer on an MoE arch (moonshot-v1-16b-a3b), in bf16
 # --------------------------------------------------------------------------
 MOE_ARCH = "moonshot-v1-16b-a3b"
-MOE_CUT, MOE_DEPTH = 2, 4                   # the step-0 cut; layers trained
-MOE_STEPS, MOE_CLI_STEPS = 8, 10
+MOE_CLI_STEPS = 10
 MOE_FLASH = (2, 512, 16, 16, 128)           # B, T=S, H, KV, hd a microbatch
 MOE_RMS = (1024, 2048)                      # rows, d: ln1 / ln2 / final_norm
 
@@ -4079,7 +4369,7 @@ def check_moe_train_kernels(gen):
     require(torch.equal(got, flash_attention(q, k, v, causal=True)),
             f"two flash_attention calls differ: {name}")
     fwd_row = time_flash(q, k, v, err)
-    bwd_row = time_flash_bwd_bf16(*hold_flash_bwd_bf16(gen, B, T, H, KV, hd))
+    bwd_row = time_flash_bwd_bf16(**hold_flash_bwd_bf16(gen, B, T, H, KV, hd))
     rows, d = MOE_RMS
     x = randn(gen, rows, d, dtype=torch.bfloat16)
     g = (1 + 0.1 * randn(gen, d)).to(torch.bfloat16)
@@ -4203,62 +4493,105 @@ def moe_member_repeats():
     require(same, f"{cfg.name}: a repeated member step changed bits")
 
 
-def train_moe(card: str):
-    """Phase 5j: ``Trainer`` on moonshot-v1-16b-a3b as configured (bf16
-    params, fp32 moments, 4 microbatches, remat full, capacity factor 1.25)
-    at full width on ``SyntheticLM`` 8 x 512: step 0 on a cut of
-    ``MOE_CUT`` layers against the plain paths with the routing pinned,
-    one step twice from one state on the cut, ``MOE_STEPS`` steps at
-    ``MOE_DEPTH`` layers with exact launch counts and a falling loss, one
-    traced step, the two CLIs and two member steps. Returns
+class TrainArch(NamedTuple):
+    """One arch through the Trainer in bf16 at full width: the config
+    fields the phase relies on (``assumed``), the layers of the step-0
+    check (``cut``) and of the Trainer run (``depth``; the config's own
+    where they are equal), ``SyntheticLM``'s global batch and length, the
+    steps, whether step 0 pins the routing (``PinnedRouting``) and the
+    launch path's name in the kernels line."""
+    arch: str
+    assumed: dict
+    cut: int
+    depth: int
+    batch: tuple
+    steps: int
+    path: str
+    pinned: bool = False
+
+
+def train_modal(cfg, B: int, T: int, step: int) -> dict:
+    """The modality inputs of a training batch, filled at ``shaped_batch``'s
+    train shapes from a generator seeded by the step: whisper's frames
+    [B, T, d] ~ N(0, 0.02^2) in bf16; qwen2-vl's npatch patch embeddings
+    (npatch = T // 8 here, a square grid), N(0, 0.02^2) in bf16, at
+    positions ``VLM_AT`` on, with their M-RoPE ids (``vlm_pos3``). Nothing
+    for a token-only arch."""
+    meta = shaped_batch(cfg, ShapeConfig("train", T, B, "train"))
+    gen = torch.Generator("cuda").manual_seed(step)
+    out = {name: randn(gen, *meta[name].shape, dtype=meta[name].dtype,
+                       scale=0.02)
+           for name in ("frames", "patch_embeds") if name in meta}
+    if "patch_pos" in meta:
+        P = meta["patch_pos"].shape[1]
+        grid = math.isqrt(P)
+        require(grid * grid == P, f"{P} patches are not a square grid")
+        out["patch_pos"] = torch.arange(VLM_AT, VLM_AT + P,
+                                        device="cuda")[None].expand(B, P)
+        out["pos3"] = vlm_pos3(B, T, grid)
+    return out
+
+
+def train_arch(spec: TrainArch):
+    """``Trainer`` on ``spec.arch`` as configured (bf16 params, its own
+    microbatches, remat and moments) at full width on ``SyntheticLM`` with
+    the arch's modality inputs (``train_modal``): step 0 on a cut of
+    ``spec.cut`` layers against the plain paths (with the routing pinned
+    for an MoE), one step twice from one state on the cut,
+    ``spec.steps`` steps at ``spec.depth`` layers with exact launch counts
+    and a falling loss, one traced step; peak memory logged. Returns
     (launches of the steps, metrics)."""
     t_phase = time.perf_counter()
-    cfg = get_config(MOE_ARCH)
-    require(cfg.param_dtype == "bfloat16" and cfg.opt_state_dtype ==
-            "float32" and cfg.microbatches == 4 and cfg.remat == "full"
-            and cfg.capacity_factor == 1.25 and (
-                cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.n_experts,
-                cfg.top_k, cfg.d_ff_expert, cfg.vocab_size) == (
-                2048, 16, 128, 64, 6, 1408, 163840),
-            f"{MOE_ARCH} is not configured as assumed")
-    src = SyntheticLM(cfg.vocab_size, TRAINER_BATCH[1], TRAINER_BATCH[0],
-                      seed=0)
-    batch = to_batch(src.batch(0), "cuda")
-    cut = dataclasses.replace(cfg, n_layers=MOE_CUT, block_pattern=())
+    cfg = get_config(spec.arch)
+    have = {f: getattr(cfg, f) for f in spec.assumed}
+    require(have == spec.assumed, f"{spec.arch} is not configured as "
+            f"assumed: {have}")
+    B, T = spec.batch
+    src = SyntheticLM(cfg.vocab_size, T, B, seed=0)
+    batch_fn = lambda step: {**src.batch(step),
+                             **train_modal(cfg, B, T, step)}
+    batch = to_batch(batch_fn(0), "cuda")
+    cut = (cfg if spec.cut == cfg.n_layers else
+           dataclasses.replace(cfg, n_layers=spec.cut, block_pattern=()))
+    torch.cuda.reset_peak_memory_stats()
     params = init_params(cut, torch.Generator("cuda").manual_seed(0),
                          device="cuda")
     n_cut = sum(t.numel() for t in tree_leaves(params))
-    log(f"trainer: {MOE_ARCH} in bf16 ({cfg.n_layers} layers configured, "
-        f"{MOE_DEPTH} trained; microbatches {cfg.microbatches}, remat "
-        f"{cfg.remat}, moments {cfg.opt_state_dtype}, capacity factor "
-        f"{cfg.capacity_factor}); SyntheticLM {TRAINER_BATCH[0]}x"
-        f"{TRAINER_BATCH[1]}; step 0 checked on a cut of {MOE_CUT} layers "
-        f"({n_cut / 1e9:.3f} B params)")
-    routing = PinnedRouting(cut)
+    log(f"trainer: {spec.arch} in bf16 ({cfg.n_layers} layers configured"
+        + (f" and {cfg.n_enc_layers} encoder layers" if cfg.enc_dec else "")
+        + f", {spec.depth} trained; microbatches {cfg.microbatches}, remat "
+        f"{cfg.remat}, moments {cfg.opt_state_dtype}); SyntheticLM {B}x{T}"
+        f"{' with ' + ', '.join(sorted(set(batch) - {'tokens', 'labels'})) if len(batch) > 2 else ''}"
+        f"; step 0 checked on {spec.cut} layers ({n_cut / 1e9:.3f} B params)")
+    routing = PinnedRouting(cut) if spec.pinned else None
     got = check_trainer_step0(cut, params, batch, routing=routing)
-    routing.log(cut)
+    if routing:
+        routing.log(cut)
     want_cut = trainer_launches(cut)
-    require(got == want_cut, f"{MOE_ARCH} step 0 at {MOE_CUT} layers "
+    require(got == want_cut, f"{spec.arch} step 0 at {spec.cut} layers "
             f"launched {got}, not {want_cut}")
     del routing
     check_step_repeats(cut, params, batch)
+    step0_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"trainer {spec.arch}: the step-0 checks' peak {step0_peak:.2f} GiB")
     del params
     gc.collect()
     torch.cuda.empty_cache()
 
-    run_cfg = dataclasses.replace(cfg, n_layers=MOE_DEPTH, block_pattern=())
-    workdir = tempfile.mkdtemp(prefix="trainer_moe_")
+    run_cfg = (cfg if spec.depth == cfg.n_layers else
+               dataclasses.replace(cfg, n_layers=spec.depth, block_pattern=()))
+    workdir = tempfile.mkdtemp(prefix="trainer_arch_")
     tc = TrainerConfig(ckpt_dir=workdir, ckpt_every=10**9,
                        peak_lr=TRAINER_LR, warmup=TRAINER_WARMUP,
                        total_steps=100, log_every=1)
     try:
         torch.cuda.reset_peak_memory_stats()
-        tr = Trainer(run_cfg, src.batch, tc, device="cuda", log=log)
+        tr = Trainer(run_cfg, batch_fn, tc, device="cuda", log=log)
         n_params = sum(t.numel() for t in tree_leaves(tr.params))
         state_gib = sum(t.numel() * t.element_size() for t in
                         tree_leaves(tr.params) + tree_leaves(tr.opt_state)
                         if torch.is_tensor(t)) / 2**30
-        log(f"trainer {MOE_ARCH} at {MOE_DEPTH} of {cfg.n_layers} layers: "
+        log(f"trainer {spec.arch} at {spec.depth} of {cfg.n_layers} layers: "
             f"{n_params / 1e9:.3f} B params, params and moments "
             f"{state_gib:.2f} GiB")
         want = trainer_launches(run_cfg)
@@ -4275,29 +4608,30 @@ def train_moe(card: str):
             return out
 
         tr.step_fn = counted
-        out = tr.run(MOE_STEPS)
+        out = tr.run(spec.steps)
         peak = torch.cuda.max_memory_allocated() / 2**30
         losses = out["losses"]
-        require(out["step"] == MOE_STEPS and len(calls) == MOE_STEPS,
-                f"{MOE_ARCH}: {len(calls)} step calls for {MOE_STEPS} steps")
+        require(out["step"] == spec.steps and len(calls) == spec.steps,
+                f"{spec.arch}: {len(calls)} step calls for {spec.steps} "
+                f"steps")
         launches = Counter()
         for i, got in enumerate(calls):
-            require(got == want, f"{MOE_ARCH} trainer step {i} launched "
+            require(got == want, f"{spec.arch} trainer step {i} launched "
                     f"{got}, not {want}")
             launches.update(got)
         require(all(math.isfinite(x) for x in losses), "non-finite loss")
-        require(losses[-1] < losses[0], f"{MOE_ARCH} trainer loss did not "
+        require(losses[-1] < losses[0], f"{spec.arch} trainer loss did not "
                 f"fall: {losses[0]:.4f} -> {losses[-1]:.4f}")
         tr.step_fn = step_fn
 
         def step_once():
             tr.params, tr.opt_state, m = tr.step_fn(
-                tr.params, tr.opt_state, batch, MOE_STEPS)
+                tr.params, tr.opt_state, batch, spec.steps)
             return m["loss"]
         profile = profile_train_step(step_once, {
             "flash_fwd_sm90_kernel<": want["flash_attention"],
             "flash_bwd_dq_sm90_kernel<": want["flash_attention_bwd"]},
-            moe=True)
+            moe=cfg.n_experts > 0)
         del tr
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -4308,14 +4642,140 @@ def train_moe(card: str):
                "losses": losses, "step0_ms": step_ms[0],
                "step_ms_median": float(np.median(step_ms[1:])),
                "step_ms": step_ms, "peak_mem_gib": peak,
-               "launches_per_step": want, **profile}
-    log(f"trainer metrics {MOE_ARCH} bf16 full width, {MOE_DEPTH} layers: "
+               "step0_check_peak_gib": step0_peak,
+               "launches_per_step": want,
+               "phase_s": time.perf_counter() - t_phase, **profile}
+    log(f"trainer metrics {spec.arch} bf16 full width, {spec.depth} layers: "
         + json.dumps(metrics))
-    trainer_cli(MOE_ARCH, MOE_CLI_STEPS)
-    sweep_cli_arch(MOE_ARCH)
-    moe_member_repeats()
-    log(f"phase 5j: {time.perf_counter() - t_phase:.1f} s ({card})")
     return dict(launches), metrics
+
+
+MOE_TRAIN = TrainArch(
+    MOE_ARCH, dict(param_dtype="bfloat16", opt_state_dtype="float32",
+                   microbatches=4, remat="full", capacity_factor=1.25,
+                   d_model=2048, n_heads=16, head_dim=128, n_experts=64,
+                   top_k=6, d_ff_expert=1408, vocab_size=163840),
+    cut=2, depth=4, batch=TRAINER_BATCH, steps=8,
+    path=f"{MOE_ARCH} Trainer (bf16, 4 layers)", pinned=True)
+
+
+def train_moe(card: str):
+    """Phase 5j: moonshot-v1-16b-a3b (capacity factor 1.25) at 4 of its 48
+    layers through ``train_arch`` (step 0 on a 2-layer cut, routing
+    pinned), two member steps, then the training CLIs of phases 5d, 5i
+    and 5j (``arch_clis``). Returns (launches of the steps, metrics)."""
+    t_phase = time.perf_counter()
+    out = train_arch(MOE_TRAIN)
+    moe_member_repeats()
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch_clis(card)
+    log(f"phase 5j: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 5k: the Trainer on mixtral-8x22b and the two frontend archs, in bf16
+# --------------------------------------------------------------------------
+FRONTEND_TRAIN = (
+    TrainArch("whisper-small", dict(
+        param_dtype="bfloat16", opt_state_dtype="float32", microbatches=1,
+        remat="full", n_layers=12, n_enc_layers=12, d_model=768, n_heads=12,
+        n_kv_heads=12, head_dim=64, qk_norm=False, enc_dec=True),
+        cut=12, depth=12, batch=TRAINER_BATCH, steps=8,
+        path="whisper-small train"),
+    TrainArch("qwen2-vl-7b", dict(
+        param_dtype="bfloat16", opt_state_dtype="float32", microbatches=4,
+        remat="full", d_model=3584, n_heads=28, n_kv_heads=4, head_dim=128,
+        qk_norm=False, vocab_size=152064, tie_embeddings=False),
+        cut=4, depth=4, batch=TRAINER_BATCH, steps=8,
+        path="qwen2-vl-7b train"),
+    TrainArch("mixtral-8x22b", dict(
+        param_dtype="bfloat16", opt_state_dtype="float32", microbatches=8,
+        remat="full", d_model=6144, n_heads=48, n_kv_heads=8, head_dim=128,
+        n_experts=8, top_k=2, d_ff_expert=16384, sliding_window=4096,
+        vocab_size=32768, qk_norm=False),
+        cut=1, depth=1, batch=(8, 4096), steps=8,
+        path="mixtral-8x22b train", pinned=True),
+)
+FRONTEND_FLASH = (   # phase 5k's attention regimes: B, T=S, H, KV, hd, causal,
+    (8, 512, 12, 12, 64, False, 0),    # window. whisper's encoder and its
+    (8, 512, 12, 12, 64, True, 0),     # cross attention at S = T; its decoder
+    (2, 512, 28, 4, 128, True, 0),     # qwen2-vl's microbatch: GQA 7
+    (1, 4096, 48, 8, 128, True, 4096),  # mixtral's: the window reaches key 0
+    (1, 5000, 48, 8, 128, True, 4096))  # past 4096 keys the window binds
+FRONTEND_RMS = ((4096, 768), (1024, 3584), (4096, 6144))   # rows, d a
+#   microbatch: whisper 8 x 512, qwen2-vl 2 x 512, mixtral 1 x 4096
+
+
+def check_frontend_train_kernels(gen):
+    """Phase 4's rows for phase 5k's paths: at each ``FRONTEND_FLASH``
+    regime the bf16 forward (per row against the plain version, with its
+    lse and rounding residual, twice the same bits, timed beside SDPA) and
+    the bf16 backward (``hold_flash_bwd_bf16``: per row, twice the same
+    bits, a run without the first key tile failing; timed beside SDPA's
+    backward); at T = 4096 under the 4096-key window, forward and backward
+    the same bits as without it (key 0 is inside every row's window: k >
+    q - window); at each ``FRONTEND_RMS`` shape the bf16 rmsnorm forward and
+    backward, each twice the same bits and timed. Returns (flash fwd rows,
+    flash bwd rows, rmsnorm rows, rmsnorm bwd rows)."""
+    fwd_rows, bwd_rows = [], []
+    for B, T, H, KV, hd, causal, window in FRONTEND_FLASH:
+        q, k, v, got, err, name = hold_flash(gen, B, T, T, H, KV, hd,
+                                             torch.bfloat16, causal, window)
+        check_flash_rows(q, k, v, got, name, window, causal=causal)
+        kw = dict(causal=causal, window=window, q_offset=0)
+        require(torch.equal(got, flash_attention(q, k, v, **kw)),
+                f"two flash_attention calls differ: {name}")
+        check_flash_lse(q, k, v, kw, name)
+        fwd_rows.append(time_flash(q, k, v, err, window, causal))
+        held = hold_flash_bwd_bf16(gen, B, T, H, KV, hd, window, causal)
+        if window == T:
+            check_window_edge(held)
+        bwd_rows.append(time_flash_bwd_bf16(**held))
+        del q, k, v, got, held
+        torch.cuda.empty_cache()
+    rms_rows, rms_bwd_rows = [], []
+    for rows, d in FRONTEND_RMS:
+        x = randn(gen, rows, d, dtype=torch.bfloat16)
+        g = (1 + 0.1 * randn(gen, d)).to(torch.bfloat16)
+        name = f"rows={rows} d={d} bfloat16"
+        err = hold_rmsnorm(name, x, g)
+        require(torch.equal(rmsnorm(x, g, eps=1e-6), rmsnorm(x, g, eps=1e-6)),
+                f"two rmsnorm calls differ: {name}")
+        rms_rows.append(time_rmsnorm(name, x, g, err))
+        rms_bwd_rows.append(hold_rmsnorm_bwd_bf16(gen, rows, d))
+    return fwd_rows, bwd_rows, rms_rows, rms_bwd_rows
+
+
+def check_window_edge(held):
+    """A window as long as the sequence: every row's window reaches key 0
+    (k > q - window holds for k = 0 up to q = window - 1), so the forward
+    and the backward must give the bits of plain causal attention, which
+    visit the same tiles with the same masks."""
+    q, k, v, do = (held[n] for n in ("q", "k", "v", "do"))
+    o, lse, o_lo = (held[n] for n in ("o", "lse", "o_lo"))
+    window = held["window"]
+    same = [torch.equal(flash_attention(q, k, v, window=window),
+                        flash_attention(q, k, v))]
+    same += [torch.equal(a, b) for a, b in zip(
+        flash_attention_bwd(q, k, v, o, lse, do, o_lo=o_lo, window=window),
+        flash_attention_bwd(q, k, v, o, lse, do, o_lo=o_lo))]
+    log(f"flash_attention T=S={q.shape[1]} window={window}: output, dq, dk, "
+        f"dv the same bits as without the window: {same}")
+    require(all(same), "a window as long as the sequence dropped a key")
+
+
+def train_frontend_archs(card: str) -> dict:
+    """Phase 5k: ``FRONTEND_TRAIN``'s archs in turn through ``train_arch``,
+    one on the card at a time. Returns each run's launches under its path's
+    name."""
+    t0 = time.perf_counter()
+    out = {}
+    for spec in FRONTEND_TRAIN:
+        out[spec.path], _ = train_arch(spec)
+    log(f"phase 5k: {time.perf_counter() - t0:.1f} s ({card})")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -4456,6 +4916,12 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(name):
+        """Logs the seconds since the last lap: each phase's time."""
+        laps.append(time.perf_counter())
+        log(f"{name}: {laps[-1] - laps[-2]:.1f} s (at {laps[-1] - t_start:.1f} s)")
 
     card = card_line()                                       # phase 1
     log(f"card: {card}")
@@ -4528,7 +4994,9 @@ def main():
                     f"a flash backward kernel does not fit an SM at hd={hd} "
                     f"{dtype}")
 
+    lap("phases 1-2 (card, build)")
     check_splitk(torch.Generator("cuda").manual_seed(1))    # phase 3
+    lap("phase 3")
 
     gen = torch.Generator("cuda").manual_seed(0)             # phase 4
     flash_rows = check_flash(gen)
@@ -4543,6 +5011,7 @@ def main():
         torch.Generator("cuda").manual_seed(31))
     flash_5h_row, flash_fp32_5h_row, rms_5h_row = check_nemotron_kernels(
         torch.Generator("cuda").manual_seed(32))
+    lap("phase 4")
 
     qwen, _ = serve("qwen3-0.6b", QWEN_LAYERS,                # phase 5
                     {"flash_attention": QWEN_LAYERS, "rmsnorm": QWEN_NORMS},
@@ -4555,18 +5024,22 @@ def main():
                      {"ssd_scan": ZAMBA_LAYERS, "flash_attention": ZAMBA_APPS,
                       "rmsnorm": ZAMBA_NORMS},
                      {"rmsnorm": ZAMBA_NORMS}, ssd="chunks")
+    lap("phase 5 (qwen3, xlstm, zamba2 serving)")
     archs = serve_archs(card)                                # phase 5f
     modal = serve_modal_archs(card)                          # phase 5g
     nemotron, _ = serve_nemotron(card)                       # phase 5h
     torch.cuda.empty_cache()
+    laps.append(time.perf_counter())
     train, train_metrics = train_full_width()                # phase 5b
     sweep, sweep_metrics = train_sweep()
     torch.cuda.empty_cache()
+    lap("phase 5b")
 
     sweep_cli()                                              # phase 5c
     cli, _ = sweep_in_process(sweep_metrics["final_losses"])
     full, _ = sweep_full_width(train_metrics["loss_first"])
     torch.cuda.empty_cache()
+    lap("phase 5c")
 
     trainer, trainer_metrics = trainer_full_width()          # phase 5d
     log(f"trainer: rmsnorm bwd in the traced step "
@@ -4575,29 +5048,39 @@ def main():
         f"{rms_bwd_bf16_step['ms']:.3f} ms (F.rms_norm backward "
         f"{rms_bwd_bf16_step['library_ms']:.3f}, bound "
         f"{rms_bwd_bf16_step['bound_ms']:.3f})")
-    trainer_cli()
     torch.cuda.empty_cache()
+    lap("phase 5d")
     # phase 4's rows of phase 5i's kernels, run after the serving phases:
     # the cuBLAS workspaces of these checks' streams stay, and would take
     # from the memory beside the serving phases' fp32 depth cuts
     ssd_bwd_rows, slstm_bwd_rows, flash_80_row, rms_5i_rows = \
         check_recurrent_bwd_kernels(torch.Generator("cuda").manual_seed(33))
     torch.cuda.empty_cache()
+    lap("phase 4, phase 5i's rows")
     recurrent = train_recurrent_archs(card)                  # phase 5i
     torch.cuda.empty_cache()
+    laps.append(time.perf_counter())
     flash_5j_row, flash_bwd_5j_row, rms_5j_row, rms_bwd_5j_row = \
         check_moe_train_kernels(torch.Generator("cuda").manual_seed(34))
     torch.cuda.empty_cache()
+    lap("phase 4, phase 5j's rows")
     moe_train, _ = train_moe(card)                           # phase 5j
+    torch.cuda.empty_cache()
+    laps.append(time.perf_counter())
+    flash_5k_rows, flash_bwd_5k_rows, rms_5k_rows, rms_bwd_5k_rows = \
+        check_frontend_train_kernels(torch.Generator("cuda").manual_seed(35))
+    torch.cuda.empty_cache()
+    lap("phase 4, phase 5k's rows")
+    frontend_train = train_frontend_archs(card)              # phase 5k
+    laps.append(time.perf_counter())
 
     launch_layer(card)                                       # phase 5e
 
     serving = {"qwen3-0.6b serve": qwen, "xlstm-1.3b serve": xlstm,
                "zamba2-2.7b serve": zamba, **archs, **modal, **nemotron}
     bf16_training = {"qwen3-0.6b Trainer (bf16, full width)": trainer,
-                     **recurrent,
-                     f"{MOE_ARCH} Trainer (bf16, {MOE_DEPTH} layers)":
-                         moe_train}
+                     **recurrent, MOE_TRAIN.path: moe_train,
+                     **frontend_train}
     xlstm_train = {k: v for k, v in recurrent.items() if "xlstm" in k}
     zamba_train = {k: v for k, v in recurrent.items() if "zamba2" in k}
     training = {"qwen3-0.6b train (fp32, full width)": train,
@@ -4619,7 +5102,8 @@ def main():
          **launches("flash_attention", {
              k: v for k, v in {**serving, **bf16_training}.items()
              if k not in nemotron}),
-         **flash_rows[REPORT_T], "regimes": flash_5g_rows + [flash_5j_row]},
+         **flash_rows[REPORT_T],
+         "regimes": flash_5g_rows + [flash_5j_row] + flash_5k_rows},
         {"name": "flash_attention_hd192", "route": "cuda",
          "source": csrc + "flash_attention_sm90.cu", "replaces": flash_tpu,
          "kernel": "flash_fwd_sm90_hd192_kernel<192> (64-row blocks, three "
@@ -4636,7 +5120,8 @@ def main():
          "source": csrc + "flash_attention_bwd_sm90.cu", "replaces": flash_tpu,
          **launches("flash_attention_bwd", {
              k: v for k, v in bf16_training.items() if k not in zamba_train}),
-         **flash_bwd_bf16_row, "regimes": [flash_bwd_5j_row]},
+         **flash_bwd_bf16_row,
+         "regimes": [flash_bwd_5j_row] + flash_bwd_5k_rows},
         {"name": "flash_attention_bwd_bf16_hd80", "route": "cuda",
          "source": csrc + "flash_attention_bwd_sm90.cu", "replaces": flash_tpu,
          "kernel": "flash_bwd_dkdv_sm90_kernel_one_wg<80>, "
@@ -4646,7 +5131,7 @@ def main():
          "replaces": rms_tpu,
          **launches("rmsnorm", {**serving, **training, **bf16_training}),
          **rms_rows[REPORT_RMS],
-         "regimes": rms_5g_rows + [rms_5h_row, rms_5j_row]},
+         "regimes": rms_5g_rows + [rms_5h_row, rms_5j_row] + rms_5k_rows},
         {"name": "rmsnorm_bwd", "route": "cuda",
          "source": csrc + "rmsnorm_bwd.cu", "replaces": rms_tpu,
          **launches("rmsnorm_bwd", training),
@@ -4655,7 +5140,8 @@ def main():
          "source": csrc + "rmsnorm_bwd_sm90.cu", "replaces": rms_tpu,
          **launches("rmsnorm_bwd", bf16_training),
          **rms_bwd_bf16_rows[RMS_BWD_BF16_REPORT],
-         "regimes": list(rms_5i_rows.values()) + [rms_bwd_5j_row]},
+         "regimes": (list(rms_5i_rows.values()) + [rms_bwd_5j_row]
+                     + rms_bwd_5k_rows)},
         {"name": "ssd_scan", "route": "cuda", "source": csrc + "ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:82",
          **launches("ssd_scan", {"xlstm-1.3b serve": xlstm, **xlstm_train}),

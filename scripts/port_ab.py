@@ -203,6 +203,22 @@ def flash_fwd(parent: Path) -> list:
     return ab_rows("flash_attention_fwd", lambda: call(old), lambda: call(new))
 
 
+FLASH_SCALARS = (ctypes.c_int,) * 9 + (ctypes.c_float, ctypes.c_void_p)
+
+
+def flash_parent_entry(parent: Path, source: str, entry: str):
+    """(``entry`` of the parent's flash ``source``, whether it takes the
+    output's rounding residual o_lo): its pointers counted from its own
+    signature, before the scalars every flash entry ends with."""
+    text = (parent / CSRC / source).read_text()
+    sig = text[text.index(f'extern "C" int {entry}('):]
+    sig = sig[:sig.index(")")]
+    pointers = sig.count(",") + 1 - len(FLASH_SCALARS)
+    return (parent_entry(parent, source, entry,
+                         (ctypes.c_void_p,) * pointers + FLASH_SCALARS),
+            "o_lo" in sig)
+
+
 def flash_sm90_fwd(parent: Path, shape) -> list:
     """The bf16 forward without lse: the parent's C entry against this
     checkout's wrapper."""
@@ -211,8 +227,8 @@ def flash_sm90_fwd(parent: Path, shape) -> list:
     import torch
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     entry = "flash_attention_sm90_fwd"
-    old = parent_entry(parent, "flash_attention_sm90.cu", entry,
-                       fa._ARGTYPES[entry])
+    old, residual = flash_parent_entry(parent, "flash_attention_sm90.cu",
+                                       entry)
     B, T, H, KV, hd = shape
     gen = torch.Generator("cuda").manual_seed(0)
     q = cs.randn(gen, B, T, H, hd, dtype=torch.bfloat16)
@@ -222,7 +238,8 @@ def flash_sm90_fwd(parent: Path, shape) -> list:
     def parent_call():
         o = torch.empty_like(q)
         code = old(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                   None, B, T, T, H, KV, hd, 1, 0, 0, 1.0 / math.sqrt(hd),
+                   *(None,) * (1 + residual), B, T, T, H, KV, hd, 1, 0, 0,
+                   1.0 / math.sqrt(hd),
                    torch.cuda.current_stream().cuda_stream)
         cs.build.check(code, "parent flash_attention_sm90_fwd")
         return (o,)
@@ -234,7 +251,9 @@ def flash_sm90_fwd(parent: Path, shape) -> list:
 def flash_bwd(parent: Path, dtype: str = "fp32", shape=SHAPE) -> list:
     """``dtype`` "fp32" or "bf16": the parent's C entry for that dtype (in
     its ``flash_attention_bwd_sm90.cu`` where it has one) against this
-    checkout's backward."""
+    checkout's backward, called as training calls it: in bf16 with the plain
+    forward's rounding residual o_lo, which a parent that takes one is
+    handed too (an older parent's D reads o alone, so its bits differ)."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     import torch
@@ -243,26 +262,30 @@ def flash_bwd(parent: Path, dtype: str = "fp32", shape=SHAPE) -> list:
     source = "flash_attention_bwd_sm90.cu"  # the bf16 entry, in newer trees
     if dtype == "fp32" or not (parent / CSRC / source).exists():
         source = "flash_attention_bwd.cu"
-    old = parent_entry(parent, source, entry[dtype], fa._BWD_ARGTYPES)
+    old, residual = flash_parent_entry(parent, source, entry[dtype])
     B, T, H, KV, hd = shape
     gen = torch.Generator("cuda").manual_seed(0)
     tdt = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype]
     q, do = (cs.randn(gen, B, T, H, hd, dtype=tdt) for _ in range(2))
     k, v = (cs.randn(gen, B, T, KV, hd, dtype=tdt) for _ in range(2))
-    o, lse = cs.flash_attention_ref(q, k, v, with_lse=True)
+    o, lse, o_lo = cs.flash_attention_ref(q, k, v, with_lse=True,
+                                          with_residual=True)
     o = o.contiguous()
+    o_lo = o_lo.contiguous() if dtype == "bf16" else None   # as training
 
     def parent_call():
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        lo = (None if o_lo is None else o_lo.data_ptr(),) * residual
         code = old(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                   lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                   dv.data_ptr(), torch.empty_like(lse).data_ptr(), B, T, T, H,
-                   KV, hd, 1, 0, 0, 1.0 / math.sqrt(hd),
+                   *lo, lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                   dk.data_ptr(), dv.data_ptr(),
+                   torch.empty_like(lse).data_ptr(), B, T, T, H, KV, hd, 1, 0,
+                   0, 1.0 / math.sqrt(hd),
                    torch.cuda.current_stream().cuda_stream)
         cs.build.check(code, "parent flash_attention_bwd")
         return dq, dk, dv
 
-    this_call = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do)
+    this_call = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, o_lo=o_lo)
     return ab_rows("flash_attention_bwd", parent_call, this_call, dtype,
                    shape, split=dtype == "bf16")
 

@@ -13,7 +13,9 @@
 // hd 32, 64, 80 or 128, lse = +inf for a row with no visible key (its P, and
 // its share of every gradient, is then 0). With s = scale * q.k and
 // P = exp(s - lse):
-//   D  = rowsum(do * o)                 (flash_bwd_delta_kernel, fp32)
+//   D  = rowsum(do * (o + o_lo))        (flash_bwd_delta_kernel, fp32;
+//                                        o_lo: the forward's rounding
+//                                        residual of O)
 //   dv = P^T do,  dS = P * (do v^T - D)
 //   dk = scale * dS^T q                 (flash_bwd_dkdv_sm90_kernel)
 //   dq = scale * dS k                   (flash_bwd_dq_sm90_kernel)
@@ -274,18 +276,22 @@ __device__ __forceinline__ bool whole_tiles(int q0, int k0, int T_len, int S_len
            (window <= 0 || k0 > q0 + BQ - 1 + q_offset - window);
 }
 
-// D[b, h, t] = sum_d do[b, t, h, d] * o[b, t, h, d]: one warp per row.
+// D[b, h, t] = sum_d do[b, t, h, d] * (o + o_lo)[b, t, h, d]: one warp per
+// row; o_lo is the forward's rounding residual (flash_attention_sm90.cu).
 template <int HD>
 __global__ void __launch_bounds__(DELTA_NT)
-flash_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
-                       float* __restrict__ delta, long long n_rows, int T_len, int H) {
+flash_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ o_lo,
+                       const __nv_bfloat16* __restrict__ dout, float* __restrict__ delta,
+                       long long n_rows, int T_len, int H) {
     const long long row = static_cast<long long>(blockIdx.x) * (DELTA_NT / 32) + (threadIdx.x >> 5);
     if (row >= n_rows) return;
     const int lane = threadIdx.x & 31;
     float acc = 0.f;
 #pragma unroll
-    for (int c = lane; c < HD; c += 32)
-        acc = fmaf(__bfloat162float(dout[row * HD + c]), __bfloat162float(o[row * HD + c]), acc);
+    for (int c = lane; c < HD; c += 32) {
+        const float oc = __bfloat162float(o[row * HD + c]) + __bfloat162float(o_lo[row * HD + c]);
+        acc = fmaf(__bfloat162float(dout[row * HD + c]), oc, acc);
+    }
     acc = warp_sum(acc);
     if (lane == 0) {                     // row = (b * T + t) * H + h
         const long long bt = row / H;
@@ -763,9 +769,9 @@ cudaError_t set_smem() {
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, const void* o, const float* lse,
-           const void* dout, void* dq, void* dk, void* dv, float* delta, int B, int T_len,
-           int S_len, int H, int KV, int causal, int window, int q_offset, float scale,
+int launch(const void* q, const void* k, const void* v, const void* o, const void* o_lo,
+           const float* lse, const void* dout, void* dq, void* dk, void* dv, float* delta, int B,
+           int T_len, int S_len, int H, int KV, int causal, int window, int q_offset, float scale,
            cudaStream_t s) {
     using T = Tile<HD>;
     CUtensorMap qmap, kmap, vmap, dmap, dqmap, dkmap, dvmap;
@@ -785,7 +791,8 @@ int launch(const void* q, const void* k, const void* v, const void* o, const flo
     constexpr int rows_per_block = DELTA_NT / 32;
     flash_bwd_delta_kernel<HD><<<static_cast<unsigned>((n_rows + rows_per_block - 1) /
                                                        rows_per_block),
-                                 DELTA_NT, 0, s>>>(bf(o), bf(dout), delta, n_rows, T_len, H);
+                                 DELTA_NT, 0, s>>>(bf(o), bf(o_lo), bf(dout), delta, n_rows,
+                                                   T_len, H);
     const dim3 kv_grid(B * KV, (S_len + BK - 1) / BK);
     if constexpr (Tile<HD>::ONE_WG)
         flash_bwd_dkdv_sm90_kernel_one_wg<HD><<<kv_grid, WG, DkdvOneSmem<HD>::bytes, s>>>(
@@ -828,27 +835,29 @@ int occupancy(int* out) {
 }  // namespace
 
 // q, o, dout, dq: [B,T,H,hd]; k, v, dk, dv: [B,S,KV,hd]; all contiguous
-// bf16, 16-byte aligned; lse (from the forward) and delta (scratch): fp32
-// [B,H,T].
+// bf16, 16-byte aligned; o_lo: O's rounding residual from the forward, same
+// shape (D reads o + o_lo); lse (from the forward) and delta (scratch):
+// fp32 [B,H,T].
 extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
-                                        const void* o, const void* lse, const void* dout,
-                                        void* dq, void* dk, void* dv, void* delta, int B,
-                                        int T_len, int S_len, int H, int KV, int hd, int causal,
-                                        int window, int q_offset, float scale, void* stream) {
+                                        const void* o, const void* o_lo, const void* lse,
+                                        const void* dout, void* dq, void* dk, void* dv,
+                                        void* delta, int B, int T_len, int S_len, int H, int KV,
+                                        int hd, int causal, int window, int q_offset,
+                                        float scale, void* stream) {
     if (B <= 0 || T_len <= 0 || S_len <= 0 || KV <= 0 || H % KV != 0 || B * H > 65535 ||
-        (T_len + BQ - 1) / BQ > 65535 || (S_len + BK - 1) / BK > 65535)
+        (T_len + BQ - 1) / BQ > 65535 || (S_len + BK - 1) / BK > 65535 || o_lo == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
     auto l = static_cast<const float*>(lse);
     auto d = static_cast<float*>(delta);
     auto s = static_cast<cudaStream_t>(stream);
     switch (hd) {
-        case 32: return launch<32>(q, k, v, o, l, dout, dq, dk, dv, d, B, T_len, S_len, H, KV,
+        case 32: return launch<32>(q, k, v, o, o_lo, l, dout, dq, dk, dv, d, B, T_len, S_len, H, KV,
                                    causal, window, q_offset, scale, s);
-        case 64: return launch<64>(q, k, v, o, l, dout, dq, dk, dv, d, B, T_len, S_len, H, KV,
+        case 64: return launch<64>(q, k, v, o, o_lo, l, dout, dq, dk, dv, d, B, T_len, S_len, H, KV,
                                    causal, window, q_offset, scale, s);
-        case 80: return launch<80>(q, k, v, o, l, dout, dq, dk, dv, d, B, T_len, S_len, H, KV,
+        case 80: return launch<80>(q, k, v, o, o_lo, l, dout, dq, dk, dv, d, B, T_len, S_len, H, KV,
                                    causal, window, q_offset, scale, s);
-        case 128: return launch<128>(q, k, v, o, l, dout, dq, dk, dv, d, B, T_len, S_len, H,
+        case 128: return launch<128>(q, k, v, o, o_lo, l, dout, dq, dk, dv, d, B, T_len, S_len, H,
                                      KV, causal, window, q_offset, scale, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }

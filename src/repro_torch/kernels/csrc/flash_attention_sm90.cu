@@ -72,6 +72,17 @@
 //   scale*log2(e) folded into m; lse is written in the backward's units,
 //   natural log of the scaled scores: m*ln(2) + log(l), and +inf for a row
 //   whose l is 0 (no visible key). Serving passes a null lse and writes none.
+// - Training at hd <= 128 also passes o_lo, and the kernel writes there what
+//   rounding O to bf16 dropped, bf16(o - bf16(o)) from the same fp32 value:
+//   the backward's D = rowsum(do * o) then reads o + o_lo, about 16 bits of
+//   the fp32 output where bf16 O alone holds 8. D is subtracted from every
+//   dP of its row, so an error in it does not average out over the keys: it
+//   adds D's error times the row's mean key to dq. With whisper's QKV biases
+//   (a large common part of v, hence of o and dP, that dP - D cancels),
+//   D from bf16 O made the reduced model's dq-side gradients (ln_x, the
+//   query projections) up to 3.1x as far from the fp32 result as JAX's bf16
+//   gradients are (tests/test_torch_frontend_train.py). One more 4-byte
+//   store a thread per 2 columns, as O's.
 //
 // Left for later, at hd <= 128: the next tile's Q K^T issued under this
 // tile's softmax (FA3's intra-warpgroup overlap), a persistent grid, the TMA
@@ -109,8 +120,9 @@ __global__ void __launch_bounds__(NT, Cfg<HD>::BLOCKS)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
-                      float* __restrict__ lse, int T_len, int S_len, int H, int KV, int causal,
-                      int window, int q_offset, float scale_log2) {
+                      __nv_bfloat16* __restrict__ o_lo, float* __restrict__ lse, int T_len,
+                      int S_len, int H, int KV, int causal, int window, int q_offset,
+                      float scale_log2) {
     using C = Cfg<HD>;
     extern __shared__ unsigned char smem_raw[];
     const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -287,11 +299,23 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
             *reinterpret_cast<uint32_t*>(o1 + 8 * i + col) =
                 pack_bf16(acc[4 * i + 2] * inv1, acc[4 * i + 3] * inv1);
     }
+    if (o_lo != nullptr) {                        // training: O's rounding residual
+        const long long off = o0 - o;
+#pragma unroll
+        for (int i = 0; i < HD / 8; ++i) {
+            if (w0)
+                *reinterpret_cast<uint32_t*>(o_lo + off + 8 * i + col) =
+                    pack_residual(acc[4 * i] * inv0, acc[4 * i + 1] * inv0);
+            if (w1)
+                *reinterpret_cast<uint32_t*>(o_lo + off + 8 * row_stride + 8 * i + col) =
+                    pack_residual(acc[4 * i + 2] * inv1, acc[4 * i + 3] * inv1);
+        }
+    }
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int T_len,
-           int S_len, int H, int KV, int causal, int window, int q_offset, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, void* o_lo, float* lse, int B,
+           int T_len, int S_len, int H, int KV, int causal, int window, int q_offset, float scale,
            cudaStream_t stream) {
     using C = Cfg<HD>;
     CUtensorMap qmap, kmap, vmap;
@@ -304,8 +328,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
                                            C::bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(B * H, (T_len + BQ - 1) / BQ);
-    kernel<<<grid, NT, C::bytes, stream>>>(qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), lse,
-                                           T_len, S_len, H, KV, causal, window, q_offset,
+    kernel<<<grid, NT, C::bytes, stream>>>(qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o),
+                                           static_cast<__nv_bfloat16*>(o_lo), lse, T_len, S_len,
+                                           H, KV, causal, window, q_offset,
                                            scale * 1.4426950408889634f);
     return static_cast<int>(cudaGetLastError());
 }
@@ -601,22 +626,24 @@ int occupancy_hd192(int* out) {
 
 }  // namespace
 
-// q, o: [B,T,H,hd]; k, v: [B,S,KV,hd]; all contiguous bf16, 16-byte aligned.
-// lse: fp32 [B,H,T], or null to write none (serving).
+// q, o, o_lo: [B,T,H,hd]; k, v: [B,S,KV,hd]; all contiguous bf16, 16-byte
+// aligned. o_lo: O's bf16 rounding residual, or null to write none (serving;
+// hd 192, which has no backward, takes null only). lse: fp32 [B,H,T], or
+// null to write none (serving).
 extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void* v, void* o,
-                                        void* lse, int B, int T_len, int S_len, int H, int KV,
-                                        int hd, int causal, int window, int q_offset,
-                                        float scale, void* stream) {
+                                        void* o_lo, void* lse, int B, int T_len, int S_len,
+                                        int H, int KV, int hd, int causal, int window,
+                                        int q_offset, float scale, void* stream) {
     if (B <= 0 || T_len <= 0 || S_len <= 0 || KV <= 0 || H % KV != 0 ||
-        (T_len + BQ - 1) / BQ > 65535)
+        (T_len + BQ - 1) / BQ > 65535 || (hd == 192 && o_lo != nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
     auto s = static_cast<cudaStream_t>(stream);
     auto l = static_cast<float*>(lse);
     switch (hd) {
-        case 32: return launch<32>(q, k, v, o, l, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
-        case 64: return launch<64>(q, k, v, o, l, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
-        case 80: return launch<80>(q, k, v, o, l, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
-        case 128: return launch<128>(q, k, v, o, l, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
+        case 32: return launch<32>(q, k, v, o, o_lo, l, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
+        case 64: return launch<64>(q, k, v, o, o_lo, l, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
+        case 80: return launch<80>(q, k, v, o, o_lo, l, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
+        case 128: return launch<128>(q, k, v, o, o_lo, l, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
         case 192: return launch_hd192<192>(q, k, v, o, l, B, T_len, S_len, H, KV, causal, window, q_offset, scale, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }

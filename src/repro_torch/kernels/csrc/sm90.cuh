@@ -82,6 +82,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// What pack_bf16 drops from each value, rounded to bf16 in turn:
+// bf16(x - bf16(x)), so that a bf16 pair (hi, lo) holds about 16 bits of x.
+__device__ __forceinline__ uint32_t pack_residual(float a, float b) {
+    return pack_bf16(a - __bfloat162float(__float2bfloat16_rn(a)),
+                     b - __bfloat162float(__float2bfloat16_rn(b)));
+}
+
 // ---- wgmma ----------------------------------------------------------------
 __device__ __forceinline__ void wgmma_fence() {
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");

@@ -12,7 +12,9 @@ sources for what bounds them and how).
 
 Where grad is enabled and an input requires it, the call goes through an
 ``autograd.Function``: the forward then also writes each row's log-sum-exp
-(both kernels can; serving asks neither to), and the backward
+(both kernels can; serving asks neither to) and, in bf16, what rounding
+the output to bf16 dropped (``o_lo``, for the backward's D = rowsum(do *
+o): see ``csrc/flash_attention_sm90.cu``), and the backward
 (``flash_attention_bwd``) launches, by the inputs' dtype, the CUDA-core
 kernels of ``csrc/flash_attention_bwd.cu`` (fp32) or the tensor-core
 kernels of ``csrc/flash_attention_bwd_sm90.cu`` (bf16). On CPU tensors the
@@ -40,11 +42,15 @@ _BWD_HEAD_DIMS = {torch.float32: (32, 64, 128),
 _SCALARS = (ctypes.c_int,) * 9 + (ctypes.c_float, ctypes.c_void_p)
 _ENTRY = {torch.float32: "flash_attention_fwd",          # CUDA cores
           torch.bfloat16: "flash_attention_sm90_fwd"}    # tensor cores
-_ARGTYPES = {name: (ctypes.c_void_p,) * 5 + _SCALARS     # q, k, v, o, lse
-             for name in _ENTRY.values()}
+_ARGTYPES = {"flash_attention_fwd":                      # q, k, v, o, lse
+             (ctypes.c_void_p,) * 5 + _SCALARS,
+             "flash_attention_sm90_fwd":                 # q, k, v, o, o_lo, lse
+             (ctypes.c_void_p,) * 6 + _SCALARS}
 _BWD_ENTRY = {torch.float32: "flash_attention_bwd",
               torch.bfloat16: "flash_attention_bwd_bf16"}
-_BWD_ARGTYPES = (ctypes.c_void_p,) * 10 + _SCALARS
+_BWD_ARGTYPES = (ctypes.c_void_p,) * 10 + _SCALARS      # q, k, v, o, lse, do,
+#   dq, dk, dv, delta; the bf16 entry takes o's rounding residual after o
+_BWD_BF16_ARGTYPES = (ctypes.c_void_p,) * 11 + _SCALARS
 _OCC_ARGTYPES = (ctypes.c_int, ctypes.c_void_p)
 BWD_HEAD_DIM = ("the flash_attention backward at head_dim {} in {} is not "
                 "written yet (ROADMAP.md queue 2 item 1); it takes {}")
@@ -63,13 +69,16 @@ def visible(T: int, S: int, q_offset: int, causal: bool, window: int, device):
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                        q_offset: int = 0, with_lse: bool = False):
+                        q_offset: int = 0, with_lse: bool = False,
+                        with_residual: bool = False):
     """Plain PyTorch version of the kernel's contract, in fp32.
 
     q: [B,T,H,hd], k/v: [B,S,KV,hd] -> [B,T,H,hd] in q's dtype. Masked keys
     get no weight; a row with no visible key gives 0 (the TPU kernel's
     ``l == 0`` finalise). ``with_lse`` also returns each row's log-sum-exp of
-    the scaled scores, fp32 [B,H,T], +inf for a row with no visible key.
+    the scaled scores, fp32 [B,H,T], +inf for a row with no visible key;
+    ``with_residual`` then also what rounding the fp32 output to q's dtype
+    dropped, in q's dtype (the bf16 kernel's ``o_lo``).
     """
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
@@ -83,23 +92,28 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(ok, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
-    out = torch.matmul(p, vf) / torch.where(l == 0, 1.0, l)
-    out = out.transpose(1, 2).to(q.dtype)
+    out32 = (torch.matmul(p, vf) / torch.where(l == 0, 1.0, l)).transpose(1, 2)
+    out = out32.to(q.dtype)
     if not with_lse:
         return out
     lse = torch.where(l == 0, math.inf, m + torch.log(l))[..., 0]
-    return out, lse
+    if not with_residual:
+        return out, lse
+    return out, lse, (out32 - out.float()).to(q.dtype)
 
 
 def bwd_operands(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0,
-                 q_offset: int = 0):
+                 q_offset: int = 0, o_lo=None):
     """The plain backward's fp32 operands: q, k and v (k and v repeated to
     q's heads) and do as [B,H,T or S,hd], P = exp(s - lse) on visible keys
-    and dS = P * (do v^T - rowsum(do * o)) as [B,H,T,S], and the scale."""
+    and dS = P * (do v^T - rowsum(do * o)) as [B,H,T,S] (o + ``o_lo``
+    where the forward's rounding residual is given), and the scale."""
     T, H, hd = q.shape[1:]
     S, KV = k.shape[1], k.shape[2]
     group = H // KV
     scale = 1.0 / math.sqrt(hd)
+    if o_lo is not None:
+        o = o.float() + o_lo.float()
     qf, of, dof = (t.float().transpose(1, 2) for t in (q, o, do))  # [B,H,T,hd]
     kf = k.float().repeat_interleave(group, dim=2).transpose(1, 2)
     vf = v.float().repeat_interleave(group, dim=2).transpose(1, 2)
@@ -119,17 +133,19 @@ def per_kv_head(t, KV: int):
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
                             window: int = 0, q_offset: int = 0,
-                            bf16_operands: bool = False):
+                            bf16_operands: bool = False, o_lo=None):
     """Plain backward in fp32, the formulas of ``csrc/flash_attention_bwd.cu``:
     with s = scale * q.k and P = exp(s - lse) on visible keys,
     dv = P^T do, dS = P * (do v^T - rowsum(do * o)), dq = scale * dS k,
-    dk = scale * dS^T q; dk and dv summed over each KV head's query heads.
+    dk = scale * dS^T q; dk and dv summed over each KV head's query heads;
+    o + ``o_lo`` in D where the forward's rounding residual is given.
     ``bf16_operands`` rounds P and dS to bf16 where the bf16 kernels of
     ``csrc/flash_attention_bwd_sm90.cu`` hand them to the tensor cores (P
     before P^T do, dS before dS k and dS^T q), every sum still in fp32.
     Returns (dq, dk, dv) in q's, k's and v's dtypes."""
     qf, kf, dof, p, ds, scale = bwd_operands(
-        q, k, v, o, lse, do, causal=causal, window=window, q_offset=q_offset)
+        q, k, v, o, lse, do, causal=causal, window=window, q_offset=q_offset,
+        o_lo=o_lo)
     if bf16_operands:
         p, ds = (t.to(torch.bfloat16).float() for t in (p, ds))
     dq = torch.matmul(ds, kf) * scale
@@ -180,12 +196,22 @@ def _stream(t):
 
 
 def _forward(q, k, v, causal, window, q_offset, with_lse):
-    """(out, lse): lse fp32 [B,H,T] when ``with_lse``, else None (the
-    kernel is then handed a null lse and writes none)."""
+    """(out, lse, out_lo): lse fp32 [B,H,T] when ``with_lse`` (training),
+    else None (the kernel is then handed a null lse and writes none); out_lo
+    when training in bf16, what rounding the output to bf16 dropped (the
+    backward's D reads out + out_lo), else None. On the card the hd 192
+    kernel, which has no backward, writes no out_lo."""
+    residual = (with_lse and q.dtype == torch.bfloat16
+                and (q.device.type == "cpu"
+                     or q.shape[-1] in _BWD_HEAD_DIMS[torch.bfloat16]))
     if q.device.type == "cpu":
+        if not with_lse:
+            return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset), None, None
         got = flash_attention_ref(q, k, v, causal=causal, window=window,
-                                  q_offset=q_offset, with_lse=with_lse)
-        return got if with_lse else (got, None)
+                                  q_offset=q_offset, with_lse=True,
+                                  with_residual=residual)
+        return got if residual else (*got, None)
     _check(q, k, v)
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
@@ -193,47 +219,68 @@ def _forward(q, k, v, causal, window, q_offset, with_lse):
     entry = _ENTRY[q.dtype]
     lse = (torch.empty(B, H, T, dtype=torch.float32, device=q.device)
            if with_lse else None)
+    out_lo = torch.empty_like(q) if residual else None
+    residual = () if q.dtype == torch.float32 else (
+        None if out_lo is None else out_lo.data_ptr(),)
     fn = build.function(entry, _ARGTYPES[entry])
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  None if lse is None else lse.data_ptr(), B, T, S, H, KV, hd,
-                  int(causal), int(window), int(q_offset), 1.0 / math.sqrt(hd),
-                  _stream(q))
+                  *residual, None if lse is None else lse.data_ptr(), B, T, S,
+                  H, KV, hd, int(causal), int(window), int(q_offset),
+                  1.0 / math.sqrt(hd), _stream(q))
     build.check(code, "flash_attention")
     build.LAUNCHES["flash_attention"] += 1
-    return out, lse
+    return out, lse, out_lo
+
+
+def _check_residual(q, o_lo):
+    """A bf16 backward takes the forward's ``o_lo`` and an fp32 one none
+    (an fp32 output has no rounding to undo)."""
+    if (o_lo is None) == (q.dtype == torch.bfloat16):
+        raise ValueError(f"flash_attention_bwd: o_lo, the forward's rounding "
+                         f"residual, is taken in bfloat16 and only there; "
+                         f"got {'none' if o_lo is None else 'one'} in "
+                         f"{str(q.dtype)[6:]}")
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
-                        window: int = 0, q_offset: int = 0):
+                        window: int = 0, q_offset: int = 0, o_lo=None):
     """(dq, dk, dv) of ``flash_attention`` at (q, k, v), given its output
-    ``o``, its fp32 ``lse`` [B,H,T] and the output's gradient ``do``.
+    ``o``, its fp32 ``lse`` [B,H,T] and the output's gradient ``do``; in
+    bf16 also ``o_lo`` (required there, and taken nowhere else), what the
+    forward's rounding of ``o`` dropped: D reads o + o_lo.
 
     A CPU tensor takes ``flash_attention_bwd_ref``; a CUDA tensor three
-    kernels per call, D = rowsum(do * o), then dk/dv and dq, with no
-    atomics, so the result is the same on every call: in fp32 those of
-    ``csrc/flash_attention_bwd.cu`` (CUDA cores, tiles by cp.async), in bf16
-    those of ``csrc/flash_attention_bwd_sm90.cu`` (wgmma on tiles placed by
-    TMA, P and dS rounded to bf16 as ``flash_attention_bwd_ref(...,
-    bf16_operands=True)`` rounds them). ``LAUNCHES["flash_attention_bwd"]``
-    counts the call once, whichever dtype; one at a head_dim its dtype's
-    kernels do not take (``_BWD_HEAD_DIMS``: 80 in fp32, 192 in both)
-    raises ``NotImplementedError`` before any launch. q, k, v, o and do share one
+    kernels per call, D = rowsum(do * o) (o + o_lo in bf16), then dk/dv and
+    dq, with no atomics, so the result is the same on every call: in fp32
+    those of ``csrc/flash_attention_bwd.cu`` (CUDA cores, tiles by
+    cp.async), in bf16 those of ``csrc/flash_attention_bwd_sm90.cu`` (wgmma
+    on tiles placed by TMA, P and dS rounded to bf16 as
+    ``flash_attention_bwd_ref(..., bf16_operands=True)`` rounds them).
+    ``LAUNCHES["flash_attention_bwd"]`` counts the call once, whichever
+    dtype; one at a head_dim its dtype's kernels do not take
+    (``_BWD_HEAD_DIMS``: 80 in fp32, 192 in both) raises
+    ``NotImplementedError`` before any launch. q, k, v, o and do share one
     dtype, fp32 or bf16, and lse is fp32. q, k, v and do must be 16-byte
     aligned (the kernels load them in 16-byte pieces or by TMA).
     """
     if q.device.type == "cpu":
+        _check_residual(q, o_lo)
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
-                                       window=window, q_offset=q_offset)
+                                       window=window, q_offset=q_offset,
+                                       o_lo=o_lo)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no kernel for device "
                          f"{q.device}")
     _check(q, k, v, backward=True)
+    _check_residual(q, o_lo)
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
-    for name, t, shape, dtype in (("o", o, q.shape, q.dtype),
-                                  ("do", do, q.shape, q.dtype),
-                                  ("lse", lse, (B, H, T), torch.float32)):
+    bf16 = q.dtype == torch.bfloat16
+    checked = (("o", o, q.shape, q.dtype), ("do", do, q.shape, q.dtype),
+               ("lse", lse, (B, H, T), torch.float32)) + (
+        (("o_lo", o_lo, q.shape, q.dtype),) if bf16 else ())
+    for name, t, shape, dtype in checked:
         if (t.shape != shape or t.dtype != dtype
                 or t.device != q.device or not t.is_contiguous()):
             raise ValueError(f"flash_attention_bwd: {name} must be a "
@@ -244,11 +291,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                          "is not 16-byte aligned")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
-    fn = build.function(_BWD_ENTRY[q.dtype], _BWD_ARGTYPES)
+    fn = build.function(_BWD_ENTRY[q.dtype],
+                        _BWD_BF16_ARGTYPES if bf16 else _BWD_ARGTYPES)
+    residual = (o_lo.data_ptr(),) if bf16 else ()
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                  dv.data_ptr(), delta.data_ptr(), B, T, S, H, KV, hd,
+                  *residual, lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                  dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B, T, S, H,
+                  KV, hd,
                   int(causal), int(window), int(q_offset),
                   1.0 / math.sqrt(hd), _stream(q))
     build.check(code, "flash_attention_bwd")
@@ -257,20 +307,22 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
 
 
 class FlashAttention(torch.autograd.Function):
-    """The forward kernel (with lse) and ``flash_attention_bwd``."""
+    """The forward kernel (with lse and, in bf16, the output's rounding
+    residual) and ``flash_attention_bwd``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset):
-        out, lse = _forward(q, k, v, causal, window, q_offset, with_lse=True)
+        out, lse, out_lo = _forward(q, k, v, causal, window, q_offset,
+                                    with_lse=True)
         ctx.mask = dict(causal=causal, window=window, q_offset=q_offset)
-        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.save_for_backward(q, k, v, out, lse, out_lo)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, out_lo = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
-                                         **ctx.mask)
+                                         o_lo=out_lo, **ctx.mask)
         return dq, dk, dv, None, None, None
 
 

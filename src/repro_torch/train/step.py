@@ -15,8 +15,8 @@ Differences by design, beside the reference:
   the step, the port updates them in place (``adamw_update``), after every
   gradient is computed; the step returns the trees it was given.
 - The microbatches run in a Python loop where JAX scans them.
-- ``shaped_batch`` (abstract batches for the dry run) is left out: only
-  ``launch/dryrun.py``, which is not ported, uses it.
+- ``shaped_batch`` gives tensors on the ``meta`` device where JAX gives
+  ``ShapeDtypeStruct``s, and its ids are ``torch.long`` (see there).
 """
 from __future__ import annotations
 
@@ -32,6 +32,31 @@ from repro_torch.optim import (adamw_init, adamw_update, compress_residual,
 F32 = torch.float32
 
 
+def shaped_batch(cfg, shape):
+    """A batch of one cell as tensors on the ``meta`` device (shapes and
+    dtypes, no storage), as ``repro/train/step.py:30-48``: tokens and labels
+    [B, T]; whisper's ``frames`` [B, T, d] for a train shape and
+    [B, enc_len, d] otherwise; qwen2-vl's M-RoPE ``pos3`` [3, B, T],
+    ``patch_embeds`` [B, npatch, d] and ``patch_pos`` [B, npatch] with
+    npatch = max(8, min(1024, T // 8)). Embeddings are bf16, as JAX's;
+    the ids are ``torch.long`` where JAX's are int32, because the port
+    indexes with them (``F.embedding``, ``index_put``, ``gather``) and
+    ``to_batch`` gives every id tensor that dtype."""
+    B, T = shape.global_batch, shape.seq_len
+    ids = lambda *s: torch.empty(s, dtype=torch.long, device="meta")
+    emb = lambda *s: torch.empty(s, dtype=torch.bfloat16, device="meta")
+    batch = {"tokens": ids(B, T), "labels": ids(B, T)}
+    if cfg.enc_dec:
+        batch["frames"] = emb(B, T if shape.kind == "train" else cfg.enc_len,
+                              cfg.d_model)
+    if cfg.mrope_sections:
+        npatch = max(8, min(1024, T // 8))
+        batch["pos3"] = ids(3, B, T)
+        batch["patch_embeds"] = emb(B, npatch, cfg.d_model)
+        batch["patch_pos"] = ids(B, npatch)
+    return batch
+
+
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``; raises for a CUDA device when no
     card is visible (nothing falls back to the CPU)."""
@@ -43,9 +68,13 @@ def resolve_device(device) -> torch.device:
 
 
 def to_batch(batch, device):
-    """numpy (or tensor) batch -> int64 tensors on ``device``."""
-    return {k: torch.as_tensor(v, device=device).long()
-            for k, v in batch.items()}
+    """numpy (or tensor) batch -> tensors on ``device``: ids (tokens,
+    labels, ``pos3``, ``patch_pos``) as int64, embeddings (``frames``,
+    ``patch_embeds``) in their own floating dtype."""
+    def leaf(v):
+        t = torch.as_tensor(v, device=device)
+        return t if t.is_floating_point() else t.long()
+    return {k: leaf(v) for k, v in batch.items()}
 
 
 def loss_and_grads(params, cfg, batch):

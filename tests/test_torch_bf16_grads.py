@@ -119,8 +119,9 @@ def test_flash_bwd_ref_bf16_vs_jax_vjp(B, T, S, H, KV, hd, window, q_offset):
 def test_flash_function_bf16_cpu_vs_jax_vjp(B, T, S, H, KV, hd, window,
                                             q_offset):
     """The same through ``ops.attention`` and autograd (the model's path on
-    CPU tensors, the forward's bf16 o fed to the backward): it launches
-    nothing, and its output gradients are the plain backward's."""
+    CPU tensors, the forward's bf16 o and its rounding residual fed to the
+    backward): it launches nothing, and its output gradients are the plain
+    backward's."""
     arrays, want16, want32 = _attention_case((B, T, S, H, KV, hd, window,
                                               q_offset))
     kw = dict(causal=True, window=window, q_offset=q_offset)
@@ -133,7 +134,10 @@ def test_flash_function_bf16_cpu_vs_jax_vjp(B, T, S, H, KV, hd, window,
     q, k, v = (t.detach() for t in leaves)
     o32, lse = flash_attention_ref(q.float(), k.float(), v.float(),
                                    with_lse=True, **kw)
-    with_o16 = flash_attention_bwd_ref(q, k, v, out.detach(), lse, do, **kw)
+    o_lo = flash_attention_ref(q, k, v, with_lse=True, with_residual=True,
+                               **kw)[2]
+    with_o16 = flash_attention_bwd_ref(q, k, v, out.detach(), lse, do,
+                                       o_lo=o_lo, **kw)
     with_o32 = flash_attention_bwd_ref(q, k, v, o32, lse, do, **kw)
     for name, g, w16, w32, a, b in zip("dq dk dv".split(), got, want16,
                                        want32, with_o16, with_o32):
@@ -223,19 +227,26 @@ def _c_params(name):
 
 
 def test_bf16_backward_entries_take_what_the_wrappers_pass():
-    """Each dtype has its own flash backward entry, with the fp32 entry's
-    arguments; the sm90 forward takes an lse pointer; each dtype has its own
-    rmsnorm backward entry too, the bf16 one taking ``bwd_plan``'s layout
-    where the fp32 one takes the forward's ``plan`` and ``bwd_blocks``."""
+    """Each dtype has its own flash backward entry, the bf16 one taking the
+    fp32 entry's arguments and the output's rounding residual; the sm90
+    forward takes an lse pointer and the residual's (one more than the fp32
+    forward); each dtype has its own rmsnorm backward entry too, the bf16
+    one taking ``bwd_plan``'s layout where the fp32 one takes the forward's
+    ``plan`` and ``bwd_blocks``."""
     assert flash_module._BWD_ENTRY == {
         torch.float32: "flash_attention_bwd",
         torch.bfloat16: "flash_attention_bwd_bf16"}
+    assert _c_params("flash_attention_bwd") == len(
+        flash_module._BWD_ARGTYPES) == 21
+    assert _c_params("flash_attention_bwd_bf16") == len(
+        flash_module._BWD_BF16_ARGTYPES) == 22
     for entry in flash_module._BWD_ENTRY.values():
-        assert _c_params(entry) == len(flash_module._BWD_ARGTYPES)
         assert _c_params(f"{entry}_occupancy") == len(
             flash_module._OCC_ARGTYPES)
     for entry in flash_module._ENTRY.values():
-        assert _c_params(entry) == len(flash_module._ARGTYPES[entry]) == 16
+        assert _c_params(entry) == len(flash_module._ARGTYPES[entry])
+    assert [len(flash_module._ARGTYPES[e]) for e in (
+        "flash_attention_fwd", "flash_attention_sm90_fwd")] == [16, 17]
     assert rms_module._BWD_ENTRY == {torch.float32: "rmsnorm_bwd",
                                      torch.bfloat16: "rmsnorm_bwd_bf16"}
     assert _c_params("rmsnorm_bwd") == len(rms_module._BWD_ARGTYPES)
@@ -318,3 +329,30 @@ def test_bf16_backward_no_longer_raises_before_launch():
     with pytest.raises(ValueError, match="no kernel"):
         rms_module.rmsnorm_bwd(q, torch.empty(32, device="meta",
                                               dtype=torch.bfloat16), q)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_takes_the_rounding_residual_in_bf16_only(dtype):
+    """The bf16 backward's D reads o + o_lo, so a bf16 call without the
+    forward's o_lo raises, as an fp32 call with one does, on the CPU as on
+    the card; the bf16 entry rejects a null o_lo and its delta kernel reads
+    o_lo on every row; the forward gives o_lo in bf16 training only."""
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, do = (torch.randn(1, 8, 2, 32, generator=gen).to(dtype)
+                   for _ in range(4))
+    o, lse, o_lo = flash_attention_ref(q, k, v, with_lse=True,
+                                       with_residual=True)
+    right, wrong = (o_lo, None) if dtype == torch.bfloat16 else (None, o_lo)
+    with pytest.raises(ValueError, match="o_lo"):
+        flash_module.flash_attention_bwd(q, k, v, o, lse, do, o_lo=wrong)
+    got = flash_module.flash_attention_bwd(q, k, v, o, lse, do, o_lo=right)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, o_lo=right)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    out, lse2, out_lo = flash_module._forward(q, k, v, True, 0, 0, True)
+    assert torch.equal(out, o) and torch.equal(lse2, lse)
+    assert (out_lo is None) == (dtype == torch.float32)
+    assert flash_module._forward(q, k, v, True, 0, 0, False)[2] is None
+    code = _code("flash_attention_bwd_sm90.cu")
+    assert "o_lo == nullptr)" in code
+    assert "o_lo != nullptr" not in code
+    assert "__bfloat162float(o_lo[row * HD + c])" in code

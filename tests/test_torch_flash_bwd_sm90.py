@@ -137,6 +137,41 @@ def test_dropped_keys_fail_the_per_row_limit(case):
     assert ratio > 1.0, (case, ratio)
 
 
+@pytest.mark.parametrize("case,fault", [(c, None) for c in CASES] + [
+    (CASES[i], fault) for fault in ("forward", "backward") for i in (0, 5, 7)])
+def test_residual_check_holds_o_lo_and_sees_it_dropped(case, fault,
+                                                        monkeypatch):
+    """``chip_smoke.check_flash_residual`` through the plain versions (the
+    backward rounding P and dS as the kernels do): o + o_lo passes within
+    2^-16 of the exact output, and the backward fed it within its widened
+    limit, while the check's own zeroed o_lo fails it; a forward that
+    writes no residual, or a backward that ignores it, fails the check."""
+    smoke = _chip_smoke()
+    B, T, S, H, KV, hd, window, q_offset, causal = case
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    forward, backward = smoke.flash_forward, flash_attention_bwd_ref
+
+    def kernel_forward(*args, **kwargs):
+        o, lse, o_lo = forward(*args, **kwargs)
+        return o, lse, torch.zeros_like(o_lo) if fault == "forward" else o_lo
+
+    def kernel_backward(q, k, v, o, lse, do, o_lo=None, **mask):
+        o_lo = torch.zeros_like(o_lo) if fault == "backward" else o_lo
+        return backward(q, k, v, o, lse, do, o_lo=o_lo, bf16_operands=True,
+                        **mask)
+
+    monkeypatch.setattr(smoke, "flash_forward", kernel_forward)
+    monkeypatch.setattr(smoke, "flash_attention_bwd", kernel_backward)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    check = lambda: smoke.check_flash_residual(
+        torch.Generator().manual_seed(7), B, T, S, H, KV, hd, kw, str(case))
+    if fault is None:
+        check()
+    else:
+        with pytest.raises(RuntimeError, match="o_lo|o \\+ o_lo"):
+            check()
+
+
 def test_bf16_rows_ok_keeps_its_limit_for_the_rmsnorm_backward():
     """``bf16_rows_ok`` still holds a row to twice the bf16 rounding of the
     fp32 result alone, and the rmsnorm backward's checks still call it (the
@@ -157,7 +192,7 @@ def test_bf16_rows_ok_keeps_its_limit_for_the_rmsnorm_backward():
                                               text))
     assert calls("bf16_rows_ok", "rmsnorm_bwd_bf16") == 2
     assert calls("bf16_rows_ok", "flash_attention_bwd_bf16") == 0
-    assert calls("flash_bwd_rows_ok", "flash_attention_bwd_bf16") == 3
+    assert calls("flash_bwd_rows_ok", "flash_attention_bwd_bf16") == 5
 
 
 @pytest.mark.parametrize("case", CASES)
