@@ -265,7 +265,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 5i. The Trainer on the recurrent archs at full width in bf16, one model on
    the card at a time, as configured (2 microbatches, remat full; xlstm
    bf16 moments, zamba2 fp32), on ``SyntheticLM`` 8 x 512, peak lr 1e-3:
-   - step 0's loss and gradients on a depth cut (xlstm 8 layers: 7 mLSTM
+   - step 0's loss and gradients on a depth cut (xlstm 2 layers: 1 mLSTM
      + 1 sLSTM; zamba2 12 layers: two shared applications; the fp32 copy
      and three gradient trees of ``check_trainer_step0`` do not fit beside
      the full model's state), held as phase 5d holds qwen3's (zamba2's
@@ -353,6 +353,43 @@ Phases, in order; any failure raises and the script exits non-zero:
    same bits, a run without the first key tile failing, timed beside
    SDPA; and the bf16 rmsnorm forward and backward at 4096 x 768, 1024 x
    3584 and 4096 x 6144, timed.
+5l. The one-card dry-run and the assignment's cells (after 5k, before 5e):
+   - ``python -m repro_torch.launch.dryrun --all``, started in the
+     background after phase 1 (the meta device: the host's CPU, beside
+     the card's phases) and collected here: exactly the expected ok /
+     skip / fail set over the 40 cells (``DRYRUN_FAILS``: the cells where
+     the card raises too, each for its reason), exit code 1;
+   - every applicable cell whose dry-run peak (arguments + temps) fits
+     ``FIT_SHARE`` of the card, run once whole (xlstm-1.3b ``decode_32k``
+     and ``long_500k``, zamba2-2.7b ``long_500k``), and the cut cells of
+     ``CUT_CELLS`` at the largest power-of-two batch whose dry-run peak
+     fits (qwen3-0.6b ``train_4k`` and ``prefill_32k``: flash and rmsnorm
+     forward and backward; xlstm-1.3b ``prefill_32k`` at batch 1: the
+     scans), each through ``build_step``'s program on ``real_args``: the
+     argument bytes exactly the dry-run's, the peak
+     (``max_memory_allocated`` beyond what was live before the arguments)
+     within ``PEAK_TOL`` of the dry-run's, exact launches, every kernel
+     call at a shape phase 4 held (``recording``, ``call_key``), the
+     device ms (and tokens/s for decode), and a repeat-determinism check:
+     the direct entry point the spec wraps (``decode_step``, ``prefill``,
+     ``make_train_step``), on arguments made again from the same seed,
+     gives outputs of the same ``bits_digest`` (plain and
+     position-weighted bit sums);
+   - the five examples (``examples/torch_*.py``) as processes at once, the
+     four model examples with ``--device cuda``, wordstats on the real
+     worker pool: each must exit 0.
+   Before it, phase 4 holds each kernel at the shapes these cells give it
+   (``check_cell_kernels``): the bf16 flash forward (lse, rounding
+   residual) and backward at qwen3's train_4k microbatch, B=4 T=S=4096
+   H=16 KV=8, as phase 5k's regimes; the bf16 forward at the whole
+   prefill_32k cut, B=4 T=S=32768, held one (batch row, KV group) at a
+   time and timed on one of them (the plain scores of the whole call
+   would take 256 GiB); every norm of the cells, forward, and train_4k's
+   backward; ssd_scan (walk, normalizer) and slstm_scan at T=32768
+   against their plain versions over the whole sequence. Phase 2 holds
+   the wrapper's ssd_scan workspace sizes and shape refusals (Python, the
+   meta path's one source) against the C entries
+   (``check_ssd_shape_rules``).
 5e. The paper's launch layer on the card's host, with no JAX (no kernel
    runs here: the counts, set to 0 just before, must still be 0 after):
    - the discrete-event reproduction of TX-Green through the port's
@@ -401,6 +438,7 @@ TF32 is off for matmuls and cuDNN, so fp32 comparisons are full fp32.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import json
@@ -423,8 +461,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import SHAPES, ShapeConfig  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
+from repro_torch.configs.base import (SHAPES, ShapeConfig,  # noqa: E402
+                                      shape_applicable)
 from repro_torch.core import SweepSupervisor  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels import (LAUNCHES, build, flash_attention,  # noqa: E402
@@ -433,7 +472,8 @@ from repro_torch.kernels import (LAUNCHES, build, flash_attention,  # noqa: E402
                                  rmsnorm_bwd, rmsnorm_bwd_ref, rmsnorm_ref,
                                  slstm_scan, slstm_scan_bwd,
                                  slstm_scan_bwd_ref, slstm_scan_ref, ssd_scan,
-                                 ssd_scan_bwd, ssd_scan_bwd_ref, ssd_scan_ref)
+                                 ssd_scan_bwd, ssd_scan_bwd_ref, ssd_scan_ref,
+                                 work)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     _BWD_HEAD_DIMS, _FWD_HEAD_DIMS, _forward as flash_forward, bwd_occupancy,
     bwd_operands, fwd_occupancy, per_kv_head, sm90_occupancy, visible)
@@ -445,7 +485,10 @@ from repro_torch.kernels.slstm_scan import (  # noqa: E402
 from repro_torch.kernels.ssd_scan import _launch as ssd_launch  # noqa: E402
 from repro_torch.kernels.ssd_scan import path as ssd_path  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
-    bwd_occupancy as ssd_bwd_occupancy)
+    _ARGTYPES as SSD_FWD_ARGTYPES, _BWD_WS_ARGTYPES as SSD_BWD_WS_ARGTYPES,
+    _CHUNKS_ARGTYPES as SSD_CHUNKS_ARGTYPES, bwd_occupancy as ssd_bwd_occupancy,
+    bwd_workspace_floats as ssd_bwd_workspace_floats,
+    fwd_workspace_floats as ssd_fwd_workspace_floats)
 from repro_torch.ckpt import latest_step  # noqa: E402
 from repro_torch.core import measure_launch, realproc  # noqa: E402
 from repro_torch.exec import (FAULT, KILL_LAUNCHER, LOST,  # noqa: E402
@@ -455,6 +498,8 @@ from repro_torch.models.blocks import block_forward  # noqa: E402
 from repro_torch.models.model import (embed_tokens, encode,  # noqa: E402
                                       forward_hidden, lm_logits,
                                       n_shared_applications)
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.steps import build_step, real_args  # noqa: E402
 from repro_torch.launch.sweep import (build_member_step,  # noqa: E402
                                       loss_and_grads, member_config,
                                       run_sweep, to_batch)
@@ -470,10 +515,6 @@ from repro_torch.train.step import (_microbatch_stack,  # noqa: E402
                                     make_train_step,
                                     microbatch_grads, shaped_batch)
 
-# Published dense peaks of one H100 SXM at its 700 W limit.
-PEAK_BF16 = 989e12          # tensor cores, bf16 FLOP/s
-PEAK_F32 = 67e12            # CUDA cores, fp32 FLOP/s
-HBM = 3.35e12               # bytes/s
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 QWEN_LAYERS = 28
 QWEN_NORMS = 4 * QWEN_LAYERS + 1   # ln1, q_norm, k_norm, ln2 per layer + final
@@ -511,7 +552,8 @@ def card_line() -> str:
 
 
 def run_modules(runs, timeout: float):
-    """``python -m <args>`` for each (args, tag) of ``runs``, all started at
+    """``python -m <args>`` (``python <args>`` where args[0] is a ``.py``
+    file) for each (args, tag) of ``runs``, all started at
     once from the checkout's root, each a fresh process that finds the port
     (and phase 2's library) through ``PYTHONPATH``, its output to a file of
     its own; each one's output logged line by line under its tag. Past
@@ -526,8 +568,9 @@ def run_modules(runs, timeout: float):
                   stack.enter_context(tempfile.TemporaryFile("w+")))
                  for _ in runs]
         t0 = time.perf_counter()
-        procs = [subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT,
-                                  env=env, stdout=out, stderr=err, text=True)
+        procs = [subprocess.Popen(
+            [sys.executable, *([] if args[0].endswith(".py") else ["-m"]),
+             *args], cwd=ROOT, env=env, stdout=out, stderr=err, text=True)
                  for (args, _), (out, err) in zip(runs, files)]
         walls = [None] * len(procs)
         try:
@@ -858,10 +901,9 @@ def time_flash(q, k, v, err, window: int = 0, causal: bool = True):
     pairs."""
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
-    flops = 4 * B * H * hd * visible_pairs(T, S, causal, window)
-    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-    bound = {"operations": flops / PEAK_BF16 * 1e3,
-             "bytes": nbytes / HBM * 1e3}
+    fwd = work.flash_fwd(B, T, S, H, KV, hd, q.element_size(), causal,
+                         window)
+    flops, bound = fwd.flops, fwd.bound()
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if window:
         mask = visible(T, S, 0, True, window, q.device)
@@ -948,9 +990,8 @@ def hold_rmsnorm(name, x, g) -> float:
 
 def time_rmsnorm(name, x, g, err):
     rows, d = x.shape
-    nbytes = x.element_size() * (2 * x.numel() + d)
-    bound = {"operations": 4 * x.numel() / PEAK_F32 * 1e3,
-             "bytes": nbytes / HBM * 1e3}
+    fwd = work.rmsnorm(rows, d, x.element_size())
+    nbytes, bound = fwd.bytes, fwd.bound()
     kernel = lambda: rmsnorm(x, g, eps=1e-6)
     row = {
         "max_abs_err": err,
@@ -1280,11 +1321,8 @@ def time_flash_bwd(q, k, v, do, err, fwd_err):
     KV = k.shape[2]
     o, lse = flash_attention_ref(q, k, v, with_lse=True)
     o = o.contiguous()
-    pairs = T * (T + 1) // 2
-    flops = 2.5 * 4 * B * H * hd * pairs
-    nbytes = 4 * (4 * q.numel() + 4 * k.numel() + 2 * lse.numel())
-    bound = {"operations": flops / PEAK_F32 * 1e3,
-             "bytes": nbytes / HBM * 1e3}
+    bwd = work.flash_bwd(B, T, T, H, KV, hd, q.element_size())
+    flops, bound = bwd.flops, bwd.bound()
     kernel = lambda: flash_attention_bwd(q, k, v, o, lse, do)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
@@ -1305,10 +1343,9 @@ def time_flash_bwd(q, k, v, do, err, fwd_err):
     row["split_ms"] = {part: sum(ms for key, ms in by_name.items()
                                  if f"flash_bwd_{part}_kernel" in key)
                        for part in ("delta", "dkdv", "dq")}
-    # the kernels run 64 x 64 tiles: 4 products per visible tile pair in
-    # dk/dv (S, dP, dv, dk), 3 in dq (S, dP, dq)
-    n = -(-T // 64)
-    tile_flops = 2 * 64 * 64 * hd * n * (n + 1) // 2 * B * H
+    # 4 tile products per visible tile pair in dk/dv, 3 in dq
+    tile_flops = work.flash_tile_flops(B, H, hd,
+                                       work.visible_tiles(T, T, True, 0))
     split = row["split_ms"]
     log(f"  backward kernels apart, device ms per call (profiler, 20 calls): "
         f"delta {split['delta']:.4f}, dk/dv {split['dkdv']:.4f} "
@@ -1335,9 +1372,7 @@ def time_flash_fwd(q, k, v, err):
     logs its rate on the tile products and the kernel's occupancy."""
     B, T, H, hd = q.shape
     KV = k.shape[2]
-    flops = 4 * B * H * hd * (T * (T + 1) // 2)   # visible pairs, causal
-    bound = {"operations": flops / PEAK_F32 * 1e3,
-             "bytes": 4 * (2 * q.numel() + 2 * k.numel()) / HBM * 1e3}
+    bound = work.flash_fwd(B, T, T, H, KV, hd, q.element_size()).bound()
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
     row = {
@@ -1350,10 +1385,9 @@ def time_flash_fwd(q, k, v, err):
         "bound_ms": max(bound.values()),
         "shape": f"B={B} T=S={T} H={H} KV={KV} hd={hd} fp32 causal",
     }
-    # the kernel runs 64 x 64 tiles: S and P V per visible tile pair
-    n = -(-T // 64)
-    row["tile_tflops"] = (2 * 2 * 64 * 64 * hd * n * (n + 1) // 2 * B * H
-                          / row["ms"] / 1e9)
+    # two tile products per visible tile pair: S and P V
+    row["tile_tflops"] = (2 * work.flash_tile_flops(
+        B, H, hd, work.visible_tiles(T, T, True, 0)) / row["ms"] / 1e9)
     occ = fwd_occupancy(hd)
     log(f"  device time {row['shape']}: forward (fp32, CUDA cores) "
         f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, SDPA (fp32, "
@@ -1396,9 +1430,8 @@ def check_rmsnorm_bwd(gen):
 
 def time_rmsnorm_bwd(name, x, g, dy, err):
     rows, d = x.shape
-    nbytes = x.element_size() * (3 * rows * d + 2 * d)
-    bound = {"operations": 8 * rows * d / PEAK_F32 * 1e3,
-             "bytes": nbytes / HBM * 1e3}
+    bwd = work.rmsnorm_bwd(rows, d, x.element_size())
+    nbytes, bound = bwd.bytes, bwd.bound()
     kernel = lambda: rmsnorm_bwd(x, g, dy, eps=1e-6)
     xl, gl = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
     row = {
@@ -1767,24 +1800,6 @@ def check_flash_residual(gen, B, T, S, H, KV, hd, kw, name):
         f"it must ({worst0:.1f}x the limit; with it {worst:.3f}x)")
 
 
-def visible_pairs(T: int, S: int, causal: bool, window: int) -> int:
-    """The (t, s) pairs a query row sees at q_offset 0: T = S under causal
-    masking (with ``window``, at most ``window`` keys a row), else T * S."""
-    if not causal:
-        return T * S
-    W = window or T
-    return sum(min(t + 1, W) for t in range(T))
-
-
-def visible_tiles(T: int, S: int, causal: bool, window: int) -> int:
-    """The (64-row query tile, 64-key tile) pairs with a visible element:
-    the tile products each backward kernel runs."""
-    ok = visible(T, S, 0, causal, window, "cuda")
-    ok = F.pad(ok, (0, -S % 64, 0, -T % 64))
-    return int(ok.reshape(-(-T // 64), 64, -(-S // 64), 64).any(3).any(1)
-               .sum())
-
-
 def time_flash_bwd_bf16(q, k, v, do, o, lse, err, o_lo=None, causal=True,
                         window=0):
     """The bf16 backward (T = S; causal, windowed or non-causal; with the
@@ -1795,11 +1810,9 @@ def time_flash_bwd_bf16(q, k, v, do, o, lse, err, o_lo=None, causal=True,
     B, T, H, hd = q.shape
     KV = k.shape[2]
     mask = dict(causal=causal, window=window)
-    flops = 2.5 * 4 * B * H * hd * visible_pairs(T, T, causal, window)
-    nbytes = (2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
-              + (0 if o_lo is None else 2 * o_lo.numel()))
-    bound = {"operations": flops / PEAK_BF16 * 1e3,
-             "bytes": nbytes / HBM * 1e3}
+    bwd = work.flash_bwd(B, T, T, H, KV, hd, q.element_size(), causal,
+                         window, residual=o_lo is not None)
+    flops, bound = bwd.flops, bwd.bound()
     kernel = lambda: flash_attention_bwd(q, k, v, o, lse, do, o_lo=o_lo,
                                          **mask)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
@@ -1838,8 +1851,9 @@ def time_flash_bwd_bf16(q, k, v, do, o, lse, err, o_lo=None, causal=True,
             f"{part} {sum(n for key, n in kept.items() if name in key)}"
             for part, name in BF16_BWD_KERNELS.items()))
     split = row["split_ms"]
-    # 64 x 64 tile products per visible tile pair: 4 in dk/dv, 3 in dq
-    tile_flops = 2 * 64 * 64 * hd * visible_tiles(T, T, causal, window) * B * H
+    # tile products per visible tile pair: 4 in dk/dv, 3 in dq
+    tile_flops = work.flash_tile_flops(
+        B, H, hd, work.visible_tiles(T, T, causal, window))
     require(all(ms > 0 for ms in split.values()),
             f"a bf16 backward kernel is missing from the trace: {dict(by_name)}")
     log(f"  bf16 backward kernels apart, device ms per call (profiler, 20 "
@@ -2037,24 +2051,22 @@ def check_ssd_repeats(x, a, B, C):
             "ssd_scan: two calls gave different bits")
 
 
-def time_ssd(x, a, B, C, w, err):
+def time_ssd(x, a, B, C, w, err, plain_ms=None):
     """The bound counts the kernel's inputs as they are given: B and C per
     group ([b, T, G, N]; G = 1 for Mamba-2, G = H for mLSTM), each read
-    once."""
+    once. ``plain_ms``: the plain version's time where the caller has
+    measured it (``plain_graphed``), else measured here."""
     b, T, H, P = x.shape
     G, N = B.shape[2:]
-    cols = P + (w is not None)             # P columns, + n with a normalizer
-    flops = 4 * b * T * H * N * cols       # update + output
-    nbytes = 4 * (2 * x.numel() + a.numel() + B.numel() + C.numel()
-                  + (0 if w is None else 2 * w.numel()) + b * H * N * cols)
-    bound = {"operations": flops / PEAK_F32 * 1e3,
-             "bytes": nbytes / HBM * 1e3}
+    fwd = work.ssd_scan(b, T, H, G, N, P, w is not None)
+    flops, bound = fwd.flops, fwd.bound()
     kw = {} if w is None else {"norm_weights": w}
     kernel = lambda: ssd_scan(x, a, B, C, **kw)
     row = {
         "max_abs_err": err,
         "ms": device_ms(kernel, 5),
-        "plain_ms": device_ms(lambda: ssd_scan_ref(x, a, B, C, **kw), 1),
+        "plain_ms": plain_ms or device_ms(
+            lambda: ssd_scan_ref(x, a, B, C, **kw), 1),
         "library_ms": None,
         "bound_by": max(bound, key=bound.get),
         "bound_ms": max(bound.values()),
@@ -2124,20 +2136,19 @@ def check_slstm(gen):
     return path
 
 
-def time_slstm(wx, r, b, err):
+def time_slstm(wx, r, b, err, plain_ms=None):
+    """The kernel, its plain version (``plain_ms``: as ``time_ssd``'s) and
+    the bound."""
     B, T, nh, gd = wx.shape
     dh = gd // 4
-    # the recurrence's multiply-adds, plus ~20 gate operations per unit
-    flops = 2 * B * T * nh * dh * gd + 20 * B * T * nh * dh
-    nbytes = (wx.numel() * wx.element_size() + r.numel() * r.element_size()
-              + 4 * b.numel() + 4 * B * T * nh * dh + 4 * 4 * B * nh * dh)
-    bound = {"operations": flops / PEAK_F32 * 1e3,
-             "bytes": nbytes / HBM * 1e3}
+    fwd = work.slstm_scan(B, T, nh, dh, wx.element_size(), r.element_size())
+    flops, bound = fwd.flops, fwd.bound()
     kernel = lambda: slstm_scan(wx, r, b)
     row = {
         "max_abs_err": err,
         "ms": device_ms(kernel, 3),
-        "plain_ms": device_ms(lambda: slstm_scan_ref(wx, r, b), 1),
+        "plain_ms": plain_ms or device_ms(lambda: slstm_scan_ref(wx, r, b),
+                                          1),
         "library_ms": None,
         "bound_by": max(bound, key=bound.get),
         "bound_ms": max(bound.values()),
@@ -2180,47 +2191,105 @@ RMS_BWD_RECURRENT = [(2048, 2048), (2048, 2560), (2048, 5120)]  # rows, d:
 #   xlstm's d_model, zamba2's d_model, zamba2's mixer norm (2 x d_model)
 
 
+
+GRID_EDGE = 65535    # a grid's y and z extent, where the C entries refuse
+SSD_FWD_RULES = [   # route, (b, T, H, G, N, P): the entries' shape checks
+    ("walk", (1, 32768, 4, 4, 512, 1024)),           # xlstm's prefill_32k
+    ("walk", (1, 64 * (GRID_EDGE - 1), 1, 1, 64, 32)),   # chunks at the edge
+    ("walk", (1, 64 * (GRID_EDGE - 1) + 1, 1, 1, 64, 32)),   # one past it
+    ("walk", (1, 64, 1, 1, 64, 32 * (GRID_EDGE - 1))),   # P's tiles
+    ("walk", (1, 64, 1, 1, 64, 32 * (GRID_EDGE - 1) + 1)),
+    ("walk", (1, 64, 3, 2, 64, 32)),                 # G not dividing H
+    ("walk", (0, 64, 1, 1, 64, 32)),
+    ("chunks", (1, 1291, 80, 1, 64, 64)),            # zamba2's prefill
+    ("chunks", (13106, 64, 4, 1, 64, 64)),           # b (G + H) = 65530
+    ("chunks", (13107, 64, 4, 1, 64, 64)),           # 65535: past it
+    ("chunks", (1, 64, 4, 1, 12, 64)),               # N not a multiple of 8
+    ("chunks", (1, 64, 4, 1, 72, 64)),               # N past 64
+    ("chunks", (1, 64, 4, 1, 64, 65)),               # P past 64
+    ("chunks", (1, 64, 4, 1, 0, 64))]
+SSD_BWD_RULES = [   # b, T, H, G, N, Pe: sizes and refusals of the backward
+    (*SSD_BWD_TRAIN["mamba2"][:5], 64), (*SSD_BWD_TRAIN["mlstm"][:5], 1025),
+    (128, 4096, 80, 1, 64, 64), (2, 137, 4, 2, 16, 33),
+    (32767, 137, 1, 1, 16, 8),                       # 2 b H at the edge
+    (32768, 137, 1, 1, 16, 8),                       # past it
+    (1, 64 * GRID_EDGE, 1, 1, 16, 8),                # chunks at the edge
+    (1, 64 * GRID_EDGE + 1, 1, 1, 16, 8),            # past it
+    (1, 137, 4, 2, 6, 8),                            # N not a multiple of 4
+    (1, 137, 3, 2, 16, 8)]                           # G not dividing H
+MISALIGNED = 716    # cudaErrorMisalignedAddress
+
+
+def check_ssd_shape_rules():
+    """The wrapper sizes ssd_scan's workspaces and refuses shapes in Python
+    on every device (``fwd_workspace_floats``, ``bwd_workspace_floats``; the
+    meta path has no C): both held to the C entries. The backward's floats
+    and refusals against ``ssd_scan_bwd_workspace``; the forward's
+    refusals against ``ssd_scan_fwd`` / ``ssd_scan_chunks_fwd`` themselves,
+    called so that they return before a launch: a refused shape returns
+    invalid argument (1), an accepted one meets a misaligned B (walk) or
+    workspace (chunks) and returns 716. No memory is touched."""
+    verdict = {1: "refused", MISALIGNED: "accepted"}
+    for route, (b, T, H, G, N, P) in SSD_FWD_RULES:
+        if route == "walk":
+            code = build.function("ssd_scan_fwd", SSD_FWD_ARGTYPES)(
+                None, None, 1, None, None, None, None, None, None, None,
+                None, None, 0, b, T, H, G, N, P, None)
+        else:
+            code = build.function("ssd_scan_chunks_fwd", SSD_CHUNKS_ARGTYPES)(
+                None, None, None, None, None, None, None, 1, 0, b, T, H, G,
+                N, P, None)
+        try:
+            floats = ssd_fwd_workspace_floats(route, b, T, H, G, N, P)
+            mine = "accepted"
+        except RuntimeError:
+            floats, mine = None, "refused"
+        log(f"ssd_scan {route} b={b} T={T} H={H} G={G} N={N} P={P}: C entry "
+            f"{verdict.get(code, code)}, the wrapper {mine}"
+            + (f" ({floats} floats of workspace)" if floats else ""))
+        require(verdict.get(code) == mine, f"ssd_scan's wrapper and its C "
+                f"entry judge b={b} T={T} H={H} G={G} N={N} P={P} apart")
+    for b, T, H, G, N, Pe in SSD_BWD_RULES:
+        size = ctypes.c_longlong(0)
+        code = build.function("ssd_scan_bwd_workspace", SSD_BWD_WS_ARGTYPES)(
+            b, T, H, G, N, Pe, ctypes.addressof(size))
+        try:
+            mine = ssd_bwd_workspace_floats(b, T, H, G, N, Pe)
+        except RuntimeError:
+            mine = None
+        want = size.value if code == 0 else None
+        log(f"ssd_scan_bwd workspace b={b} T={T} H={H} G={G} N={N} Pe={Pe}: "
+            f"C entry {want if code == 0 else f'refused ({code})'}, the "
+            f"wrapper {mine if mine is not None else 'refused'}")
+        require(code in (0, 1) and mine == want, "the wrapper sizes or "
+                "refuses ssd_scan_bwd's workspace unlike the C entry")
+
+
 SSD_BWD_KERNELS = (  # csrc/ssd_scan_bwd.cu's kernels, in launch order
     "ssd_bwd_decay_kernel", "ssd_bwd_gram_kernel", "ssd_bwd_state_kernel",
     "ssd_bwd_pass_kernel", "ssd_bwd_dx_kernel", "ssd_bwd_dbc_kernel",
     "ssd_bwd_da_kernel", "ssd_bwd_group_sum_kernel")
 
 
-def ssd_bwd_work(b, T, H, G, N, Pe) -> dict:
-    """What each product kernel of ``ssd_scan_bwd`` computes at these sizes,
-    in flops (2 a multiply-add, over whole 64-step chunks): C B^T and dy x^T
-    (gram), dS and dG (state), Gin^T B and the chunk's dy sum (dx), Gin x or
-    S_prev dy and the chunk's sum (dbc, both modes); and the pass's bytes
-    (S_prev read and written forward; Gin read and written and S_prev read
-    backward)."""
-    L, nc = 64, -(-T // 64)
-    bhc = b * H * nc
-    return {"ssd_bwd_gram_kernel": 2 * L * L * (b * G * nc * N + bhc * Pe),
-            "ssd_bwd_state_kernel": 2 * 2 * L * N * Pe * bhc,
-            "ssd_bwd_dx_kernel": 2 * L * Pe * (N + L) * bhc,
-            "ssd_bwd_dbc_kernel": 2 * 2 * L * N * (Pe + L) * bhc,
-            "ssd_bwd_pass_kernel": 5 * 4 * N * Pe * bhc}
-
-
-def ssd_bwd_split(fn, work: dict, iters: int = 5):
+def ssd_bwd_split(fn, products: dict, iters: int = 5):
     """Device ms per call of each kernel of an ``ssd_scan_bwd`` call ``fn``
     by its name in ``SSD_BWD_KERNELS`` (``device_ms_by_kernel``), and a line
-    with each product's TFLOP/s and the pass's GB/s from ``work``
-    (``ssd_bwd_work``), then the four products' together."""
+    with each product's TFLOP/s and the pass's GB/s from ``products``
+    (``kernels.work.ssd_bwd_products``), then the four products' together."""
     ms = Counter()
     for key, t in device_ms_by_kernel(fn, iters).items():
         found = re.search(r"ssd_bwd_\w*?kernel", key)
         ms[found.group(0) if found else key[:40]] += t
     parts = []
     for name, t in ms.items():
-        rate = ("" if name not in work else
-                f" ({work[name] / t / 1e6:.0f} GB/s)"
+        rate = ("" if name not in products else
+                f" ({products[name] / t / 1e6:.0f} GB/s)"
                 if name == "ssd_bwd_pass_kernel" else
-                f" ({work[name] / t / 1e9:.1f} TFLOP/s)")
+                f" ({products[name] / t / 1e9:.1f} TFLOP/s)")
         parts.append(f"{name} {t:.4f}{rate}")
-    products = [n for n in work if n != "ssd_bwd_pass_kernel"]
-    t = sum(ms[n] for n in products)
-    flops = sum(work[n] for n in products)
+    kinds = [n for n in products if n != "ssd_bwd_pass_kernel"]
+    t = sum(ms[n] for n in kinds)
+    flops = sum(products[n] for n in kinds)
     parts.append(f"the four products {t:.4f} ms, "
                  f"{flops / max(t, 1e-9) / 1e9:.1f} TFLOP/s")
     return dict(ms), ", ".join(parts)
@@ -2284,11 +2353,10 @@ def time_ssd_bwd(x, a, B, C, w, dy, dn, err):
     b, T, H, P = x.shape
     G, N = B.shape[2:]
     cols = P + (w is not None)
-    flops = 12 * b * T * H * N * cols
-    ins = (x, a, B, C, dy, w, dn)
-    nbytes = 4 * 2 * sum(t.numel() for t in ins if t is not None)
-    bound = {"operations": flops / PEAK_F32 * 1e3,
-             "bytes": nbytes / HBM * 1e3}
+    require((w is None) == (dn is None), "ssd_scan_bwd's row takes w and dn "
+            "together")
+    bwd = work.ssd_scan_bwd(b, T, H, G, N, P, w is not None)
+    flops, bound = bwd.flops, bwd.bound()
     kw = dict(norm_weights=w, dn=dn)
     kernel = lambda: ssd_scan_bwd(x, a, B, C, dy, **kw)
     row = {
@@ -2302,7 +2370,7 @@ def time_ssd_bwd(x, a, B, C, w, dy, dn, err):
         "shape": f"b={b} T={T} H={H} G={G} N={N} P={P} fp32"
                  + ("" if w is None else " + normalizer"),
     }
-    _, split = ssd_bwd_split(kernel, ssd_bwd_work(b, T, H, G, N, cols))
+    _, split = ssd_bwd_split(kernel, work.ssd_bwd_products(b, T, H, G, N, cols))
     log(f"  device ms by kernel: {split}")
     log(f"  device time {row['shape']} backward: kernels {row['ms']:.4f} ms, "
         f"plain {row['plain_ms']:.4f} ms, no one-call PyTorch equivalent, "
@@ -2367,12 +2435,9 @@ def time_slstm_bwd(wx, r, b, dhs, trace, err):
     occ = slstm_bwd_occupancy(B, nh, dh, wx.dtype, r.dtype)
     G = slstm_plan(B, nh, dh, r.dtype).blocks
     dstate = torch.zeros(3, B, nh, dh, device="cuda")
-    flops = 4 * B * T * nh * dh * gd + 40 * B * T * nh * dh
-    nbytes = (4 * (trace[0].numel() + trace[1].numel()) + 4 * dhs.numel()
-              + 2 * r.numel() * r.element_size() + 4 * wx.numel()
-              + 8 * b.numel())
-    bound = {"operations": flops / PEAK_F32 * 1e3,
-             "bytes": nbytes / HBM * 1e3}
+    bwd = work.slstm_scan_bwd(B, T, nh, dh, wx.element_size(),
+                              r.element_size())
+    flops, bound = bwd.flops, bwd.bound()
     kernel = lambda: slstm_scan_bwd(wx, r, b, dhs, trace=trace)
     eager = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
         enable_timing=True)
@@ -4137,8 +4202,10 @@ def check_trainer_cli(arch: str, steps: int, proc, wall: float):
 # --------------------------------------------------------------------------
 # phase 5i: the Trainer on the recurrent archs at full width, in bf16
 # --------------------------------------------------------------------------
-RECURRENT_CUT = {"xlstm-1.3b": 8, "zamba2-2.7b": 12}   # the step-0 check's
-#   depth cut: xlstm 7 mLSTM + 1 sLSTM, zamba2 two shared applications
+RECURRENT_CUT = {   # the step-0 check's depth cut (its plain paths step the
+    # scans a token at a time, several seconds a recurrent layer)
+    "xlstm-1.3b": dict(n_layers=2, xlstm_slstm_every=2),   # 1 mLSTM, 1 sLSTM
+    "zamba2-2.7b": dict(n_layers=12)}       # two shared applications
 RECURRENT_STEPS, RECURRENT_CLI_STEPS = 4, 10    # steps: 8 before phase 5k
 RECURRENT_SWEEP = (4, 2)                    # the sweep CLI: members, steps
 LAYER_NORMS = {"mlstm": 1, "slstm": 2, "mamba2": 2}    # ln1 (+ ff_ln / the
@@ -4209,8 +4276,8 @@ def train_recurrent(arch: str):
                       seed=0)
     batch = to_batch(src.batch(0), "cuda")
     t_phase = time.perf_counter()
-    k = RECURRENT_CUT[arch]
-    cut = dataclasses.replace(cfg, n_layers=k, block_pattern=())
+    cut = dataclasses.replace(cfg, **RECURRENT_CUT[arch], block_pattern=())
+    k = cut.n_layers
     log(f"trainer: {arch} in bf16 ({cfg.n_layers} layers, microbatches "
         f"{cfg.microbatches}, remat {cfg.remat}, moments "
         f"{cfg.opt_state_dtype}); SyntheticLM {TRAINER_BATCH[0]}x"
@@ -4909,6 +4976,542 @@ def launch_layer(card):
     log(f"launch layer: {time.perf_counter() - t0:.1f} s")
 
 
+# --------------------------------------------------------------------------
+# phase 5l: the one-card dry-run over the 40 (arch x shape) cells, and its
+# figures held against runs of build_step's programs on the card
+# --------------------------------------------------------------------------
+CELL_FLASH_TRAIN = (4, 4096, 16, 8, 128)   # B, T=S, H, KV, hd: qwen3-0.6b
+#   train_4k cut to batch 8, a microbatch of 4 (forward and backward)
+CELL_FLASH_PREFILL = (4, 32768, 16, 8, 128)   # prefill_32k cut to batch 4
+CELL_RMS = (   # rows, d (bf16): every norm of phase 5l's cells
+    (16384, 1024), (262144, 128), (131072, 128),     # train_4k, a microbatch
+    (131072, 1024), (2097152, 128), (1048576, 128), (4, 1024),  # prefill
+    (32768, 2048), (1, 2048),                        # xlstm-1.3b prefill_32k
+    (128, 2048),                                     # its decode_32k
+    (1, 2560), (1, 5120))                            # zamba2-2.7b long_500k
+CELL_RMS_BWD = ((16384, 1024), (262144, 128), (131072, 128))   # train_4k
+CELL_SCAN_T = 32768          # xlstm-1.3b prefill_32k cut to batch 1
+
+
+def call_key(kernel: str, *args, **kw) -> tuple:
+    """A kernel call's shape, as ``check_cell_kernels`` holds it and phase
+    5l's cells record it (``recording``)."""
+    name = lambda t: str(t.dtype)[6:]
+    if kernel == "flash_attention":
+        q, k, _ = args
+        return (kernel, *q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
+                q.shape[3], name(q), kw.get("causal", True),
+                kw.get("window", 0), kw.get("q_offset", 0))
+    if kernel == "rmsnorm":
+        x = args[0]
+        return (kernel, x.numel() // x.shape[-1], x.shape[-1], name(x))
+    if kernel == "ssd_scan":
+        x, _, B, _ = args
+        return (kernel, *x.shape[:3], *B.shape[2:], x.shape[3], name(x),
+                kw.get("norm_weights") is not None,
+                kw.get("initial_state") is not None)
+    wx, r, _ = args
+    return (kernel, *wx.shape[:3], wx.shape[3] // 4, name(wx), name(r))
+
+
+@contextlib.contextmanager
+def recording(into: set):
+    """Adds each of the model's kernel calls' ``call_key`` to ``into`` and
+    passes the call on (the backward kernels run at their forwards'
+    shapes)."""
+    saved = ops.attention, ops.norm, ops.ssd, ops.slstm
+
+    def tap(kernel, fn):
+        def call(*args, **kw):
+            into.add(call_key(kernel, *args, **kw))
+            return fn(*args, **kw)
+        return call
+
+    ops.attention, ops.norm, ops.ssd, ops.slstm = (
+        tap(k, f) for k, f in zip(("flash_attention", "rmsnorm", "ssd_scan",
+                                   "slstm_scan"), saved))
+    try:
+        yield into
+    finally:
+        ops.attention, ops.norm, ops.ssd, ops.slstm = saved
+
+
+def hold_flash_by_group(q, k, v, got, name) -> float:
+    """``got``, the bf16 forward at the whole causal shape of q, k and v,
+    held against the plain version one (batch row, KV group) at a time
+    (``plain_attention`` on fp32 inputs; the plain scores of a whole
+    32768-token call would take 256 GiB): every slice within ``TOL``, and
+    per row (``check_flash_rows``' limit, taken over every slice) within
+    twice the bf16 rounding of the fp32 result; the last slice without its
+    first key tile must fail that limit. Returns the max abs error."""
+    B, T, H, _ = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    err = rounding = abs_err = 0.0
+    for b in range(B):
+        for g in range(KV):
+            heads = slice(g * G, (g + 1) * G)
+            qf = q[b:b + 1, :, heads].float()
+            kf, vf = (t[b:b + 1, :, g:g + 1].float() for t in (k, v))
+            want = plain_attention(qf, kf, vf)
+            part = got[b:b + 1, :, heads]
+            e, ok = max_err(part, want.to(torch.bfloat16),
+                            TOL[torch.bfloat16])
+            require(ok, f"flash_attention disagrees with its plain version: "
+                    f"{name}, batch row {b}, KV head {g}")
+            abs_err = max(abs_err, e)
+            rounding = max(rounding, row_rel_err(want.to(torch.bfloat16),
+                                                 want))
+            err = max(err, row_rel_err(part, want))
+    limit = 2 * rounding
+    short = plain_attention(qf, kf, vf, window=T - 64)
+    dropped = row_rel_err(short.to(torch.bfloat16), want)
+    ok = err <= limit < dropped
+    log(f"flash_attention {name}: held by (batch row, KV group), {B * KV} "
+        f"plain calls of {G} heads: max_abs_err={abs_err:.3e} "
+        f"tol={TOL[torch.bfloat16]:.0e}; per row max |err| / row RMS "
+        f"{err:.3e}, limit {limit:.3e}, the last group without its first "
+        f"key tile {dropped:.3e} {'ok' if ok else 'FAIL'}")
+    require(err <= limit, f"flash_attention rows off the fp32 result: {name}")
+    require(dropped > limit, f"per-row check cannot see a dropped tile: "
+            f"{name}")
+    return abs_err
+
+
+def check_cell_kernels(gen):
+    """Phase 4's rows for phase 5l's cells: each kernel at the shapes the
+    cells give it (``CELL_*``; phase 5l requires every call it records to
+    be one of these). The bf16 flash forward and backward at qwen3-0.6b's
+    train_4k microbatch, as ``check_frontend_train_kernels`` holds its
+    regimes; the bf16 forward at the whole prefill_32k cut, held by
+    ``hold_flash_by_group`` and timed beside its plain version and SDPA on
+    one (batch row, KV group), the cut marked in the row; every norm
+    forward (and train_4k's backward); ssd_scan (walk, normalizer) and
+    slstm_scan at xlstm-1.3b's prefill_32k cut, against their plain
+    versions at the whole T. Returns (rows by kernel, the held
+    ``call_key``s)."""
+    bf16 = torch.bfloat16
+    rows = {"flash": [], "flash_bwd": [], "rmsnorm": [], "rmsnorm_bwd": []}
+    held = set()
+    laps = [time.perf_counter()]
+    B, T, H, KV, hd = CELL_FLASH_TRAIN
+    q, k, v, got, err, name = hold_flash(gen, B, T, T, H, KV, hd, bf16, True)
+    check_flash_rows(q, k, v, got, name)
+    kw = dict(causal=True, window=0, q_offset=0)
+    require(torch.equal(got, flash_attention(q, k, v, **kw)),
+            f"two flash_attention calls differ: {name}")
+    check_flash_lse(q, k, v, kw, name)
+    check_flash_fwd_repeats(q, k, v, name)
+    rows["flash"].append(time_flash(q, k, v, err))
+    held.add(call_key("flash_attention", q, k, v, **kw))
+    del q, k, v, got
+    held_bwd = hold_flash_bwd_bf16(gen, B, T, H, KV, hd)
+    rows["flash_bwd"].append(time_flash_bwd_bf16(**held_bwd))
+    del held_bwd
+    torch.cuda.empty_cache()
+
+    B, T, H, KV, hd = CELL_FLASH_PREFILL
+    q = randn(gen, B, T, H, hd, dtype=bf16)
+    k, v = (randn(gen, B, T, KV, hd, dtype=bf16) for _ in range(2))
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    name = f"B={B} T=S={T} H={H} KV={KV} hd={hd} bf16 causal"
+    err = hold_flash_by_group(q, k, v, got, name)
+    require(torch.equal(got, flash_attention(q, k, v)),
+            f"two flash_attention calls differ: {name}")
+    whole = work.flash_fwd(B, T, T, H, KV, hd, 2, True, 0).bound()
+    log(f"  device time {name} (the whole cut): kernel "
+        f"{device_ms(lambda: flash_attention(q, k, v), 3):.4f} ms, bound "
+        f"{max(whole.values()):.4f} ms ({max(whole, key=whole.get)})")
+    held.add(call_key("flash_attention", q, k, v))
+    G = H // KV
+    one = [t.contiguous() for t in (q[:1, :, :G], k[:1, :, :1], v[:1, :, :1])]
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    row = time_flash(*one, err)
+    row["cut"] = (f"timed on one batch row and one KV group ({G} heads), "
+                  f"where the plain version's {T} x {T} fp32 scores fit; "
+                  f"held at the whole B={B} H={H} KV={KV}")
+    rows["flash"].append(row)
+    del one
+    torch.cuda.empty_cache()
+
+    laps.append(time.perf_counter())
+    for n, d in CELL_RMS:
+        x = randn(gen, n, d, dtype=bf16)
+        g = (1 + 0.1 * randn(gen, d)).to(bf16)
+        name = f"rows={n} d={d} bfloat16"
+        err = hold_rmsnorm(name, x, g)
+        require(torch.equal(rmsnorm(x, g, eps=1e-6), rmsnorm(x, g, eps=1e-6)),
+                f"two rmsnorm calls differ: {name}")
+        rows["rmsnorm"].append(time_rmsnorm(name, x, g, err))
+        held.add(call_key("rmsnorm", x))
+    for n, d in CELL_RMS_BWD:
+        rows["rmsnorm_bwd"].append(hold_rmsnorm_bwd_bf16(gen, n, d))
+    torch.cuda.empty_cache()
+    laps.append(time.perf_counter())
+
+    b, H, N, P = SSD_PATH
+    x, a, B_, C, w = model_like_ssd(gen, b, CELL_SCAN_T, H, N, P)
+    got = ssd_scan(x, a, B_, C, norm_weights=w)
+    torch.cuda.synchronize()
+    name = (f"b={b} T={CELL_SCAN_T} H={H} N={N} P={P} fp32 normalizer, "
+            f"drawn like the model, path {ssd_path(N, P, True)}")
+    want, graph, plain_ms = plain_graphed(
+        lambda: ssd_scan_ref(x, a, B_, C, norm_weights=w))
+    err = compare("ssd_scan", name, got, want)
+    require(all(torch.equal(f, s) for f, s in
+                zip(got, ssd_scan(x, a, B_, C, norm_weights=w))),
+            "ssd_scan: two calls gave different bits")
+    del want, graph
+    rows["ssd"] = time_ssd(x, a, B_, C, w, err, plain_ms)
+    held.add(call_key("ssd_scan", x, a, B_, C, norm_weights=w))
+    del x, a, B_, C, w, got
+    B1, nh, dh = SLSTM_PATH
+    wx, r, bias = slstm_inputs(gen, B1, CELL_SCAN_T, nh, dh, torch.float32,
+                               True)
+    hs, state = slstm_scan(wx, r, bias)
+    torch.cuda.synchronize()
+    (want_hs, want_state), graph, plain_ms = plain_graphed(
+        lambda: slstm_scan_ref(wx, r, bias))
+    err = compare("slstm_scan", f"B={B1} T={CELL_SCAN_T} nh={nh} dh={dh} wx "
+                  f"float32 r bfloat16", (hs, *state),
+                  (want_hs, *want_state))
+    del want_hs, want_state, graph
+    rows["slstm"] = time_slstm(wx, r, bias, err, plain_ms)
+    held.add(call_key("slstm_scan", wx, r, bias))
+    del wx, r, bias, hs, state
+    torch.cuda.empty_cache()
+    laps.append(time.perf_counter())
+    log("phase 4, phase 5l's rows: " + ", ".join(
+        f"{part} {b - a:.1f} s" for part, a, b in
+        zip(("flash", "norms", "scans"), laps, laps[1:])))
+    return rows, held
+
+
+def plain_graphed(fn):
+    """One call of a plain scan ``fn`` captured in a CUDA graph (the same
+    ops ran in graphs at T = 1000 earlier in phase 4, so nothing is left
+    to warm up) and replayed twice: the first replay gives the outputs the
+    kernel is held to, the second is timed. At T = 32768 the host's pass
+    over the steps (one launch each) takes ~10 s, so the plain version is
+    walked once, not three times as ``device_ms`` would. Returns (outputs,
+    the graph, which owns their memory, device ms)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return out, graph, start.elapsed_time(end)
+
+
+DRYRUN_FAILS = {   # (arch, shape): what the card raises there too
+    ("xlstm_1_3b", "train_4k"): "B <= 16",        # slstm_scan's MAX_BATCH:
+    ("xlstm_1_3b", "prefill_32k"): "B <= 16",     # microbatch 128, batch 32
+    ("nemotron_4_340b", "train_4k"): "head_dim 192",   # no hd 192 backward
+}
+DRYRUN_TIMEOUT = 900         # s; it runs on the host beside phases 2-5k
+FIT_SHARE = 0.9              # of the card's memory a whole cell may take
+CUT_SHARE = 0.65             # a cut cell's: the allocator's room to fragment
+#   (qwen3-0.6b prefill_32k at batch 8, 57.72 GiB of dry-run peak, 73% of
+#   the card, ran out of memory holding 21.55 GiB free in segments too
+#   small for the final stack of its layers' caches; PERF.md, 5l)
+DIGEST_CHUNK = 1 << 26       # elements summed at a time by bits_digest
+PEAK_TOL = (0.02, 256 * 2**20)   # real peak within rel x dry-run + abs bytes
+CUT_CELLS = (  # arch, shape, batch to start from (None: the largest that fits)
+    ("qwen3-0.6b", "train_4k", None), ("qwen3-0.6b", "prefill_32k", None),
+    ("xlstm-1.3b", "prefill_32k", 1))
+EXAMPLES_TIMEOUT = 600
+
+
+def start_dryrun(out_dir: Path):
+    """``python -m repro_torch.launch.dryrun --all --out out_dir`` in the
+    background: the meta device only, on the host's CPU, so it runs beside
+    the card's phases. Returns (process, its log file, start time)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    # one thread at the lowest priority: the card's phases come first
+    env["OMP_NUM_THREADS"] = "1"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    logf = open(out_dir / "dryrun.log", "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--out",
+         str(out_dir)], cwd=ROOT, env=env, stdout=logf,
+        stderr=subprocess.STDOUT, text=True, preexec_fn=lambda: os.nice(19))
+    return proc, logf, time.perf_counter()
+
+
+def expected_status(arch: str, shape: str) -> str:
+    if (arch, shape) in DRYRUN_FAILS:
+        return "fail"
+    return ("ok" if shape_applicable(get_config(arch), SHAPES[shape])[0]
+            else "skip")
+
+
+def check_dryrun(proc, logf, t0, out_dir: Path) -> dict:
+    """Waits for the background dry-run; requires exactly the expected set
+    of ok / skip / fail cells (each fail for its reason) and exit code 1
+    (there are failed cells). Returns {(arch, shape): record}."""
+    try:
+        rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT
+                                   - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise RuntimeError("the dry-run did not end within "
+                           f"{DRYRUN_TIMEOUT} s")
+    finally:
+        logf.seek(0)
+        text = logf.read()
+        logf.close()
+    for line in text.splitlines():      # the cells' lines, not tracebacks
+        if (re.match(r"  \w+ +\w+ +\w+_step ", line)
+                or " cells in " in line or "FAILED" in line):
+            log(f"  dryrun| {line.strip()}")
+    with open(out_dir / dryrun.OUT_NAME) as f:
+        recs = {(r["arch"], r["shape"]): r for r in json.load(f)}
+    want = {(a, sh): expected_status(a, sh) for a in ARCH_IDS for sh in SHAPES}
+    got = {cell: rec["status"] for cell, rec in recs.items()}
+    require(got == want, f"dry-run cells differ from the expected set: "
+            f"{ {c: (got.get(c), w) for c, w in want.items() if got.get(c) != w} }")
+    for cell, why in DRYRUN_FAILS.items():
+        require(why in recs[cell]["reason"],
+                f"dry-run {cell} failed for another reason: "
+                f"{recs[cell]['reason']}")
+    require(rc == 1, f"the dry-run exited {rc} with failed cells")
+    counts = Counter(got.values())
+    log(f"dry-run: {counts['ok']} ok, {counts['skip']} skip, "
+        f"{counts['fail']} fail (the expected set), exit {rc}; "
+        f"{sum(r.get('eval_s', 0) for r in recs.values()):.1f} s of cells")
+    return recs
+
+
+def bits_digest(tree):
+    """Per tensor leaf: its shape and two sums of its elements' bit
+    patterns (as int64), ``DIGEST_CHUNK`` elements at a time: the plain sum
+    and the sum weighted by each element's position (from 1, wrapping in
+    int64). Equal bits give equal digests; permuted or transposed elements,
+    or errors that cancel in the plain sum, change the weighted one. Other
+    leaves as they are. The outputs of a whole cell stay on the card (42
+    GiB of state at xlstm-1.3b's decode_32k), so they are digested there
+    rather than copied."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = []
+    for t in tree_leaves(tree):
+        if not isinstance(t, torch.Tensor):
+            out.append(t)
+            continue
+        flat = t.detach().contiguous().reshape(-1).view(ints[t.element_size()])
+        total = weighted = 0
+        for i in range(0, flat.numel(), DIGEST_CHUNK):
+            part = flat[i:i + DIGEST_CHUNK].to(torch.int64)
+            pos = torch.arange(i + 1, i + 1 + part.numel(), dtype=torch.int64,
+                               device=part.device)
+            total += int(part.sum())
+            weighted += int((part * pos).sum())
+        out.append((tuple(t.shape), total, weighted))
+    return out
+
+
+def cut_cell(cfg, shape, rec, start, total):
+    """The largest power-of-two batch (at least the microbatches of a train
+    cell; from ``start`` where given) whose dry-run peak fits
+    ``CUT_SHARE`` of the card, found from the whole cell's temps scaled
+    by the batch and confirmed on meta; returns (shape, evaluation)."""
+    limit = CUT_SHARE * total
+    least = cfg.microbatches if shape.kind == "train" else 1
+    B = start
+    if B is None:
+        m = rec["memory"]
+        per_row = m["temp_bytes"] / shape.global_batch
+        B = 1 << int(math.log2(max(least, (limit - m["argument_bytes"])
+                                   / per_row)))
+        B = min(B, shape.global_batch)
+    while B >= least:
+        cut = dataclasses.replace(shape, global_batch=B)
+        got = dryrun.evaluate(build_step(cfg, cut, device="meta"))
+        if got["argument_bytes"] + got["temp_bytes"] <= limit:
+            return cut, got
+        B //= 2
+    raise RuntimeError(f"{cfg.name} {shape.name}: no batch fits the card")
+
+
+def run_program(spec, cfg, direct, label):
+    """One run of ``spec.fn`` on real arguments (``real_args``, seed 0) on
+    the card: its device ms, launches, kernel calls (``recording``),
+    argument bytes and peak (allocated, beyond what was live before the
+    arguments); then the port's direct entry point ``direct`` on arguments
+    made again from the same seed, whose outputs must have the same
+    ``bits_digest``. ``spec.fn`` is that entry point (``build_step`` wraps
+    ``make_train_step``, ``prefill`` and ``decode_step`` themselves), so
+    this is a repeat-determinism check of the spec's arguments and
+    wrapper, not a second implementation held against the first."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    args = real_args(spec, cfg, "cuda", seed=0)
+    arg_bytes = dryrun.storage_bytes(args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    calls = set()
+    start.record()
+    with recording(calls):
+        out = spec.fn(*args)
+    end.record()
+    end.synchronize()
+    launches = Counter(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = start.elapsed_time(end)
+    got = bits_digest(out)
+    del out, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = real_args(spec, cfg, "cuda", seed=0)
+    torch.cuda.synchronize()
+    start.record()
+    out = direct(*args)
+    end.record()
+    end.synchronize()
+    direct_ms = start.elapsed_time(end)
+    want = bits_digest(out)
+    del out, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    same = got == want
+    log(f"  {label}: {spec.name} {ms:.2f} device ms (the process's first "
+        f"call at these shapes), launches {dict(launches)}; the direct "
+        f"entry point again on arguments from the same seed {direct_ms:.2f} "
+        f"ms: {len(got)} outputs' digests (plain and position-weighted bit "
+        f"sums) {'equal' if same else 'DIFFER'} (repeat determinism)")
+    require(same, f"{label}: the spec and the entry point differ")
+    return {"ms": ms, "direct_ms": direct_ms, "peak": peak,
+            "arg_bytes": arg_bytes, "launches": launches, "calls": calls}
+
+
+def hold_cell(label, cfg, shape, predicted, direct, want_launches, card,
+              held):
+    """``run_program`` on ``build_step``'s program for the cell, held to the
+    dry-run: the arguments' bytes exactly, the peak within ``PEAK_TOL``,
+    the launches exactly ``want_launches``; and every kernel call it made
+    at a shape phase 4 held (``held``, from ``check_cell_kernels``)."""
+    spec = build_step(cfg, shape, device="cuda")
+    got = run_program(spec, cfg, direct, label)
+    unheld = got["calls"] - held
+    log(f"  {label}: {len(got['calls'])} kernel call shapes, each held in "
+        f"phase 4" if not unheld else f"  {label}: kernel calls at shapes "
+        f"phase 4 did not hold: {sorted(unheld)}")
+    require(not unheld, f"{label}: a kernel ran at a shape phase 4 did not "
+            f"hold")
+    dry_peak = predicted["argument_bytes"] + predicted["temp_bytes"]
+    rel, extra = PEAK_TOL
+    gap = got["peak"] - dry_peak
+    tok = (f", {shape.global_batch / got['direct_ms'] * 1e3:.1f} tokens/s "
+           f"at the second call's ms" if shape.kind == "decode" else "")
+    log(f"  {label}: B={shape.global_batch} T={shape.seq_len}: arguments "
+        f"{got['arg_bytes'] / 2**30:.3f} GiB (dry-run "
+        f"{predicted['argument_bytes'] / 2**30:.3f}), peak "
+        f"{got['peak'] / 2**30:.3f} GiB against the dry-run's "
+        f"{dry_peak / 2**30:.3f} ({gap / 2**20:+.1f} MiB, "
+        f"{gap / dry_peak:+.3%}); {got['ms']:.2f} / {got['direct_ms']:.2f} "
+        f"device ms (first / second call){tok} ({card})")
+    require(got["arg_bytes"] == predicted["argument_bytes"],
+            f"{label}: argument bytes differ from the dry-run's")
+    require(abs(gap) <= rel * dry_peak + extra,
+            f"{label}: peak {got['peak']} off the dry-run's {dry_peak}")
+    require(dict(got["launches"]) == want_launches,
+            f"{label}: launches {dict(got['launches'])}, want "
+            f"{want_launches}")
+    return got
+
+
+def serve_launches(cfg) -> dict:
+    """One prefill's launches: flash per ATTN layer (and shared-block
+    application), the scans per recurrent layer, the norms
+    (``LAYER_NORMS``; ln1 and ln2, + q_norm and k_norm with qk-norm, an
+    ATTN layer) and final_norm."""
+    kinds = Counter(cfg.block_pattern)
+    apps = n_shared_applications(cfg)
+    want = {"rmsnorm": sum(LAYER_NORMS.get(k, 2 + 2 * cfg.qk_norm) * n
+                           for k, n in kinds.items()) + 2 * apps + 1}
+    scans = {"ssd_scan": kinds["mlstm"] + kinds["mamba2"],
+             "slstm_scan": kinds["slstm"],
+             "flash_attention": kinds["attn"] + apps}
+    want.update({k: n for k, n in scans.items() if n})
+    return want
+
+
+def run_cells(recs, card, held):
+    """Every applicable cell whose dry-run peak fits ``FIT_SHARE`` of the
+    card, whole; the cut cells of ``CUT_CELLS``; each through ``hold_cell``
+    (``held``: phase 4's ``call_key``s). Returns {path: launches}."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    paths = {}
+    whole = [cell for cell, r in recs.items() if r["status"] == "ok" and
+             r["memory"]["peak_bytes"] <= FIT_SHARE * total]
+    log(f"whole cells that fit {FIT_SHARE:.0%} of {total / 2**30:.2f} GiB: "
+        f"{whole}")
+    require(("xlstm_1_3b", "decode_32k") in whole,
+            "xlstm-1.3b decode_32k does not fit the card in the dry-run")
+    for arch, name in whole:
+        cfg, shape = get_config(arch), SHAPES[name]
+        require(shape.kind == "decode", f"{arch} {name}: a whole "
+                f"{shape.kind} cell fits; give it a direct entry point")
+        direct = lambda p, tok, cache, cl, cfg=cfg: decode_step(
+            p, cfg, tok, cache, cl)
+        label = f"{arch} {name} (whole)"
+        want = {"rmsnorm": serve_launches(cfg)["rmsnorm"]}
+        got = hold_cell(label, cfg, shape, recs[arch, name]["memory"],
+                        direct, want, card, held)
+        paths[f"5l {label}"] = got["launches"]
+    for arch, name, start in CUT_CELLS:
+        cfg, shape = get_config(arch), SHAPES[name]
+        cut, predicted = cut_cell(cfg, shape, recs[arch.replace("-", "_")
+                                                   .replace(".", "_"), name],
+                                  start, total)
+        label = f"{arch} {name} (batch cut to {cut.global_batch})"
+        if shape.kind == "train":
+            direct = make_train_step(cfg, device="cuda")
+            want = trainer_launches(cfg)
+        else:
+            direct = lambda p, b, cfg=cfg: prefill(
+                p, cfg, b["tokens"], **{k: v for k, v in b.items()
+                                        if k != "tokens"})
+            want = serve_launches(cfg)
+        got = hold_cell(label, cfg, cut, predicted, direct, want, card,
+                        held)
+        paths[f"5l {label}"] = got["launches"]
+    return paths
+
+
+def run_examples(card):
+    """The five examples at once as processes: the four model examples on
+    the card, wordstats on the real worker pool; each must exit 0."""
+    runs = [(["examples/torch_quickstart.py", "--device", "cuda"],
+             "quickstart"),
+            (["examples/torch_serve_batch.py", "--device", "cuda"],
+             "serve_batch"),
+            (["examples/torch_interactive_sweep.py", "--device", "cuda"],
+             "interactive_sweep"),
+            (["examples/torch_fault_tolerance.py", "--device", "cuda"],
+             "fault_tolerance"),
+            (["examples/torch_mapreduce_wordstats.py", "--backend",
+              "procpool", "--inject"], "wordstats")]
+    done = run_modules(runs, EXAMPLES_TIMEOUT)
+    for (proc, wall), (_, tag) in zip(done, runs):
+        log(f"example {tag}: exit {proc.returncode} in {wall:.1f} s ({card})")
+        require(proc.returncode == 0, f"example {tag} failed")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA card visible; this script runs only "
@@ -4928,6 +5531,27 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s), "
         f"{torch.cuda.get_device_name(0)}; tf32 off")
+    # phase 5l's dry-run: on the host's CPU, beside the card's phases
+    dry_dir = Path(tempfile.mkdtemp(prefix="dryrun-"))
+    dry_bg = start_dryrun(dry_dir)
+    try:
+        kernels = run_phases(card, laps, lap, dry_bg, dry_dir)
+    finally:
+        if dry_bg[0].poll() is None:
+            dry_bg[0].kill()
+        dry_bg[0].wait()
+        dry_bg[1].close()
+        shutil.rmtree(dry_dir, ignore_errors=True)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def run_phases(card, laps, lap, dry_bg, dry_dir) -> list:
+    """Phases 2-6; returns the kernels' JSON line's list."""
 
     t0 = time.perf_counter()                                 # phase 2
     build.load()
@@ -4956,6 +5580,7 @@ def main():
                 f"shared memory, {occ['blocks_per_sm']} block(s) per SM")
             require(occ["blocks_per_sm"] >= 1 and occ["spill_bytes"] == 0,
                     f"ssd_bwd_{name}_kernel at N={N} spills or does not fit")
+    check_ssd_shape_rules()
     B, _, nh, dh = SLSTM_BWD_TRAIN
     for r_dtype in (torch.bfloat16, torch.float32):
         occ = slstm_bwd_occupancy(B, nh, dh, torch.float32, r_dtype)
@@ -5072,15 +5697,28 @@ def main():
     torch.cuda.empty_cache()
     lap("phase 4, phase 5k's rows")
     frontend_train = train_frontend_archs(card)              # phase 5k
+    torch.cuda.empty_cache()
     laps.append(time.perf_counter())
+    cell_rows, held = check_cell_kernels(torch.Generator("cuda").manual_seed(36))
+    torch.cuda.empty_cache()
+    lap("phase 4, phase 5l's rows")
+    recs = check_dryrun(*dry_bg, dry_dir)                    # phase 5l
+    lap("phase 5l, the dry-run (ran beside phases 2-5k)")
+    cells = run_cells(recs, card, held)
+    lap("phase 5l, the cells on the card")
+    run_examples(card)
+    lap("phase 5l, the examples")
 
     launch_layer(card)                                       # phase 5e
 
+    cell_train = {k: v for k, v in cells.items() if "train_4k" in k}
+    xlstm_cells = {k: v for k, v in cells.items() if "xlstm" in k}
     serving = {"qwen3-0.6b serve": qwen, "xlstm-1.3b serve": xlstm,
-               "zamba2-2.7b serve": zamba, **archs, **modal, **nemotron}
+               "zamba2-2.7b serve": zamba, **archs, **modal, **nemotron,
+               **{k: v for k, v in cells.items() if k not in cell_train}}
     bf16_training = {"qwen3-0.6b Trainer (bf16, full width)": trainer,
                      **recurrent, MOE_TRAIN.path: moe_train,
-                     **frontend_train}
+                     **frontend_train, **cell_train}
     xlstm_train = {k: v for k, v in recurrent.items() if "xlstm" in k}
     zamba_train = {k: v for k, v in recurrent.items() if "zamba2" in k}
     training = {"qwen3-0.6b train (fp32, full width)": train,
@@ -5103,7 +5741,8 @@ def main():
              k: v for k, v in {**serving, **bf16_training}.items()
              if k not in nemotron}),
          **flash_rows[REPORT_T],
-         "regimes": flash_5g_rows + [flash_5j_row] + flash_5k_rows},
+         "regimes": (flash_5g_rows + [flash_5j_row] + flash_5k_rows
+                     + cell_rows["flash"])},
         {"name": "flash_attention_hd192", "route": "cuda",
          "source": csrc + "flash_attention_sm90.cu", "replaces": flash_tpu,
          "kernel": "flash_fwd_sm90_hd192_kernel<192> (64-row blocks, three "
@@ -5121,7 +5760,8 @@ def main():
          **launches("flash_attention_bwd", {
              k: v for k, v in bf16_training.items() if k not in zamba_train}),
          **flash_bwd_bf16_row,
-         "regimes": [flash_bwd_5j_row] + flash_bwd_5k_rows},
+         "regimes": ([flash_bwd_5j_row] + flash_bwd_5k_rows
+                     + cell_rows["flash_bwd"])},
         {"name": "flash_attention_bwd_bf16_hd80", "route": "cuda",
          "source": csrc + "flash_attention_bwd_sm90.cu", "replaces": flash_tpu,
          "kernel": "flash_bwd_dkdv_sm90_kernel_one_wg<80>, "
@@ -5131,7 +5771,8 @@ def main():
          "replaces": rms_tpu,
          **launches("rmsnorm", {**serving, **training, **bf16_training}),
          **rms_rows[REPORT_RMS],
-         "regimes": rms_5g_rows + [rms_5h_row, rms_5j_row] + rms_5k_rows},
+         "regimes": (rms_5g_rows + [rms_5h_row, rms_5j_row] + rms_5k_rows
+                     + cell_rows["rmsnorm"])},
         {"name": "rmsnorm_bwd", "route": "cuda",
          "source": csrc + "rmsnorm_bwd.cu", "replaces": rms_tpu,
          **launches("rmsnorm_bwd", training),
@@ -5141,11 +5782,12 @@ def main():
          **launches("rmsnorm_bwd", bf16_training),
          **rms_bwd_bf16_rows[RMS_BWD_BF16_REPORT],
          "regimes": (list(rms_5i_rows.values()) + [rms_bwd_5j_row]
-                     + rms_bwd_5k_rows)},
+                     + rms_bwd_5k_rows + cell_rows["rmsnorm_bwd"])},
         {"name": "ssd_scan", "route": "cuda", "source": csrc + "ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:82",
-         **launches("ssd_scan", {"xlstm-1.3b serve": xlstm, **xlstm_train}),
-         **ssd_rows[REPORT_T]},
+         **launches("ssd_scan", {"xlstm-1.3b serve": xlstm, **xlstm_train,
+                                 **xlstm_cells}),
+         **ssd_rows[REPORT_T], "regimes": [cell_rows["ssd"]]},
         {"name": "ssd_scan_chunks", "route": "cuda",
          "source": csrc + "ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:82",
@@ -5163,7 +5805,8 @@ def main():
          "source": csrc + "slstm_scan.cu",
          "replaces": "src/repro/kernels/slstm_scan.py:94",
          **launches("slstm_scan", {**serving, **xlstm_train}),
-         **slstm_rows[1, REPORT_T, "bfloat16"]},
+         **slstm_rows[1, REPORT_T, "bfloat16"],
+         "regimes": [cell_rows["slstm"]]},
         {"name": "slstm_scan_bwd", "route": "cuda",
          "source": csrc + "slstm_scan_bwd.cu",
          "replaces": "src/repro/kernels/slstm_scan.py:94",
@@ -5178,12 +5821,7 @@ def main():
         require(all(math.isfinite(k[f]) for f in ("ms", "plain_ms",
                                                  "bound_ms")))
         require(k["library_ms"] is None or math.isfinite(k["library_ms"]))
-    log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    return kernels
 
 
 if __name__ == "__main__":

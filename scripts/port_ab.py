@@ -408,7 +408,7 @@ def ssd_bwd(parent: Path) -> list:
                 in zip(names, parent_call(), this_call())}
         again = all(torch.equal(p_, t_) for p_, t_
                     in zip(this_call(), this_call()))
-        work = cs.ssd_bwd_work(b, T, H, G, N, Pe)
+        work = cs.work.ssd_bwd_products(b, T, H, G, N, Pe)
         shape = (f"b={b} T={T} H={H} G={G} N={N} P={P} fp32"
                  + (" + normalizer" if norm else ""))
         for name, fn in (("parent", parent_call), ("this", this_call),

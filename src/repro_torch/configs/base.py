@@ -4,9 +4,12 @@ The port's own copy of ``repro.configs.base.ArchConfig``: the same fields,
 defaults and ``reduced()``, so a config built on one side can be rebuilt on
 the other with ``ArchConfig(**dataclasses.asdict(cfg))``. The port reads
 only the fields its ported block kinds use; the rest are kept so the two
-stay field-for-field equal. The JAX class's parameter-count methods have no
-caller in the port and are left out. ``ShapeConfig`` and ``SHAPES`` are
-copied too: the sweep's warm cache is keyed by a shape cell.
+stay field-for-field equal. The JAX class's skip rule and analytic
+parameter counts (``is_subquadratic``, ``param_count``,
+``active_param_count``, ``shape_applicable``) are copied for the dry-run
+(``launch/dryrun.py``) and the step builder (``launch/steps.py``).
+``ShapeConfig`` and ``SHAPES`` are copied too: the sweep's warm cache is
+keyed by a shape cell, and the dry-run walks the cells.
 """
 from __future__ import annotations
 
@@ -129,6 +132,85 @@ class ArchConfig:
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
 
+    @property
+    def is_subquadratic(self) -> bool:
+        """True if the arch can serve 500k-token contexts (skip rule)."""
+        kinds = set(self.block_pattern)
+        if kinds & {MAMBA2, MLSTM, SLSTM}:
+            return True
+        return self.sliding_window > 0
+
+    def param_count(self) -> int:
+        """Analytic parameter count (used for roofline MODEL_FLOPS)."""
+        d, hd = self.d_model, self.head_dim
+        n = 0
+        emb = self.vocab_size * d
+        n += emb if self.tie_embeddings else 2 * emb
+        for kind in self.block_pattern:
+            n += d  # ln1
+            if kind == ATTN or kind == MOE:
+                n += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+                if self.qkv_bias:
+                    n += self.q_dim + 2 * self.kv_dim
+                if self.qk_norm:
+                    n += 2 * hd
+                n += d  # ln2
+                if kind == ATTN and self.d_ff:
+                    mult = 3 if self.gated_mlp else 2
+                    n += mult * d * self.d_ff
+                elif kind == MOE:
+                    mult = 3 if self.gated_mlp else 2
+                    n += self.n_experts * mult * d * self.d_ff_expert
+                    n += d * self.n_experts  # router
+            elif kind == MAMBA2:
+                d_in = self.ssm_expand * d
+                nheads = d_in // self.ssm_head_dim
+                conv_dim = d_in + 2 * self.ssm_groups * self.ssm_state
+                n += d * (2 * d_in + 2 * self.ssm_groups * self.ssm_state + nheads)
+                n += conv_dim * self.ssm_conv + conv_dim
+                n += 2 * nheads + d_in  # A_log, D, internal norm
+                n += d_in * d
+            elif kind == MLSTM:
+                d_in = self.ssm_expand * d
+                dqk = int(d_in * self.xlstm_qk_dim_factor)
+                n += d * (2 * d_in)                  # up proj (x & z branches)
+                n += d_in * (2 * dqk)                # q,k projections
+                n += d_in * d_in                     # v projection
+                n += 2 * (d_in * self.n_heads + self.n_heads)  # i,f gate proj
+                n += d_in                            # internal norm
+                n += d_in * d                        # down proj
+            elif kind == SLSTM:
+                d_in = d
+                n += 4 * (d * d_in + d_in * d_in // self.n_heads + d_in)
+                from repro_torch.models.xlstm import slstm_ff_dim
+                ff = slstm_ff_dim(d)
+                n += 3 * d * ff + d
+        if self.shared_attn_every:
+            # one shared attention+MLP block (zamba2), counted once
+            n += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+            n += 3 * d * self.d_ff if self.gated_mlp else 2 * d * self.d_ff
+            n += 2 * d
+        n += d  # final norm
+        if self.enc_dec:
+            # encoder blocks (attn + mlp) + cross-attn in decoder counted above?
+            per_enc = (d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+                       + (3 if self.gated_mlp else 2) * d * self.d_ff + 2 * d)
+            n += self.n_enc_layers * per_enc
+            # cross-attention in each decoder layer
+            n += self.n_layers * (d * self.q_dim + 2 * d * self.kv_dim
+                                  + self.q_dim * d + d)
+        return int(n)
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k experts only)."""
+        if not self.n_experts:
+            return self.param_count()
+        d = self.d_model
+        mult = 3 if self.gated_mlp else 2
+        dead = (self.n_experts - self.top_k) * mult * d * self.d_ff_expert
+        return int(self.param_count() - len([k for k in self.block_pattern
+                                             if k == MOE]) * dead)
+
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests."""
         return dataclasses.replace(
@@ -177,3 +259,10 @@ SHAPES = {
     "decode_32k":  ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k":   ShapeConfig("long_500k", 524288, 1, "decode"),
 }
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Skip rule from the assignment: long_500k needs sub-quadratic attention."""
+    if shape.name == "long_500k" and not cfg.is_subquadratic:
+        return False, "full-attention arch: 500k context infeasible (see DESIGN.md)"
+    return True, ""

@@ -25,6 +25,13 @@ plain forward. Both forwards take hd 32, 64, 80, 128 and 192
 the bf16 backward 32, 64, 80 (zamba2's shared block, on 80-column tiles)
 and 128, the fp32 backward 32, 64 and 128. A backward at another head_dim
 on the card is not written yet and raises.
+
+On the ``meta`` device (the dry-run's abstract evaluation, as
+``jax.eval_shape``) each call checks what the card's path checks, raises
+where it raises, returns empty outputs of the kernel path's shapes and
+dtypes, allocates every buffer the card's path allocates, adds its work
+to ``work.FLOPS`` and launches nothing: no plain version
+runs there.
 """
 from __future__ import annotations
 
@@ -33,7 +40,7 @@ import math
 
 import torch
 
-from . import build
+from . import build, work
 
 NEG_INF = -1e30
 _FWD_HEAD_DIMS = (32, 64, 80, 128, 192)
@@ -220,6 +227,11 @@ def _forward(q, k, v, causal, window, q_offset, with_lse):
     lse = (torch.empty(B, H, T, dtype=torch.float32, device=q.device)
            if with_lse else None)
     out_lo = torch.empty_like(q) if residual else None
+    if q.device.type == "meta":
+        work.FLOPS["flash_attention"] += work.flash_fwd(
+            B, T, S, H, KV, hd, q.element_size(), causal, window,
+            q_offset).flops
+        return out, lse, out_lo
     residual = () if q.dtype == torch.float32 else (
         None if out_lo is None else out_lo.data_ptr(),)
     fn = build.function(entry, _ARGTYPES[entry])
@@ -258,7 +270,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     on tiles placed by TMA, P and dS rounded to bf16 as
     ``flash_attention_bwd_ref(..., bf16_operands=True)`` rounds them).
     ``LAUNCHES["flash_attention_bwd"]`` counts the call once, whichever
-    dtype; one at a head_dim its dtype's kernels do not take
+    dtype; a ``meta`` tensor is checked and allocated as on the card and
+    launches nothing; one at a head_dim its dtype's kernels do not take
     (``_BWD_HEAD_DIMS``: 80 in fp32, 192 in both) raises
     ``NotImplementedError`` before any launch. q, k, v, o and do share one
     dtype, fp32 or bf16, and lse is fp32. q, k, v and do must be 16-byte
@@ -269,7 +282,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                        window=window, q_offset=q_offset,
                                        o_lo=o_lo)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention_bwd: no kernel for device "
                          f"{q.device}")
     _check(q, k, v, backward=True)
@@ -291,6 +304,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                          "is not 16-byte aligned")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
+    if q.device.type == "meta":
+        work.FLOPS["flash_attention_bwd"] += work.flash_bwd(
+            B, T, S, H, KV, hd, q.element_size(), causal, window, q_offset,
+            residual=bf16).flops
+        return dq, dk, dv
     fn = build.function(_BWD_ENTRY[q.dtype],
                         _BWD_BF16_ARGTYPES if bf16 else _BWD_ARGTYPES)
     residual = (o_lo.data_ptr(),) if bf16 else ()
@@ -330,7 +348,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: int = 0):
     """q: [B,T,H,hd]; k/v: [B,S,KV,hd] -> [B,T,H,hd] (any T and S);
     differentiable in q, k and v."""
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):

@@ -14,6 +14,12 @@ an ``autograd.Function`` whose backward is ``rmsnorm_bwd``: on the card the
 kernels of ``csrc/rmsnorm_bwd.cu`` in fp32 and of ``csrc/rmsnorm_bwd_sm90.cu``
 in bf16 (``bwd_plan`` picks the latter's layout), on CPU tensors the
 explicit formulas of ``rmsnorm_bwd_ref``.
+
+On the ``meta`` device (the dry-run's abstract evaluation) a call checks
+as the card's path does, returns empty outputs, allocates the backward's
+fp32 dg partial rows at their most (``META_SMS`` SMs, ``BWD_MAX_CLUSTERS``
+clusters: the card's counts are not asked), adds its work to
+``work.FLOPS`` and launches nothing.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import build
+from . import build, work
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}      # ReproDtype in common.cuh
 _ARGTYPES = ((ctypes.c_void_p,) * 3
@@ -45,6 +51,7 @@ BWD_MAX_CLUSTERS = 128    # clusters a launch takes at most
 BWD_MAX_UNITS = 4         # 16-byte units a thread holds on the 16-byte path
 BWD_SMEM_MAX = 232448 - 512    # dynamic shared memory of a block
 _BWD_OCC_ARGTYPES = (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
+META_SMS = 132            # an H100 SXM's SMs: the meta path's fp32 dg rows
 
 
 def _pow2(n: int) -> int:
@@ -116,6 +123,10 @@ def _forward(x, gain, eps):
     out = torch.empty_like(x)
     vec, group, held = plan(x.data_ptr() | gain.data_ptr() | out.data_ptr(),
                             d, x.element_size())
+    if x.device.type == "meta":
+        work.FLOPS["rmsnorm"] += work.rmsnorm(x.numel() // d, d,
+                                            x.element_size()).flops
+        return out
     fn = build.function("rmsnorm_fwd", _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -224,7 +235,7 @@ def rmsnorm_bwd(x, gain, dy, *, eps: float = 1e-6):
     """
     if x.device.type == "cpu":
         return rmsnorm_bwd_ref(x, gain, dy, eps=eps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"rmsnorm_bwd: no kernel for device {x.device}")
     d = _check(x, gain, "rmsnorm_bwd")
     if (dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device
@@ -236,16 +247,23 @@ def rmsnorm_bwd(x, gain, dy, *, eps: float = 1e-6):
     dg = torch.empty_like(gain)
     ptr = (x.data_ptr() | gain.data_ptr() | dy.data_ptr() | dx.data_ptr()
            | dg.data_ptr())
+    meta = x.device.type == "meta"
     if x.dtype == torch.bfloat16:
-        p = bwd_layout(ptr, rows, d, x.device.index)
+        p = (bwd_plan(ptr, rows, d, BWD_MAX_CLUSTERS) if meta
+             else bwd_layout(ptr, rows, d, x.device.index))
         sums, argtypes = p.clusters, _BWD_BF16_ARGTYPES
         layout = (p.vec, p.group, p.clusters, p.rows_per_block)
     else:
         vec, group, _ = plan(ptr, d, x.element_size())
-        sums = bwd_blocks(rows, group, _sm_count(x.device.index))
+        sums = bwd_blocks(rows, group,
+                          META_SMS if meta else _sm_count(x.device.index))
         argtypes = _BWD_ARGTYPES
         layout = (vec, group, sums)
     partial = torch.empty(sums, d, dtype=torch.float32, device=x.device)
+    if meta:
+        work.FLOPS["rmsnorm_bwd"] += work.rmsnorm_bwd(rows, d,
+                                                    x.element_size()).flops
+        return dx, dg
     entry = _BWD_ENTRY[x.dtype]
     fn = build.function(entry, argtypes)
     with torch.cuda.device(x.device):
@@ -277,7 +295,7 @@ class RMSNorm(torch.autograd.Function):
 def rmsnorm(x, gain, *, eps: float = 1e-6):
     """x: [..., d]; gain: [d] -> x's shape and dtype; differentiable in x
     and the gain."""
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"rmsnorm: no kernel for device {x.device}")
     if torch.is_grad_enabled() and (x.requires_grad or gain.requires_grad):
         return RMSNorm.apply(x, gain, eps)

@@ -17,6 +17,13 @@ launch of a cluster per head, laid out by ``slstm_bwd_plan``), on CPU
 tensors through the explicit formulas of ``slstm_scan_bwd_ref``. Both
 follow JAX's derivative, ties included: ``jnp.maximum`` / ``jnp.minimum``
 give each side half the gradient at a tie (``scalar_max``, ``scalar_min``).
+
+On the ``meta`` device (the dry-run's abstract evaluation) a call checks
+and plans as the card's path does (``slstm_plan`` and ``slstm_bwd_plan``
+raise for a shape the kernels cannot take: B past ``MAX_BATCH``, for
+one), returns empty outputs (the forward's trace too), allocates what the
+card's path allocates, adds its work to ``work.FLOPS``
+and launches nothing.
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import build, work
 
 F32 = torch.float32
 I_CLAMP = 15.0
@@ -319,6 +326,10 @@ def _forward(wx, r, b, trace: bool = False):
     if trace:
         pre = torch.empty(B, T, nh, gd, dtype=F32, device=wx.device)
         steps = torch.empty(4, B, T, nh, dh, dtype=F32, device=wx.device)
+    if wx.device.type == "meta":
+        work.FLOPS["slstm_scan"] += work.slstm_scan(
+            B, T, nh, dh, wx.element_size(), r.element_size()).flops
+        return (hs, (c, n, m, h)), (None if pre is None else (pre, steps))
     fn = build.function("slstm_scan_fwd", _ARGTYPES)
     with torch.cuda.device(wx.device):
         stream = torch.cuda.current_stream(wx.device).cuda_stream
@@ -338,7 +349,7 @@ def slstm_scan(wx, r, b):
     one launch of nh clusters of ``slstm_plan(...).blocks`` blocks; a
     cluster shape the card refuses raises. Differentiable in wx, r and b
     (``SlstmScan``)."""
-    if wx.device.type not in ("cpu", "cuda"):
+    if wx.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"slstm_scan: no kernel for device {wx.device}")
     if torch.is_grad_enabled() and (wx.requires_grad or r.requires_grad
                                     or b.requires_grad):
@@ -382,7 +393,7 @@ def slstm_scan_bwd(wx, r, b, dhs, d_state=None, trace=None):
     (sum_t h_{t-1}^T dpre_t, TF32 off)."""
     if wx.device.type == "cpu":
         return slstm_scan_bwd_ref(wx, r, b, dhs, d_state)
-    if wx.device.type != "cuda":
+    if wx.device.type not in ("cuda", "meta"):
         raise ValueError(f"slstm_scan_bwd: no kernel for device {wx.device}")
     _check(wx, r, b)
     B, T, nh, gd = wx.shape
@@ -419,6 +430,9 @@ def slstm_scan_bwd(wx, r, b, dhs, d_state=None, trace=None):
         dr = torch.einsum("btnd,btne->nde", h_prev, dpre)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+    if wx.device.type == "meta":          # the walk's work (dR: the einsum's)
+        work.FLOPS["slstm_scan_bwd"] += work.slstm_scan_bwd(
+            B, T, nh, dh, wx.element_size(), r.element_size()).flops
     return dpre.to(wx.dtype), dr.to(r.dtype), db.to(b.dtype)
 
 
@@ -431,6 +445,8 @@ def bwd_walk(r, pre, steps, dhs, dstate):
     plan = slstm_bwd_plan(B, nh, dh, r.dtype, dhs.dtype)
     dpre = torch.empty(B, T, nh, 4 * dh, dtype=F32, device=dhs.device)
     db = torch.empty(nh, 4 * dh, dtype=F32, device=dhs.device)
+    if dhs.device.type == "meta":
+        return dpre, db
     fn = build.function("slstm_scan_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(dhs.device):
         stream = torch.cuda.current_stream(dhs.device).cuda_stream

@@ -20,6 +20,15 @@ call goes through an ``autograd.Function`` whose backward is
 only, as both call sites pass), on CPU tensors the explicit formulas of
 ``ssd_scan_bwd_ref``. ``initial_state`` and ``initial_norm_state`` are
 constants to it: one that requires grad raises.
+
+The workspaces are sized, and the shapes the C entries refuse are refused,
+by ``fwd_workspace_floats`` and ``bwd_workspace_floats`` on every device:
+the one place for them on this side (``chip_smoke.py``'s phase 2 holds
+both against the C entries). On the ``meta`` device (the dry-run's
+abstract evaluation) a call checks what the card's path checks, raises
+where the card would (a refused shape as ``RuntimeError``), returns empty
+outputs, allocates every buffer the card's path allocates, adds its work
+to ``work.FLOPS`` and launches nothing.
 """
 from __future__ import annotations
 
@@ -27,7 +36,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, work
 
 F32 = torch.float32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}      # ReproDtype in common.cuh
@@ -41,6 +50,11 @@ _BWD_ARGTYPES = (ctypes.c_void_p,) * 14 + (ctypes.c_int,) * 6 + (ctypes.c_void_p
 _BWD_WS_ARGTYPES = (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 _BWD_OCC_ARGTYPES = (ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 BWD_PRODUCTS = ("gram", "state", "dx", "dbc")         # ssd_scan_bwd_occupancy's order
+WALK_TILE = 32                                       # kTile: state columns a block
+SUM_BLOCK = 8                                        # kSumBlock
+GRID_LIMIT = 65535                                   # a grid's y and z extent
+BWD_TILE = 64                                        # kT of csrc/ssd_scan_bwd.cu
+BWD_PASS_ELEMS = 4 * 256                             # its kPassElems
 
 
 def ssd_scan_ref(x, a, B, C, *, initial_state=None, norm_weights=None,
@@ -123,15 +137,65 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _refused(name: str):
+    """What ``build.check`` raises for a C entry's cudaErrorInvalidValue."""
+    return RuntimeError(f"{name}: CUDA error 1 (invalid argument)")
+
+
+def fwd_workspace_floats(route: str, b, T, H, G, N, P) -> int:
+    """The fp32 workspace of a forward call on ``route``, as the C entry
+    takes it; raises where the entry refuses the shape (``ssd_scan_fwd``:
+    P / 32 or T / 64 blocks past a grid's extent; ``ssd_scan_chunks_fwd``:
+    N not a multiple of 8, N or P past 64, b * (G + H) rows past it)."""
+    chunks = -(-T // CHUNK)
+    if min(b, T, H, G, P) <= 0 or H % G:
+        raise _refused("ssd_scan")
+    if route == "chunks":
+        if (N <= 0 or N % SUM_BLOCK or N > SMALL_STATE or P > SMALL_STATE
+                or b * (G + H) >= GRID_LIMIT):
+            raise _refused("ssd_scan")
+        # per (batch*head, chunk) dS, then S_prev, [N, P]; per (batch*group,
+        # chunk) C . B^T [CHUNK, CHUNK]; per (batch*head, chunk) exp(a_tot)
+        return b * chunks * (H * N * P + G * CHUNK * CHUNK + H)
+    if -(-P // WALK_TILE) >= GRID_LIMIT or chunks >= GRID_LIMIT:
+        raise _refused("ssd_scan")
+    # per (batch*head, chunk): M [CHUNK, CHUNK] and two [CHUNK] decays
+    return b * H * chunks * CHUNK * (CHUNK + 2)
+
+
+def bwd_workspace_floats(b, T, H, G, N, Pe) -> int:
+    """``ssd_scan_bwd_workspace``'s floats (``csrc/ssd_scan_bwd.cu``
+    ``work_sizes``) for these sizes; raises where the C entry refuses them
+    (``valid``: N a multiple of 4, 2 * b * H and the chunks within a
+    grid's extent, the state's tiles within an int)."""
+    L = CHUNK                                      # kL
+    nc, ntn, ntp = -(-T // L), -(-N // BWD_TILE), -(-Pe // BWD_TILE)
+    if (min(b, T, H, G, N, Pe) <= 0 or H % G or N % 4
+            or 2 * b * H > GRID_LIMIT or nc > GRID_LIMIT
+            or ntn * ntp > 2**31 - 1):
+        raise _refused("ssd_scan_bwd_workspace")
+    round4 = lambda n: -(-n // 4) * 4
+    bhc = b * H * nc
+    sp = round4(bhc * N * Pe)
+    return (round4(bhc * (L * L + 4 * L)) + round4(b * G * nc * L * L)
+            + round4(bhc * L * L) + 2 * sp + round4(bhc * -(-N * Pe // BWD_PASS_ELEMS))
+            + round4(bhc * 2 * ntn * L))
+
+
 def _forward(x, a, B, C, **kw):
     """The forward on its device: ``ssd_scan_ref`` on a CPU tensor, the
-    kernels ``path`` picks on a CUDA tensor (counted once)."""
+    kernels ``path`` picks on a CUDA tensor (counted once), their outputs
+    and workspace alone on a ``meta`` tensor (its work recorded)."""
     if x.device.type == "cpu":
         return ssd_scan_ref(x, a, B, C, **kw)
     _check(x, a, B, C, **kw)
-    out = _launch(path(B.shape[-1], x.shape[-1], kw["norm_weights"] is not None),
-                  x, a, B, C, **kw)
-    build.LAUNCHES["ssd_scan"] += 1
+    norm = kw["norm_weights"] is not None
+    out = _launch(path(B.shape[-1], x.shape[-1], norm), x, a, B, C, **kw)
+    if x.device.type == "meta":
+        work.FLOPS["ssd_scan"] += work.ssd_scan(*x.shape[:3], *B.shape[2:],
+                                              x.shape[3], norm).flops
+    else:
+        build.LAUNCHES["ssd_scan"] += 1
     return out
 
 
@@ -141,7 +205,7 @@ def ssd_scan(x, a, B, C, *, initial_state=None, norm_weights=None,
     one call computes y, the final state and, with ``norm_weights``, the
     normalizer chain, on the kernels ``path`` picks. Differentiable in x,
     a, B, C and ``norm_weights`` (``SsdScan``)."""
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")
     kw = dict(initial_state=initial_state, norm_weights=norm_weights,
               initial_norm_state=initial_norm_state)
@@ -290,7 +354,7 @@ def ssd_scan_bwd(x, a, B, C, dy, *, initial_state=None, norm_weights=None,
                                 norm_weights=norm_weights,
                                 initial_norm_state=initial_norm_state, dn=dn,
                                 d_state=d_state, d_norm_state=d_norm_state)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssd_scan_bwd: no kernel for device {x.device}")
     _check(x, a, B, C, initial_state, norm_weights, initial_norm_state)
     if x.dtype != F32:
@@ -328,11 +392,8 @@ def ssd_scan_bwd(x, a, B, C, dy, *, initial_state=None, norm_weights=None,
     dsf = (None if d_state is None and d_norm_state is None
            else columns(d_state, d_norm_state, (b, H, N), Pe))
     B, C = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (B, C))
-    fn = build.function("ssd_scan_bwd", _BWD_ARGTYPES)
-    size = ctypes.c_longlong(0)
-    build.check(build.function("ssd_scan_bwd_workspace", _BWD_WS_ARGTYPES)(
-        b, T, H, G, N, Pe, ctypes.addressof(size)), "ssd_scan_bwd_workspace")
-    ws = torch.empty(size.value, dtype=F32, device=x.device)
+    ws = torch.empty(bwd_workspace_floats(b, T, H, G, N, Pe), dtype=F32,
+                     device=x.device)
     dxe = torch.empty(b, T, H, bwd_width(Pe), dtype=F32, device=x.device)
     da = torch.empty(b, T, H, dtype=F32, device=x.device)
     dB = torch.empty(b, T, G, N, dtype=F32, device=x.device)
@@ -340,6 +401,12 @@ def ssd_scan_bwd(x, a, B, C, dy, *, initial_state=None, norm_weights=None,
     dBh, dCh = ((dB, dC) if G == H else
                 (torch.empty(b, T, H, N, dtype=F32, device=x.device)
                  for _ in range(2)))
+    if x.device.type == "meta":
+        work.FLOPS["ssd_scan_bwd"] += work.ssd_scan_bwd(b, T, H, G, N, P,
+                                                        norm).flops
+        dx, dw = bwd_split(dxe, P, norm)
+        return dx, da, dB, dC, dw
+    fn = build.function("ssd_scan_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(xe.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(),
@@ -408,15 +475,10 @@ def _launch(route, x, a, B, C, *, initial_state=None, norm_weights=None,
     norm = norm_weights is not None
     n = torch.empty(b, T, H, dtype=F32, device=x.device) if norm else None
     Sn = torch.empty(b, H, N, dtype=F32, device=x.device) if norm else None
-    chunks = -(-T // CHUNK)
-    if route == "chunks":
-        # per (batch*head, chunk) dS, then S_prev, [N, P]; per (batch*group,
-        # chunk) C . B^T [CHUNK, CHUNK]; per (batch*head, chunk) exp(a_tot)
-        size = b * chunks * (H * N * P + G * CHUNK * CHUNK + H)
-    else:
-        # per (batch*head, chunk): M [CHUNK, CHUNK] and two [CHUNK] decays
-        size = b * H * chunks * CHUNK * (CHUNK + 2)
-    ws = torch.empty(size, dtype=F32, device=x.device)
+    ws = torch.empty(fwd_workspace_floats(route, b, T, H, G, N, P),
+                     dtype=F32, device=x.device)
+    if x.device.type == "meta":
+        return (y, n, S, Sn) if norm else (y, S)
     # B and C are copied into shared memory 16 bytes at a time
     B, C = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (B, C))
     with torch.cuda.device(x.device):

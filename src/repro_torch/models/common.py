@@ -46,13 +46,22 @@ def dtype_of(name: str) -> torch.dtype:
 DRAW_ELEMENTS = 1 << 30      # the most fp32 values one draw makes
 
 
+def is_meta(device) -> bool:
+    """``device`` is the ``meta`` device: shapes and dtypes, no storage."""
+    return torch.device(device).type == "meta"
+
+
 def normal_init(generator, shape, std: float, dtype, device):
     """N(0, std^2) of ``shape``, drawn from ``generator`` on its own device
     and placed on ``device`` in ``dtype``. A tensor of more than
     ``DRAW_ELEMENTS`` values (a stack of full-width expert weights) is drawn
     a block of leading rows at a time, so its fp32 draw never needs more
-    than 4 GiB beside the weights."""
+    than 4 GiB beside the weights. On the ``meta`` device nothing is drawn
+    and ``generator`` is not read (the counterpart of JAX's
+    ``abstract_params``)."""
     shape = tuple(shape)
+    if is_meta(device):
+        return torch.empty(shape, dtype=dtype, device=device)
     if math.prod(shape) <= DRAW_ELEMENTS:
         x = torch.randn(shape, generator=generator, dtype=F32,
                         device=generator.device).to(device)
@@ -67,6 +76,15 @@ def normal_init(generator, shape, std: float, dtype, device):
         out[i:i + rows] = normal_init(generator, out[i:i + rows].shape, std,
                                       dtype, device)
     return out
+
+
+def uniform_init(generator, shape, device):
+    """U[0, 1) fp32 of ``shape``, drawn from ``generator`` on its own device
+    and placed on ``device``; nothing is drawn on the ``meta`` device."""
+    if is_meta(device):
+        return torch.empty(shape, dtype=F32, device=device)
+    return torch.rand(shape, generator=generator, dtype=F32,
+                      device=generator.device).to(device)
 
 
 def dense_init(generator, d_in: int, d_out: int, dtype, device,

@@ -40,7 +40,7 @@ without batch dims (``aten.mm``/``addmm``: the projections, as JAX's
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,8 +49,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from .blocks import (block_decode, block_forward, block_prefill, init_block,
                      init_block_cache)
-from .common import (dtype_of, embed_init, matmul, rms_norm, sinusoid_at,
-                     sinusoidal_positions, tree_leaves, tree_map)
+from .common import (dtype_of, embed_init, is_meta, matmul, rms_norm,
+                     sinusoid_at, sinusoidal_positions, tree_leaves, tree_map)
 
 
 def pattern_stages(cfg) -> List[Tuple[str, int]]:
@@ -121,9 +121,16 @@ def _remat_wrap(fn, cfg):
     return wrapped
 
 
-def init_params(cfg, generator: torch.Generator, device="cuda") -> Dict[str, Any]:
+def init_params(cfg, generator: Optional[torch.Generator] = None,
+                device="cuda") -> Dict[str, Any]:
     """Random params with the JAX package's distributions, drawn from
-    ``generator`` on its own device and placed on ``device``."""
+    ``generator`` on its own device and placed on ``device``. On the
+    ``meta`` device (``repro.models.abstract_params``'s counterpart) every
+    leaf has its shape and dtype and no storage, nothing is drawn, and
+    ``generator`` may be None."""
+    if generator is None and not is_meta(device):
+        raise ValueError("init_params: a generator is needed off the meta "
+                         "device")
     dtype = dtype_of(cfg.param_dtype)
     p: Dict[str, Any] = {
         "embed": embed_init(generator, cfg.vocab_size, cfg.d_model, dtype,

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import ssd_scan_ref  # noqa: F401
 
-from .common import dense_init, matmul, normal_init, rms_norm
+from .common import dense_init, matmul, normal_init, rms_norm, uniform_init
 
 F32 = torch.float32
 
@@ -168,8 +168,7 @@ def init_mamba2_params(generator, cfg, dtype, device, lead=()):
     d_in, nheads, conv_dim = mamba2_dims(cfg)
     GN = cfg.ssm_groups * cfg.ssm_state
     dense = lambda i, o: dense_init(generator, i, o, dtype, device, lead=lead)
-    u = torch.rand((*lead, nheads), generator=generator, dtype=F32,
-                   device=generator.device).to(device)
+    u = uniform_init(generator, (*lead, nheads), device)
     dt0 = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
     heads = torch.arange(1, nheads + 1, dtype=F32, device=device)
     return {

@@ -620,6 +620,43 @@ def test_ssd_chunk_constant_matches_the_kernel():
     assert f"constexpr int kChunk = {ssd_module.CHUNK};" in src
 
 
+def test_ssd_shape_rule_constants_match_the_kernels():
+    """The constants behind ``fwd_workspace_floats`` / ``bwd_workspace_
+    floats``, the wrapper's one copy of the C entries' sizes and refusals."""
+    fwd = (build.CSRC / "ssd_scan.cu").read_text()
+    bwd = (build.CSRC / "ssd_scan_bwd.cu").read_text()
+    for name, value in (("kTile", ssd_module.WALK_TILE),
+                        ("kSumBlock", ssd_module.SUM_BLOCK),
+                        ("kSmallState", ssd_module.SMALL_STATE)):
+        assert f"constexpr int {name} = {value};" in fwd
+    assert f"constexpr int kT = {ssd_module.BWD_TILE};" in bwd
+    assert "constexpr int kThreads = 256;" in bwd
+    assert "constexpr int kPassElems = 4 * kThreads;" in bwd
+    assert ssd_module.BWD_PASS_ELEMS == 4 * 256
+    limit = str(ssd_module.GRID_LIMIT)
+    assert fwd.count(f">= {limit}") == 3 and bwd.count(f"<= {limit}") == 2
+
+
+@pytest.mark.parametrize("route,shape", [
+    ("walk", (1, 64 * 65534, 1, 1, 64, 32)),
+    ("chunks", (13106, 64, 4, 1, 64, 64)),
+    ("chunks", (1, 64, 4, 1, 64, 64))])
+def test_ssd_fwd_workspace_accepts_to_the_edge(route, shape):
+    assert ssd_module.fwd_workspace_floats(route, *shape) > 0
+
+
+@pytest.mark.parametrize("route,shape", [
+    ("walk", (1, 64 * 65534 + 1, 1, 1, 64, 32)),
+    ("walk", (1, 64, 1, 1, 64, 32 * 65534 + 1)),
+    ("walk", (1, 64, 3, 2, 64, 32)),
+    ("chunks", (13107, 64, 4, 1, 64, 64)),
+    ("chunks", (1, 64, 4, 1, 12, 64)),
+    ("chunks", (1, 64, 4, 1, 64, 65))])
+def test_ssd_fwd_workspace_refuses_what_the_entries_refuse(route, shape):
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        ssd_module.fwd_workspace_floats(route, *shape)
+
+
 # --------------------------------------------------------------------------
 # sLSTM scan
 # --------------------------------------------------------------------------
@@ -753,12 +790,27 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     assert sum(LAUNCHES.values()) == 0
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor on a device with no kernel and no plain version (an XPU's:
+    shape and dtype only; any op on it raises). ``meta`` is no longer
+    such a device: the wrappers evaluate it abstractly for the dry-run."""
+
+    @staticmethod
+    def __new__(cls, *shape):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, shape, dtype=torch.float32, device=torch.device("xpu"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} ran on a device with no kernel")
+
+
 def test_other_devices_raise():
-    q = torch.empty(1, 8, 4, 32, device="meta")
+    q = _Elsewhere(1, 8, 4, 32)
     with pytest.raises(ValueError, match="no kernel"):
         flash_attention(q, q, q)
     with pytest.raises(ValueError, match="no kernel"):
-        rmsnorm(q, torch.empty(32, device="meta"))
+        rmsnorm(q, _Elsewhere(32))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -853,13 +905,12 @@ def test_scan_wrappers_on_cpu_tensors_launch_nothing():
 
 
 def test_scan_wrappers_raise_on_other_devices():
-    x = torch.empty(1, 8, 2, 16, device="meta")
+    x = _Elsewhere(1, 8, 2, 16)
     with pytest.raises(ValueError, match="no kernel"):
-        ssd_scan(x, x[..., 0], x, x)
+        ssd_scan(x, _Elsewhere(1, 8, 2), x, x)
     with pytest.raises(ValueError, match="no kernel"):
-        slstm_scan(torch.empty(1, 8, 2, 64, device="meta"),
-                   torch.empty(2, 16, 64, device="meta"),
-                   torch.empty(2, 64, device="meta"))
+        slstm_scan(_Elsewhere(1, 8, 2, 64), _Elsewhere(2, 16, 64),
+                   _Elsewhere(2, 64))
 
 
 def test_build_compiles_the_scan_kernels():
@@ -1006,12 +1057,12 @@ def test_no_grad_calls_skip_the_functions():
 
 
 def test_backward_wrappers_raise_on_other_devices():
-    q = torch.empty(1, 8, 4, 32, device="meta")
-    lse = torch.empty(1, 4, 8, device="meta")
+    q = _Elsewhere(1, 8, 4, 32)
+    lse = _Elsewhere(1, 4, 8)
     with pytest.raises(ValueError, match="no kernel"):
         flash_attention_bwd(q, q, q, q, lse, q)
     with pytest.raises(ValueError, match="no kernel"):
-        rmsnorm_bwd(q, torch.empty(32, device="meta"), q)
+        rmsnorm_bwd(q, _Elsewhere(32), q)
 
 
 @pytest.mark.parametrize("entry,source,argtypes", [

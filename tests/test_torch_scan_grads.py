@@ -671,15 +671,29 @@ def test_backward_c_entries_take_what_the_wrappers_pass(source, entry,
         assert "constexpr int kScratchRow = kWarpRows + 4;" in code
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor on a device with no kernel and no plain version (an XPU's:
+    shape and dtype only; any op on it raises). ``meta`` is no longer
+    such a device: the wrappers evaluate it abstractly for the dry-run."""
+
+    @staticmethod
+    def __new__(cls, *shape):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, shape, dtype=torch.float32, device=torch.device("xpu"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} ran on a device with no kernel")
+
+
 def test_backward_wrappers_raise_on_other_devices():
-    x = torch.empty(1, 8, 2, 16, device="meta")
+    x = _Elsewhere(1, 8, 2, 16)
     with pytest.raises(ValueError, match="no kernel"):
-        ssd_module.ssd_scan_bwd(x, x[..., 0], x, x, x)
-    wx = torch.empty(1, 8, 2, 64, device="meta")
+        ssd_module.ssd_scan_bwd(x, _Elsewhere(1, 8, 2), x, x, x)
     with pytest.raises(ValueError, match="no kernel"):
-        slstm_module.slstm_scan_bwd(wx, torch.empty(2, 16, 64, device="meta"),
-                                    torch.empty(2, 64, device="meta"),
-                                    torch.empty(1, 8, 2, 16, device="meta"))
+        slstm_module.slstm_scan_bwd(_Elsewhere(1, 8, 2, 64),
+                                    _Elsewhere(2, 16, 64), _Elsewhere(2, 64),
+                                    _Elsewhere(1, 8, 2, 16))
 
 
 def _chip_smoke():
@@ -693,14 +707,14 @@ def _chip_smoke():
 def test_ssd_bwd_kernel_names_are_the_ones_chip_smoke_traces():
     """``chip_smoke.py`` splits ``ssd_scan_bwd``'s time by kernel name
     (``SSD_BWD_KERNELS``; the products' flops and the pass's bytes in
-    ``ssd_bwd_work``), logs the products' occupancy by name and counts the
+    ``kernels.work.ssd_bwd_products``), logs the products' occupancy by name and counts the
     Trainer's ``ssd_scan_bwd`` calls by ``ssd_bwd_da_kernel`` in its trace:
     each name it looks for is a kernel that ``ssd_scan_bwd.cu`` launches."""
     smoke = _chip_smoke()
     code = _code("ssd_scan_bwd.cu")
     launched = set(re.findall(r"\b(ssd_bwd_\w+_kernel)(?:<[^<>]*>)?<<<", code))
     assert launched == set(smoke.SSD_BWD_KERNELS)
-    assert set(smoke.ssd_bwd_work(1, 64, 1, 1, 8, 4)) <= launched
+    assert set(smoke.work.ssd_bwd_products(1, 64, 1, 1, 8, 4)) <= launched
     assert {f"ssd_bwd_{name}_kernel"
             for name in ssd_module.BWD_PRODUCTS} <= launched
     text = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()

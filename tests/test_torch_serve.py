@@ -179,8 +179,14 @@ def test_port_imports_neither_jax_nor_repro():
     # calls sys.exit), so the check leaves them out
     modules = [m.removesuffix(".__init__") for m in modules
                if not m.endswith(".__main__")]
-    code = ("import importlib, sys\n"
+    # the port's examples, imported from their files (main() not run)
+    examples = sorted(str(p) for p in
+                      (SRC.parent / "examples").glob("torch_*.py"))
+    code = ("import importlib, importlib.util, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
+            f"for i, p in enumerate({examples!r}):\n"
+            "    spec = importlib.util.spec_from_file_location(f'ex{i}', p)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
             "or m.split('.')[0] in ('msgpack', 'ml_dtypes'))\n"
@@ -189,13 +195,14 @@ def test_port_imports_neither_jax_nor_repro():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert len(modules) >= 15
+    assert len(modules) >= 15 and len(examples) == 5
     # the trainer's slice: nor msgpack or ml_dtypes, which the card's
     # machine does not have
     assert {"repro_torch.train.step", "repro_torch.train.trainer",
             "repro_torch.ckpt.checkpoint", "repro_torch.ckpt.msgpack",
             "repro_torch.optim.compress", "repro_torch.data.pipeline",
-            "repro_torch.launch.train"} <= set(modules)
+            "repro_torch.launch.train", "repro_torch.launch.steps",
+            "repro_torch.launch.dryrun"} <= set(modules)
     # the launch layer: the discrete-event reproduction, the sim and
     # real-process backends, the event protocol and the analyzer
     assert {"repro_torch.core.events", "repro_torch.core.cluster",
